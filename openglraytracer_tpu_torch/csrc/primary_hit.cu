@@ -1,0 +1,244 @@
+// Kernel A: the closest primary hit over a tile's survivor rows.
+//
+// Replaces openglraytracer_tpu/ops/pallas_culled.py::_primary_kernel in its
+// shared-pinhole mode (the pallas_call in culled_geometry_pallas). Per ray:
+// the closest hit over the tile's sphere rows, then its box rows, then every
+// plane, in ascending slot order. Tie rules: running minimum with strict <,
+// so the first survivor wins; boxes and planes merge with strict <, so
+// objects beat planes at equal t. Output per ray: t, the unit normal
+// (flipped for inside sphere hits, zero on a miss), the inside flag, the
+// material id, the global object id and the survivor slot (-1 for planes).
+//
+// Row layouts (written by ops/culled.py):
+//   sphere (T, Kp, 8):  [ocx ocy ocz qc mat gid valid pad], oc = o0 - c,
+//                       qc = oc.oc - r^2 (the pinhole origin is shared)
+//   box    (T, Kb, 24): [mins(3) maxs(3) ro(3) rot(9) mat gid valid pad(3)],
+//                       ro = R^T (o0 - pos)
+//   plane  (P, 16):     [n(3) off unit_n(3) off-n.o0 mat gid pad(6)]
+//   counts (T, 2) int32: [min(p_count, Kp), min(b_count, Kb)]
+//
+// What bounds it on the H100: memory traffic, not arithmetic. A ray reads
+// 12 bytes of direction and writes a 29-byte hit record; a survivor costs
+// about 25 float ops, and at the c3 cell a tile keeps 0.76 spheres on
+// average. The design keeps each row read once per block: one thread per
+// ray, blocks of 256 rays inside one tile, and the tile's rows staged in
+// shared memory in chunks, so every tile loops to its own survivor count
+// with no padding to a static K.
+#include "common.cuh"
+
+namespace oglrt {
+namespace {
+
+constexpr int kSphCols = 8;
+constexpr int kBoxCols = 24;
+constexpr int kPlnCols = 16;
+constexpr int kSphChunk = 64;   // sphere rows staged per pass
+constexpr int kBoxChunk = 32;   // box rows staged per pass
+
+struct Best {
+  float t, nx, ny, nz;
+  int ins, flp, mat, gid, slot;
+};
+
+// The sphere quadratic cancels at nearly every hit (qd < 1e-3 qb^2 for the
+// c3 grid), so the rounding of qb and qd sets t to about 1e-5 relative.
+// They are fused multiply-adds, written out with fmaf (--fmad=false fuses
+// nothing by itself) at the places where XLA's CPU compiler fuses the
+// reference's expressions, so that t agrees with the JAX package's.
+__device__ __forceinline__ void fold_sphere(const float* row, int j, float dx,
+                                            float dy, float dz, float qa,
+                                            bool qa_ok, float inv_2qa,
+                                            Best& b) {
+  const float ocx = row[0], ocy = row[1], ocz = row[2], qc = row[3];
+  const float qb = 2.0f * fmaf(dz, ocz, fmaf(dx, ocx, dy * ocy));
+  const float qd = fmaf(qb, qb, -(4.0f * qa * qc));
+  bool ok = (qd >= 0.0f) && qa_ok && (row[6] > 0.5f);
+  const float sq = ok ? sqrtf(fmaxf(qd, kSqrtEps)) : 0.0f;
+  const float t1 = (-qb + sq) * inv_2qa;
+  const float t2 = (-qb - sq) * inv_2qa;
+  const float t_near = fminf(t1, t2);
+  const float t_far = fmaxf(t1, t2);
+  ok = ok && (t_far >= 0.0f);
+  const bool is_in = ok && (t_near < 0.0f);
+  float t = is_in ? t_far : t_near;
+  ok = ok && (t > 0.0f);
+  t = ok ? t : kInfT;
+  if (t < b.t) {
+    // u = (o0 - c) + t d = p - c, normalized at the end
+    b.t = t;
+    b.nx = fmaf(t, dx, ocx);
+    b.ny = fmaf(t, dy, ocy);
+    b.nz = fmaf(t, dz, ocz);
+    b.ins = is_in;
+    b.flp = is_in;
+    b.mat = static_cast<int>(row[4]);
+    b.gid = static_cast<int>(row[5]);
+    b.slot = j;
+  }
+}
+
+__device__ __forceinline__ void fold_box(const float* row, int j, float dx,
+                                         float dy, float dz, Best& b) {
+  const float bm0 = row[0], bm1 = row[1], bm2 = row[2];
+  const float bx0 = row[3], bx1 = row[4], bx2 = row[5];
+  const float rox = row[6], roy = row[7], roz = row[8];
+  const float r00 = row[9], r01 = row[10], r02 = row[11];
+  const float r10 = row[12], r11 = row[13], r12 = row[14];
+  const float r20 = row[15], r21 = row[16], r22 = row[17];
+  // world -> local direction: R^T d
+  const float rdx = r00 * dx + r10 * dy + r20 * dz;
+  const float rdy = r01 * dx + r11 * dy + r21 * dz;
+  const float rdz = r02 * dx + r12 * dy + r22 * dz;
+  const float ix = inv_safe(rdx), iy = inv_safe(rdy), iz = inv_safe(rdz);
+  const float tax = (bm0 - rox) * ix, tbx = (bx0 - rox) * ix;
+  const float tay = (bm1 - roy) * iy, tby = (bx1 - roy) * iy;
+  const float taz = (bm2 - roz) * iz, tbz = (bx2 - roz) * iz;
+  const float t1x = fminf(tax, tbx), t2x = fmaxf(tax, tbx);
+  const float t1y = fminf(tay, tby), t2y = fmaxf(tay, tby);
+  const float t1z = fminf(taz, tbz), t2z = fmaxf(taz, tbz);
+  const float t_near = fmaxf(t1x, fmaxf(t1y, t1z));
+  const float t_far = fminf(t2x, fminf(t2y, t2z));
+  bool ok = (t_near < t_far) && (t_far > 0.0f) && (row[20] > 0.5f);
+  const bool is_in = ok && (t_near < 0.0f);
+  float t = is_in ? t_far : t_near;
+  ok = ok && (t > 0.0f);
+  t = ok ? t : kInfT;
+  if (t < b.t) {
+    // face pick: exact equality with the winning slab boundary, y before z
+    const float by = is_in ? t2y : t1y;
+    const float bz = is_in ? t2z : t1z;
+    const bool face_y = t == by;
+    const bool face_z = !face_y && (t == bz);
+    const bool face_x = !(face_y || face_z);
+    const float rd_face = face_y ? rdy : (face_z ? rdz : rdx);
+    const float sgn = rd_face > 0.0f ? -1.0f : 1.0f;
+    const float nlx = face_x ? sgn : 0.0f;
+    const float nly = face_y ? sgn : 0.0f;
+    const float nlz = face_z ? sgn : 0.0f;
+    b.t = t;
+    b.nx = r00 * nlx + r01 * nly + r02 * nlz;
+    b.ny = r10 * nlx + r11 * nly + r12 * nlz;
+    b.nz = r20 * nlx + r21 * nly + r22 * nlz;
+    b.ins = is_in;
+    b.flp = 0;
+    b.mat = static_cast<int>(row[18]);
+    b.gid = static_cast<int>(row[19]);
+    b.slot = j;
+  }
+}
+
+__device__ __forceinline__ void fold_plane(const float* row, float dx,
+                                           float dy, float dz, Best& b) {
+  const float nd = row[0] * dx + row[1] * dy + row[2] * dz;
+  float t = row[7] * inv_safe(nd);
+  const bool ok = (fabsf(nd) > 1.0e-9f) && (t > 0.0f);
+  t = ok ? t : kInfT;
+  if (t < b.t) {   // strict: objects beat planes at equal t
+    const float s = nd > 0.0f ? -1.0f : 1.0f;
+    b.t = t;
+    b.nx = row[4] * s;
+    b.ny = row[5] * s;
+    b.nz = row[6] * s;
+    b.ins = 0;
+    b.flp = 0;
+    b.mat = static_cast<int>(row[8]);
+    b.gid = static_cast<int>(row[9]);
+    b.slot = -1;
+  }
+}
+
+// grid (T, ceil(tile_p / kBlock)); block kBlock rays of one tile
+__global__ void __launch_bounds__(kBlock) primary_hit_kernel(
+    const float* __restrict__ dirs, const float* __restrict__ sph,
+    const float* __restrict__ box, const float* __restrict__ pln,
+    const int* __restrict__ cnt, int tile_p, int kp, int kb, int n_pln,
+    float* __restrict__ t_out, float* __restrict__ n_out,
+    bool* __restrict__ ins_out, int* __restrict__ mat_out,
+    int* __restrict__ gid_out, int* __restrict__ slot_out) {
+  __shared__ float s_sph[kSphChunk * kSphCols];
+  __shared__ float s_box[kBoxChunk * kBoxCols];
+
+  const int tile = blockIdx.x;
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = p < tile_p;
+  const long long r = static_cast<long long>(tile) * tile_p + p;
+
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (live) {
+    dx = dirs[3 * r];
+    dy = dirs[3 * r + 1];
+    dz = dirs[3 * r + 2];
+  }
+  const float qa = fmaf(dz, dz, fmaf(dx, dx, dy * dy));   // see fold_sphere
+  const bool qa_ok = qa > kDivEps;
+  const float inv_2qa = 0.5f / (qa < kDivEps ? kDivEps : qa);
+
+  Best b = {kInfT, 0.0f, 0.0f, 0.0f, 0, 0, 0, -1, 0};
+
+  // the trip counts are uniform over the block, so every thread reaches
+  // every barrier
+  const int np = min(cnt[2 * tile], kp);
+  const float* tile_sph = sph + static_cast<long long>(tile) * kp * kSphCols;
+  for (int base = 0; base < np; base += kSphChunk) {
+    const int m = min(kSphChunk, np - base);
+    __syncthreads();   // the previous chunk is consumed
+    for (int i = threadIdx.x; i < m * kSphCols; i += blockDim.x)
+      s_sph[i] = tile_sph[base * kSphCols + i];
+    __syncthreads();
+    if (live)
+      for (int jj = 0; jj < m; ++jj)
+        fold_sphere(&s_sph[jj * kSphCols], base + jj, dx, dy, dz, qa, qa_ok,
+                    inv_2qa, b);
+  }
+
+  const int nb = min(cnt[2 * tile + 1], kb);
+  const float* tile_box = box + static_cast<long long>(tile) * kb * kBoxCols;
+  for (int base = 0; base < nb; base += kBoxChunk) {
+    const int m = min(kBoxChunk, nb - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < m * kBoxCols; i += blockDim.x)
+      s_box[i] = tile_box[base * kBoxCols + i];
+    __syncthreads();
+    if (live)
+      for (int jj = 0; jj < m; ++jj)
+        fold_box(&s_box[jj * kBoxCols], base + jj, dx, dy, dz, b);
+  }
+
+  if (!live) return;
+  for (int k = 0; k < n_pln; ++k) fold_plane(pln + k * kPlnCols, dx, dy, dz, b);
+
+  const float hit_f = b.t < kMissT ? 1.0f : 0.0f;
+  const float inv_len =
+      rsqrtf(fmaxf(b.nx * b.nx + b.ny * b.ny + b.nz * b.nz, kSqrtEps));
+  const float sgn = (b.flp ? -inv_len : inv_len) * hit_f;
+  t_out[r] = b.t;
+  n_out[3 * r] = b.nx * sgn;
+  n_out[3 * r + 1] = b.ny * sgn;
+  n_out[3 * r + 2] = b.nz * sgn;
+  ins_out[r] = b.ins != 0;
+  mat_out[r] = b.mat;
+  gid_out[r] = b.gid;
+  slot_out[r] = b.slot;
+}
+
+}  // namespace
+}  // namespace oglrt
+
+extern "C" int oglrt_primary_hit(const float* dirs, const float* sph,
+                                 const float* box, const float* pln,
+                                 const int* cnt, int n_tiles, int tile_p,
+                                 int kp, int kb, int n_pln, float* t,
+                                 float* n, bool* inside, int* mat, int* gid,
+                                 int* slot, void* stream) {
+  if (n_tiles == 0 || tile_p == 0) return 0;
+  const dim3 grid(n_tiles, (tile_p + oglrt::kBlock - 1) / oglrt::kBlock);
+  oglrt::primary_hit_kernel<<<grid, oglrt::kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      dirs, sph, box, pln, cnt, tile_p, kp, kb, n_pln, t, n, inside, mat, gid,
+      slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* oglrt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

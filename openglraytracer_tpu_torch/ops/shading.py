@@ -1,0 +1,86 @@
+"""Phong ADS shading math.
+
+Port of the parts of ``openglraytracer_tpu/ops/shading.py`` that the culled
+forward path uses: the packed 20-column material table, the static mask of
+lights that need shadow rays, and ``phong_core`` — the lighting math over
+raw per-ray arrays, which is also the plain version of the fused shade
+kernel (``ops/shade.py``). Reference quirks kept: the shadow segment is the
+unnormalized light_pos - p, and the output is ``phong.rgb * phong.a``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from openglraytracer_tpu_torch.models.scene import Scene
+from openglraytracer_tpu_torch.ops.intersect import _safe_normalize
+
+_POW_EPS = 1.0e-12
+SHADOW_EPS = 0.01  # shadow-ray origin offset along the normal
+
+
+def _safe_pow(base, exponent):
+    """pow(max(base, 0), e), written as exp(e * log(max(base, eps)))."""
+    val = torch.exp(exponent * torch.log(torch.clamp(base, min=_POW_EPS)))
+    return torch.where(base > 0.0, val, 0.0)
+
+
+def material_table(scene: Scene):
+    """All 20 material columns packed into one (K, 20) table:
+    [ambient(4) diffuse(4) specular(4) emissive(4) shininess reflectivity
+    transparency refraction_index]."""
+    m = scene.materials
+    return torch.cat([
+        m.ambient, m.diffuse, m.specular, m.emissive,
+        m.shininess[:, None], m.reflectivity[:, None],
+        m.transparency[:, None], m.refraction_index[:, None],
+    ], dim=-1)
+
+
+def static_shadow_mask(scene: Scene) -> tuple:
+    """Which lights need shadow rays: a light with zero diffuse AND zero
+    specular cannot change the image when occluded (its ambient term is
+    added regardless), so its shadow casts are skipped. Reads the light
+    table on the host: call it once, outside a frame."""
+    d = scene.lights.diffuse.detach().cpu().numpy()
+    s = scene.lights.specular.detach().cpu().numpy()
+    return tuple(bool((d[i] != 0.0).any() or (s[i] != 0.0).any())
+                 for i in range(scene.lights.count))
+
+
+def phong_core(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
+    """ADS Phong from raw arrays. mat_rows (R, 20) packed material rows
+    (material_table layout); lpos/lamb/ldiff/lspec the (L, ...) light
+    columns; dirs/p/n (R, 3); occluded (R, L) bool. Returns (R, 3)."""
+    ambient = torch.zeros_like(mat_rows[..., 0:4])    # (R, 4)
+    diffuse = torch.zeros_like(ambient)
+    specular = torch.zeros_like(ambient)
+    m_amb = mat_rows[..., 0:4]
+    m_diff = mat_rows[..., 4:8]
+    m_spec = mat_rows[..., 8:12]
+    m_emis = mat_rows[..., 12:16]
+    m_shin = mat_rows[..., 16]
+
+    view_dir = _safe_normalize(-dirs)
+
+    for j in range(lpos.shape[0]):
+        ambient = ambient + lamb[j] * m_amb
+
+        to_light = lpos[j] - p                # unnormalized segment
+        light_dir = _safe_normalize(to_light)
+        lit = (~occluded[:, j])[:, None].to(dirs.dtype)
+
+        # reflect(-light_dir, n) = d - 2 dot(n, d) n with d = -light_dir
+        ld = -light_dir
+        light_ref = _safe_normalize(
+            ld - 2.0 * torch.sum(n * ld, dim=-1, keepdim=True) * n)
+        cos_theta = torch.sum(light_dir * n, dim=-1, keepdim=True)
+        cos_phi = torch.sum(view_dir * light_ref, dim=-1, keepdim=True)
+
+        diffuse = diffuse + lit * ldiff[j] * m_diff \
+            * torch.clamp(cos_theta, min=0.0)
+        specular = specular + lit * lspec[j] * m_spec \
+            * _safe_pow(cos_phi, m_shin[:, None])
+
+    phong = ambient + diffuse + specular + m_emis
+    return phong[..., :3] * phong[..., 3:4]   # rgb * alpha
