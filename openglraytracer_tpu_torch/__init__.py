@@ -7,10 +7,12 @@ plain PyTorch version of the same function beside it. On a CPU tensor a kernel
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-This slice is the forward render of engine ``culled_pallas``: ray generation,
-the tile-cone broad phase, the primary-hit and shadow-occlusion narrow-phase
-kernels, survivor-routed materials and the fused Phong shade kernel. Other
-engines, bounces and gradients are listed in ROADMAP.md.
+The port covers engine ``culled_pallas`` at depth 0, forward and backward:
+ray generation, the tile-cone broad phase, the primary-hit and
+shadow-occlusion narrow-phase kernels, survivor-routed materials and the fused
+Phong shade kernel; the analytic winner backward of the narrow phase, the
+shade backward kernel and the inverse-rendering fit (``train/inverse.py``).
+Other engines and bounces are listed in ROADMAP.md.
 
 The package imports neither ``jax`` nor ``openglraytracer_tpu``.
 """

@@ -1,16 +1,19 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Port of the ``configs`` and ``render`` commands of
+Port of the ``configs``, ``render`` and ``fit`` commands of
 ``openglraytracer_tpu/cli.py``:
 
   python -m openglraytracer_tpu_torch.cli configs
   python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
       --cull-tile 64 --out c3.png --time
+  python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
+      --height 256 --steps 60 --lr 0.02
 
-``render`` takes the reference's flags where they apply, plus ``--device``
-(default ``cuda``; there is no silent fall back to the CPU). Flags for what
-this package does not do yet (other engines, bounces, child culling, the
-stack bounce engine) are rejected with a message.
+``render`` and ``fit`` take the reference's flags where they apply, plus
+``--device`` (default ``cuda``; there is no silent fall back to the CPU).
+Flags for what this package does not do yet (other engines, bounces, child
+culling, the stack bounce engine; PNG targets, soft, sharded and
+checkpointed fits) are rejected with a message.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import sys
+import time
 
 import torch
 
@@ -133,12 +137,13 @@ def cmd_render(args):
                      zip(("kp", "ks", "hot_m", "kb", "ksb"), spec[1:])))
     kwargs = dict(depth=depth, engine="culled_pallas", cull=spec,
                   shadow_lights=shadow_lights)
-    with _profiled(args.profile_dir, device):
+    with _profiled(args.profile_dir, device), torch.no_grad():
         img = render(scene, cam, h, w, **kwargs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     if args.time:
-        dt = time_fn(lambda: render(scene, cam, h, w, **kwargs))
+        with torch.no_grad():
+            dt = time_fn(lambda: render(scene, cam, h, w, **kwargs))
         n_rays = rays_per_frame(h, w, scene.lights.count, depth,
                                 shadow_lights=shadow_lights)
         MetricsLogger("render").log(
@@ -150,6 +155,80 @@ def cmd_render(args):
         print(f"wrote scene+camera JSON {args.save_scene}")
     save_png(img, args.out)
     print(f"wrote {args.out} ({w}x{h}, depth={depth})")
+
+
+def _reject_unported_fit(args):
+    if args.target or args.scene:
+        raise SystemExit("--target/--scene fits to a PNG are not yet ported "
+                         "(they need utils/image.load_png, slice 9 of "
+                         "ROADMAP.md); the default synthetic fit needs "
+                         "neither")
+    for flag, value, what in (
+            ("--soft", args.soft, "the soft-coverage forward (slice 7)"),
+            ("--sharded", args.sharded, "the tile-sharded fit (slice 8)"),
+            ("--checkpoint-dir", args.checkpoint_dir,
+             "checkpoints (slice 7)"),
+            ("--row-block", args.row_block, "row blocks (slice 7)")):
+        if value:
+            raise SystemExit(f"{flag}: {what} is not yet ported (see "
+                             "ROADMAP.md)")
+    if args.engine != "culled_pallas":
+        raise SystemExit(f"--engine {args.engine} is not yet ported to "
+                         "PyTorch/CUDA; this package fits with --engine "
+                         "culled_pallas (see ROADMAP.md)")
+    if args.depth > 0:
+        raise SystemExit(f"depth {args.depth}: reflection/refraction bounces "
+                         "are not yet ported; fit with --depth 0 "
+                         "(see ROADMAP.md)")
+
+
+def cmd_fit(args):
+    """The synthetic fit: render sphere_grid_scene(--grid-side, seed=1) as
+    the target, perturb the spheres' centers and radii with noise from a
+    torch.Generator seeded with 0, and fit back."""
+    from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
+    from openglraytracer_tpu_torch.models.scene import save_scene
+    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.train.inverse import FitConfig, fit
+    from openglraytracer_tpu_torch.utils.image import save_png
+
+    _reject_unported_fit(args)
+    device = _device(args.device)
+    h, w, t = args.height or 128, args.width or 128, args.cull_tile
+    if h % t or w % t:
+        raise SystemExit(f"--cull-tile {t} must divide the fit resolution "
+                         f"{w}x{h}")
+    scene_true, cam = sphere_grid_scene(args.grid_side, seed=1,
+                                        device=device)
+    # generous headroom: the scene moves during the fit
+    cull = suggest_cull_config(scene_true, cam, h, w, (t, t), headroom=2.0)
+    print(f"cull: {cull}")
+    with torch.no_grad():
+        target = render(scene_true, cam, h, w, cull=cull)
+    gen = torch.Generator().manual_seed(0)
+    sph = scene_true.spheres
+    noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
+    noise_r = torch.randn(sph.radius.shape, generator=gen).to(device)
+    scene_init = scene_true._replace(spheres=sph._replace(
+        center=sph.center + 0.3 * noise_c,
+        radius=torch.clamp(sph.radius + 0.1 * noise_r, min=0.1)))
+
+    cfg = FitConfig(height=h, width=w, depth=args.depth, steps=args.steps,
+                    learning_rate=args.lr,
+                    trainable=tuple(args.trainable.split(",")), cull=cull)
+    t0 = time.time()
+    with _profiled(args.profile_dir, device):
+        fitted, losses = fit(scene_init, target, cam, cfg)
+    print(f"fit: {len(losses)} logged losses, first {losses[0][1]:.3e}, "
+          f"final {losses[-1][1]:.3e}, {time.time() - t0:.1f}s")
+    if args.save_scene:
+        save_scene(fitted, args.save_scene, camera=cam)
+        print(f"wrote fitted scene JSON {args.save_scene}")
+    if args.out:
+        with torch.no_grad():
+            save_png(render(fitted, cam, h, w, cull=cull), args.out)
+        print(f"wrote {args.out}")
 
 
 def main(argv=None):
@@ -185,6 +264,41 @@ def main(argv=None):
     r.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     r.set_defaults(fn=cmd_render)
+
+    f = sub.add_parser("fit", help="inverse-rendering fit")
+    f.add_argument("--grid-side", type=int, default=4)
+    f.add_argument("--target", default=None,
+                   help="not yet ported (rejected): fit to a PNG")
+    f.add_argument("--scene", default=None,
+                   help="not yet ported (rejected): initial scene JSON for "
+                        "--target fits")
+    f.add_argument("--width", type=int, default=None)
+    f.add_argument("--height", type=int, default=None)
+    f.add_argument("--depth", type=int, default=0)
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--lr", type=float, default=1e-2)
+    f.add_argument("--trainable",
+                   default="spheres.center,spheres.radius,materials.diffuse")
+    f.add_argument("--sharded", action="store_true",
+                   help="not yet ported (rejected)")
+    f.add_argument("--engine", default="culled_pallas", choices=ENGINES,
+                   help="only culled_pallas is ported")
+    f.add_argument("--soft", default=None, metavar="BW,GAMMA",
+                   help="not yet ported (rejected)")
+    f.add_argument("--cull-tile", type=int, default=32)
+    f.add_argument("--row-block", type=int, default=None,
+                   help="not yet ported (rejected)")
+    f.add_argument("--checkpoint-dir", default=None,
+                   help="not yet ported (rejected)")
+    f.add_argument("--out", default=None,
+                   help="write the fitted scene's render here (PNG)")
+    f.add_argument("--save-scene", default=None,
+                   help="write the fitted scene+camera as JSON")
+    f.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the fit here")
+    f.add_argument("--device", default="cuda",
+                   help="torch device to fit on (default cuda)")
+    f.set_defaults(fn=cmd_fit)
 
     c = sub.add_parser("configs", help="list builtin configs")
     c.set_defaults(fn=cmd_configs)

@@ -1,6 +1,7 @@
 """Build, load and call the CUDA kernels under ``csrc/``.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use into ``_build/<digest>/`` beside this file (listed in
 .gitignore), where the digest covers the sources and the flags, so a changed
@@ -31,11 +32,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("primary_hit.cu", "shadow_occlusion.cu", "phong_shade.cu")
+SOURCES = ("primary_hit.cu", "shadow_occlusion.cu", "phong_shade.cu",
+           "phong_shade_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIB_NAME = "liboglrt_kernels.so"
 
 # Launch count of each kernel wrapper, by wrapper name: a wrapper adds one
@@ -54,6 +57,8 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "oglrt_phong_shade": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P,
                           _P],
+    "oglrt_phong_shade_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                              _I, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -74,7 +79,7 @@ def find_nvcc() -> str:
 
 def build_dir() -> Path:
     """_build/<digest of the sources and flags>."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -82,23 +87,46 @@ def build_dir() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernels unless this digest is built already. Returns the
-    library's path and nvcc's output (ptxas register and shared-memory
-    use per kernel; empty when the library was already built)."""
+    """Compile the kernels unless this digest is built already: one nvcc
+    per source, run in parallel, then one link. Returns the library's path
+    and nvcc's output (ptxas register and shared-memory use per kernel;
+    empty when the library was already built)."""
     out = build_dir() / LIB_NAME
     if out.exists():
         return out, ""
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = os.getpid()
+    objs = [out.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES]
+    jobs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+               str(CSRC / src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode:
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{text}")
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed with exit code "
+                               f"{proc.returncode}:\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)    # atomic: a concurrent build loses nothing
-    return out, proc.stdout + proc.stderr
+    return out, "".join(logs) + proc.stdout + proc.stderr
 
 
 @functools.cache

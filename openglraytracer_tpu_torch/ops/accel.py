@@ -3,8 +3,9 @@
 Port of the parts of ``openglraytracer_tpu/ops/accel.py`` that engine
 ``culled_pallas`` runs: the tile layout, the conservative cone tests, top-K
 survivor compaction, the survivor tables and records, the dense hot-tile
-shadow pass, survivor-routed material rows and the host-side sizing of the
-cull spec.
+shadow pass, survivor-routed material rows, the tile-structured analytic
+backward of the narrow phase (``_culled_bwd``) and the host-side sizing and
+overflow recount of the cull spec.
 
   1. Partition the image into pixel tiles. All primary rays of a tile share
      the camera origin and span a narrow cone: axis = mean direction,
@@ -349,6 +350,159 @@ def culled_material_rows(scene: Scene, hit: Hit, aux: CullAux, tile_p: int):
 
 
 # ---------------------------------------------------------------------------
+# Tile-structured analytic backward of the culled narrow phase
+# ---------------------------------------------------------------------------
+
+def _winner_rows(table, surv_idx, j_local):
+    """(T*P, F) row of each ray's winner through the (T, K) survivor list;
+    zeros where j_local < 0 (the winner is of another kind)."""
+    rows = _gather_tile_rows(table, surv_idx)                # (T, K, F)
+    t_tiles, tile_p = j_local.shape
+    zero = torch.zeros((t_tiles, tile_p, table.shape[-1]), dtype=table.dtype,
+                       device=table.device)
+    return _select_winner_rows(rows, j_local, zero).reshape(
+        t_tiles * tile_p, -1)
+
+
+def _scatter_winner_rows(contrib, surv_idx, j_local, n_obj: int):
+    """Transpose of _winner_rows: per-ray cotangents (T*P, F), zero on rays
+    whose winner is not in this list, summed into (n_obj, F). Stage 1 adds
+    rays into their tile's survivor slots, stage 2 adds the T*K slots into
+    the objects; both are index_add_ (the reference's one-hot contractions)."""
+    t_tiles, k = surv_idx.shape
+    base = torch.arange(t_tiles, device=contrib.device)[:, None] * k
+    slot = (base + j_local.clamp(min=0)).reshape(-1)
+    g_rows = torch.zeros((t_tiles * k, contrib.shape[-1]), dtype=contrib.dtype,
+                         device=contrib.device).index_add_(0, slot, contrib)
+    return torch.zeros((n_obj, contrib.shape[-1]), dtype=contrib.dtype,
+                       device=contrib.device).index_add_(
+                           0, surv_idx.reshape(-1), g_rows)
+
+
+def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
+                tile_p: int, gt, gp, gn, need_rays: bool = False):
+    """Analytic winner-only backward of the culled narrow phase. Port of
+    ``accel._culled_bwd`` (reused verbatim by the reference's
+    ``culled_pallas_geometry_op``).
+
+    Each ray's winner parameters are gathered through the (T, K) survivor
+    lists, one candidate per ray is replayed (geometry._winner_recompute)
+    and differentiated with torch.autograd, and the per-ray cotangents are
+    added back through the same lists. Box rotations are differentiated per
+    box through euler_rotation_3x3b, not per ray. On a miss the forward's
+    p is the origin, so p's cotangent goes to the origins.
+
+    gt (R,), gp (R, 3), gn (R, 3): cotangents of hit.t, hit.p, hit.n.
+    Returns (g_center (N, 3), g_radius (N,), g_mins, g_maxs, g_position,
+    g_angles (M, 3), g_normal (P, 3), g_offset (P,), g_origins, g_dirs);
+    the last two are None unless need_rays."""
+    from openglraytracer_tpu_torch.ops.geometry import _winner_recompute
+    from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
+
+    sph, box, pln = scene.spheres, scene.boxes, scene.planes
+    n_sph, n_box, n_pln = sph.count, box.count, pln.count
+    r_total = origins.shape[0]
+    dtype, device = origins.dtype, origins.device
+
+    idx = hit.obj_id
+    hm = hit.hit
+    none = torch.zeros_like(hm)
+    is_sph = (hm & (idx >= 0) & (idx < n_sph)) if n_sph else none
+    is_box = (hm & (idx >= n_sph) & (idx < n_sph + n_box)) if n_box \
+        else none
+
+    if n_sph:
+        win = _winner_rows(torch.cat([sph.center, sph.radius[:, None]], -1),
+                           aux.p_idx, aux.j_local)          # (R, 4)
+        c = win[:, 0:3]
+        r = torch.where(is_sph, win[:, 3], 1.0)
+    else:
+        c = torch.zeros_like(origins)
+        r = torch.ones(r_total, dtype=dtype, device=device)
+
+    box_params = None
+    if n_box:
+        with torch.enable_grad():
+            angles = box.angles.detach().requires_grad_()
+            rot_table = euler_rotation_3x3b(angles).reshape(n_box, 9)
+        btab = torch.cat([box.mins, box.maxs, box.position,
+                          rot_table.detach()], dim=-1)     # (M, 18)
+        winb = _winner_rows(btab, aux.b_idx, aux.jb_local)  # (R, 18)
+        box_params = [winb[:, 0:3], winb[:, 3:6], winb[:, 6:9],
+                      winb[:, 9:18].reshape(-1, 3, 3)]
+
+    if n_pln:
+        pid = torch.clamp(idx - n_sph - n_box, 0, n_pln - 1)
+        pn = torch.index_select(pln.normal, 0, pid)
+        poff = torch.index_select(pln.offset, 0, pid)
+    else:
+        pid = torch.zeros_like(idx)
+        pn = torch.zeros_like(origins)
+        pn[:, 2] = 1.0
+        poff = torch.zeros(r_total, dtype=dtype, device=device)
+
+    live = hm[:, None]
+    gt = torch.where(hm, gt, 0.0)
+    gn = torch.where(live, gn, 0.0)
+    gp_direct_o = torch.where(live, 0.0, gp)
+    gp = torch.where(live, gp, 0.0)
+
+    # replay one candidate per ray and take its VJP
+    inputs = [c, r, pn, poff] + (box_params or []) \
+        + ([origins, dirs] if need_rays else [])
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        o_, d_ = (leaves[-2:] if need_rays
+                  else (origins.detach(), dirs.detach()))
+        bp = leaves[4:8] if n_box else None
+        t, p, n = _winner_recompute(leaves[0], leaves[1], leaves[2],
+                                    leaves[3], o_, d_, is_sph, hit.inside,
+                                    hm, box_params=bp, is_box=is_box)
+        grads = torch.autograd.grad((t, p, n), leaves, (gt, gp, gn),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    gc, gr, gpn, gpoff = grads[:4]
+
+    if n_sph:
+        contrib = torch.where(is_sph[:, None],
+                              torch.cat([gc, gr[:, None]], -1), 0.0)
+        g_sph = _scatter_winner_rows(contrib, aux.p_idx, aux.j_local, n_sph)
+        g_center, g_radius = g_sph[:, :3], g_sph[:, 3]
+    else:
+        g_center, g_radius = torch.zeros_like(sph.center), \
+            torch.zeros_like(sph.radius)
+
+    if n_box:
+        gbm, gbx, gbp, gbrot = grads[4:8]
+        g_brow = torch.where(is_box[:, None], torch.cat(
+            [gbm, gbx, gbp, gbrot.reshape(-1, 9)], dim=-1), 0.0)
+        g_box = _scatter_winner_rows(g_brow, aux.b_idx, aux.jb_local, n_box)
+        (g_angles,) = torch.autograd.grad(rot_table, angles, g_box[:, 9:18])
+        g_mins, g_maxs, g_pos = g_box[:, 0:3], g_box[:, 3:6], g_box[:, 6:9]
+    else:
+        g_mins, g_maxs, g_pos, g_angles = (torch.zeros_like(x) for x in (
+            box.mins, box.maxs, box.position, box.angles))
+
+    if n_pln:
+        pln_mask = hm & ~is_sph & ~is_box
+        g_pln = torch.where(pln_mask[:, None],
+                            torch.cat([gpn, gpoff[:, None]], -1), 0.0)
+        g_pln = torch.zeros((n_pln, 4), dtype=dtype, device=device) \
+            .index_add_(0, pid, g_pln)
+        g_normal, g_offset = g_pln[:, :3], g_pln[:, 3]
+    else:
+        g_normal, g_offset = torch.zeros_like(pln.normal), \
+            torch.zeros_like(pln.offset)
+
+    go = gd = None
+    if need_rays:
+        go, gd = grads[-2] + gp_direct_o, grads[-1]
+    return (g_center, g_radius, g_mins, g_maxs, g_pos, g_angles, g_normal,
+            g_offset, go, gd)
+
+
+# ---------------------------------------------------------------------------
 # Host-side K sizing
 # ---------------------------------------------------------------------------
 
@@ -418,6 +572,43 @@ def cull_counts(scene: Scene, camera, height: int, width: int,
     s_count = torch.stack(cols) if cols else empty
     sb_count = torch.stack(bcols) if bcols else empty
     return p_count, s_count, pb_count, sb_count
+
+
+def check_cull_overflow(scene: Scene, camera, height: int, width: int,
+                        cull, shadow_lights: tuple | None = None):
+    """Recount survivors for the current scene against a fixed cull spec
+    ``((th, tw), kp, ks[, hot_m[, kb, ksb]])``: None when the spec still
+    covers every tile, else a dict of the observed maxima and re-suggested
+    sizes. Advisory and host-side (the fit loop calls it at log points
+    after the device-side overflow counter fired)."""
+    (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
+    p_count, s_count, pb_count, sb_count = (
+        x.cpu().numpy() for x in cull_counts(scene, camera, height, width,
+                                             (th, tw), shadow_lights))
+    n_box = int(scene.boxes.count)
+    kb = min(kb, n_box) if kb > 0 else n_box
+    ksb = min(ksb, n_box) if ksb > 0 else n_box
+    max_p = int(np.max(p_count))
+    if s_count.size:
+        counts = np.sort(s_count, axis=-1)[:, ::-1]         # (L, T) desc
+        # hot tiles get the dense pass: only the (hot_m+1)-th largest count
+        # onward must fit in ks
+        cold_max = int(counts[:, min(hot_m, counts.shape[-1] - 1)].max()) \
+            if hot_m < counts.shape[-1] else 0
+    else:
+        cold_max = 0
+    max_pb = int(np.max(pb_count)) if n_box else 0
+    max_sb = int(np.max(sb_count)) if (n_box and sb_count.size) else 0
+    if max_p <= kp and cold_max <= ks and max_pb <= kb and max_sb <= ksb:
+        return None
+    return {"max_primary": max_p, "kp": kp,
+            "max_shadow_cold": cold_max, "ks": ks,
+            "max_box_primary": max_pb, "kb": kb,
+            "max_box_shadow": max_sb, "ksb": ksb,
+            "suggest_kp": max(kp, -(-max_p // 8) * 8),
+            "suggest_ks": max(ks, -(-cold_max // 8) * 8),
+            "suggest_kb": max(kb, max_pb),
+            "suggest_ksb": max(ksb, max_sb)}
 
 
 def suggest_cull_config(scene: Scene, camera, height: int, width: int,

@@ -22,9 +22,14 @@ arguments, vectorized over rays, looping over survivor slots in the
 kernel's fold order) on CPU tensors and launches the kernel on CUDA
 tensors, counting launches in ``kernels.LAUNCHES``.
 
+``culled_geometry_op`` is the differentiable entry (the counterpart of the
+reference's ``culled_pallas_geometry_op``): its forward is
+``culled_geometry`` and its backward the tile-structured winner replay of
+``ops/accel.py _culled_bwd``. Only t, p and n carry gradients.
+
 Only the shared-pinhole mode is ported: the per-ray-origin mode for bounce
 children and the hot-primary dense pass come with the bounce slice (see
-ROADMAP.md). This slice is forward-only: no gradients flow.
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.accel import (
     CullAux,
     _box_table,
+    _culled_bwd,
     _dense_compact,
     _gather_tile_rows,
     _segment_occluded,
@@ -609,3 +615,77 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                   sb_overflow=stack_or(sb_overflow, (0,)),
                   jb_local=jb_local)
     return hit, occluded, aux
+
+
+# ---------------------------------------------------------------------------
+# Differentiable op: forward on kernels A and B, analytic winner backward
+# ---------------------------------------------------------------------------
+
+_N_HIT = len(Hit._fields)
+# the scene leaves that carry gradients, in the order the op takes them
+_GEOMETRY_LEAVES = (("spheres", "center"), ("spheres", "radius"),
+                    ("boxes", "mins"), ("boxes", "maxs"),
+                    ("boxes", "position"), ("boxes", "angles"),
+                    ("planes", "normal"), ("planes", "offset"))
+
+
+def _with_leaves(scene: Scene, leaves) -> Scene:
+    parts = {}
+    for (part, field), x in zip(_GEOMETRY_LEAVES, leaves):
+        parts.setdefault(part, {})[field] = x
+    return scene._replace(**{part: getattr(scene, part)._replace(**fields)
+                             for part, fields in parts.items()})
+
+
+class _CulledGeometryOp(torch.autograd.Function):
+    """Forward: culled_geometry. Backward: accel._culled_bwd. Takes the
+    scene (for its non-differentiable columns), the static arguments of
+    culled_geometry, the geometry leaves of _GEOMETRY_LEAVES and the rays;
+    returns the Hit fields, the occlusion and the CullAux fields, of which
+    only t, p and n are differentiable."""
+
+    @staticmethod
+    def forward(ctx, scene, static, *tensors):
+        leaves, (origins, dirs) = tensors[:-2], tensors[-2:]
+        scene = _with_leaves(scene, leaves)
+        hit, occ, aux = culled_geometry(scene, origins, dirs, *static)
+        ctx.mark_non_differentiable(*hit[3:], occ, *aux)
+        ctx.save_for_backward(*tensors, hit.inside, hit.obj_id, hit.hit,
+                              aux.p_idx, aux.j_local, aux.b_idx,
+                              aux.jb_local)
+        ctx.scene, ctx.tile_p = scene, static[0]
+        return (*hit, occ, *aux)
+
+    @staticmethod
+    def backward(ctx, gt, gp, gn, *_):
+        saved = ctx.saved_tensors
+        n_in = len(_GEOMETRY_LEAVES) + 2
+        leaves, (origins, dirs) = saved[:n_in - 2], saved[n_in - 2:n_in]
+        inside, obj_id, hit_mask, p_idx, j_local, b_idx, jb_local = \
+            saved[n_in:]
+        scene = _with_leaves(ctx.scene, leaves)
+        hit = Hit(t=None, p=None, n=None, inside=inside, material_id=None,
+                  obj_id=obj_id, hit=hit_mask)
+        aux = CullAux(**{f: None for f in CullAux._fields})._replace(
+            p_idx=p_idx, j_local=j_local, b_idx=b_idx, jb_local=jb_local)
+        need = ctx.needs_input_grad[2:]
+        grads = _culled_bwd(scene, origins, dirs, hit, aux, ctx.tile_p,
+                            gt, gp, gn, need_rays=any(need[-2:]))
+        return (None, None, *(g if want else None
+                              for g, want in zip(grads, need)))
+
+
+def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
+                       ks: int, shadow_lights: tuple | None = None,
+                       hot_m: int = 0, kb: int = 0, ksb: int = 0):
+    """culled_geometry with the analytic backward of the reference's
+    ``culled_pallas_geometry_op``: gradients of hit.t, hit.p and hit.n flow
+    to the spheres' center and radius, the boxes' mins, maxs, position and
+    angles, the planes' normal and offset, and the rays. Arguments and
+    results as culled_geometry."""
+    leaves = [getattr(getattr(scene, part), field)
+              for part, field in _GEOMETRY_LEAVES]
+    out = _CulledGeometryOp.apply(
+        scene, (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb), *leaves,
+        origins, dirs)
+    return (Hit(*out[:_N_HIT]), out[_N_HIT], CullAux(*out[_N_HIT + 1:]))

@@ -11,8 +11,14 @@ the frame.
 The engine name ``culled_pallas`` names the reference's contract: the cone
 broad phase, then the survivor-list narrow-phase kernels, then the fused
 shade kernel. Here those kernels are CUDA (ops/culled.py, ops/shade.py).
-Other engines, bounces (depth > 0) and gradients are not ported yet and
-raise NotImplementedError; see ROADMAP.md.
+
+Both functions are differentiable: gradients of the image flow to the
+spheres, boxes and planes through the culled op's analytic winner backward
+(ops/culled.py culled_geometry_op) and to the materials and lights through
+the survivor-routed material rows and the shade backward kernel. A caller
+that only renders wraps the call in ``torch.no_grad()``. Other engines and
+bounces (depth > 0) are not ported yet and raise NotImplementedError; see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from openglraytracer_tpu_torch.ops.accel import (cull_overflow_count,
                                                  culled_material_rows,
                                                  parse_cull_spec, tile_image,
                                                  untile_image)
-from openglraytracer_tpu_torch.ops.culled import culled_geometry
+from openglraytracer_tpu_torch.ops.culled import culled_geometry_op
 from openglraytracer_tpu_torch.ops.raygen import generate_rays
 from openglraytracer_tpu_torch.ops.shade import shade_fused
 from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
@@ -43,7 +49,6 @@ def _check_slice(engine: str, depth: int) -> None:
             "ported; see ROADMAP.md")
 
 
-@torch.no_grad()
 def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     engine: str = ENGINE, cull: tuple | None = None,
                     shadow_lights: tuple | None = None,
@@ -59,8 +64,8 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
             f"engine='{engine}' needs cull=(tile_p, kp, ks[, hot_m[, kb, "
             "ksb]])")
     tile_p, kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
-    hit, occ, aux = culled_geometry(scene, origins, dirs, tile_p, kp, ks,
-                                    shadow_lights, hot_m, kb, ksb)
+    hit, occ, aux = culled_geometry_op(scene, origins, dirs, tile_p, kp, ks,
+                                       shadow_lights, hot_m, kb, ksb)
     mat_rows = culled_material_rows(scene, hit, aux, tile_p)
     color = shade_fused(scene, dirs, hit, occ, mat_rows)
     color = torch.where(hit.hit[:, None], color, 0.0)
@@ -77,7 +82,6 @@ def _check_device(scene: Scene, camera: Camera, device: torch.device):
                                  f"found a tensor on {x.device}")
 
 
-@torch.no_grad()
 def render(scene: Scene, camera: Camera, height: int, width: int,
            depth: int = 0, engine: str = ENGINE, cull: tuple | None = None,
            shadow_lights: tuple | None = None,

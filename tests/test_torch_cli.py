@@ -31,6 +31,7 @@ def test_port_imports_no_jax():
     code = ("import sys, openglraytracer_tpu_torch, "
             "openglraytracer_tpu_torch.cli, openglraytracer_tpu_torch.kernels;"
             "import openglraytracer_tpu_torch.ops.render;"
+            "import openglraytracer_tpu_torch.train.inverse;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openglraytracer_tpu.')) or "
             "m == 'openglraytracer_tpu');"
@@ -122,6 +123,42 @@ def test_cli_rejects_unserved_flags(flags, tmp_path):
                   "--height", "32", "--cull-tile", "16", "--device", "cpu",
                   "--out", str(tmp_path / "x.png")] + flags)
     assert isinstance(e.value.code, str) and e.value.code
+
+
+def test_cli_fit_cpu(tmp_path, capsys):
+    """fit --device cpu: the synthetic sphere-grid fit through the plain
+    versions; the loss falls and the fitted scene and its render are
+    written."""
+    out, scene_json = tmp_path / "fit.png", tmp_path / "fit.json"
+    cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width", "32",
+              "--height", "32", "--steps", "5", "--out", str(out),
+              "--save-scene", str(scene_json)])
+    printed = capsys.readouterr().out
+    assert "cull: ((32, 32)," in printed
+    line = next(x for x in printed.splitlines() if x.startswith("fit:"))
+    first, final = (float(line.split(w)[1].split(",")[0])
+                    for w in (" first ", " final "))
+    assert "2 logged losses" in line and final < first
+    assert out.stat().st_size > 0
+    fitted = json.loads(scene_json.read_text())
+    assert len(fitted["spheres"]["center"]) == 4 and "camera" in fitted
+
+
+@pytest.mark.parametrize("flags", [
+    ["--target", "t.png"], ["--scene", "s.json"], ["--soft", "0.3,0.3"],
+    ["--sharded"], ["--checkpoint-dir", "ckpt"], ["--row-block", "8"],
+    ["--engine", "xla"], ["--depth", "1"]])
+def test_cli_fit_rejects_unported(flags):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
+                  "32", "--height", "32", "--steps", "1"] + flags)
+    assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+
+
+def test_cli_fit_checks_the_tile(tmp_path):
+    with pytest.raises(SystemExit, match="must divide"):
+        cli.main(["fit", "--device", "cpu", "--width", "48", "--height",
+                  "48", "--cull-tile", "32"])
 
 
 def test_cli_device_cuda_needs_a_card(tmp_path):
