@@ -1,41 +1,57 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: python3 chip_smoke.py
 
-Drives the port's two main paths at the full size of scene c3_grid64 (64
-spheres, a ground plane, 2 point lights; 1024x1024, depth 0, engine
-culled_pallas with 64x64 tiles) — the forward ``render`` and the training
-step (value and gradient of the pixel MSE with respect to spheres.center,
-spheres.radius and materials.diffuse, then an SGD step) — and exits non-zero
-on any failure. Phases:
+Drives the port's main paths through the entry points a user calls — the
+forward ``render`` and the training step of ``train/inverse.make_train_step``
+(value and gradient of the pixel MSE with respect to spheres.center,
+spheres.radius and materials.diffuse, then an SGD step) — at the full size
+of three rows of the reference's benchmark, engine culled_pallas:
+c3_grid64 (64 spheres, 1024x1024, depth 0, 64x64 tiles), c5_grid4096 (4096
+spheres, 2048x2048, depth 0, 32x32 tiles) and c4_mirror4096 (4096 mirror
+spheres, 1024x1024, depth 1 with culled bounce children, 32x32 tiles). It
+exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build: compile the CUDA kernels from csrc/ (one nvcc per source, in
      parallel, sm_90a)
-  3. each kernel against its plain PyTorch version on the card, on the
-     inputs the main paths give it at c3 (the shade backward: what a c3
-     training step hands it), and on a small hand-built scene with rotated
-     boxes (the box paths of kernels A and B, and the box winner replay of
-     the backward against kernel A's own hits)
-  4. the forward path for 3 frames: every kernel launched on every frame,
-     no cull overflow, a finite image within 1/255 of the plain versions'
-     image on >= 99.9% of pixels, and a small render equal to the CPU's
-  5. forward timing with CUDA events: 3 windows of 10 frames under
-     torch.cuda.set_sync_debug_mode("error") (the frame never waits for
-     the host), and each forward kernel beside its plain version
-  6. the training path for 3 SGD steps (lr 1e-7, zero target): all four
-     kernels launched on every step, no overflow, finite non-zero gradients
-     for every trainable leaf that agree with the same step through the
-     plain versions on the card
-  7. training timing: 3 windows of 10 chained steps under
-     set_sync_debug_mode("error"), the step's device time, and the shade
-     backward kernel beside its plain version
+  3. each c3 kernel against its plain PyTorch version on the card, on the
+     inputs the c3 paths give it, and on a small hand-built scene with
+     rotated boxes (the box paths of kernels A and B, and the box winner
+     replay of the backward against kernel A's own hits)
+  4. the c3 forward path for 3 frames: every kernel launched on every
+     frame, no cull overflow, a finite image within 1/255 of the plain
+     versions' image on >= 99.9% of pixels, and a small render equal to
+     the CPU's
+  5. c3 forward timing with CUDA events: 3 windows of 10 frames under
+     torch.cuda.set_sync_debug_mode("error"), and each forward kernel
+     beside its plain version
+  6. the c3 training path for 3 SGD steps (lr 1e-7, zero target): all four
+     kernels launched on every step, no overflow, finite non-zero
+     gradients that agree with the same step through the plain versions
+  7. c3 training timing: 3 windows of 10 chained steps, the step's device
+     time, and the shade backward kernel beside its plain version
   8. a short fit through train/inverse.fit (Adam, 128x128, grid side 4):
      the loss falls
+  9. the compaction kernel against its plain version on every mask of at
+     least 1024 objects that a c5_grid4096 and a c4_mirror4096 frame
+     compact: ids, valid flags and counts exactly equal
+ 10. kernel 2 (per-ray primary hit), its cold launch and its hot launch
+     over the global table, against its plain version on the inputs a
+     c4_mirror4096 frame hands them, cut to the 8 hottest and 24 cold
+     tiles; fails unless the child spec has a hot budget and a tile of the
+     frame is truly hot
+ 11. the c5_grid4096 and c4_mirror4096 forward paths for 3 frames each:
+     every kernel of the path launched on every frame, no overflow, a
+     finite image within 1/255 of the plain versions' on >= 99.9% of pixels
+ 12. their frame and training step timed as in phases 5 and 7, and
+     kernels 6 and 2 beside their plain versions at full size
+ 13. their training paths for 3 steps each: every kernel launched on every
+     step, no overflow, gradients as in phase 6
 
-The forward and training paths each run with the launch counts set to 0
-just before and read just after. The line before the last is a JSON object
-with one entry per kernel; the last line is {"ok": true, "device": {...}}.
-Without a CUDA device it exits with code 1 and prints no result.
+Each path runs with the launch counts set to 0 just before and read just
+after. The line before the last is a JSON object with one entry per kernel
+launch name; the last line is {"ok": true, "device": {...}}. Without a CUDA
+device it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -76,6 +92,17 @@ STEPS, STEP_LR = 3, 1e-7
 FIT = dict(side=4, hw=128, tile=32, steps=20, lr=2e-2)
 BWD_NAMES = ("g_mat", "g_lpos", "g_lamb", "g_ldiff", "g_lspec", "g_dirs",
              "g_p", "g_n")
+# the 4096-object paths: builtin config -> (cull tile side, the kernels
+# each of its frames launches)
+PATHS_4096 = {
+    "c5_grid4096": (32, ("primary_hit", "shadow_occlusion", "phong_fused",
+                         "compact_mask")),
+    "c4_mirror4096": (32, ("primary_hit", "primary_hit_ray",
+                           "primary_hit_hot", "shadow_occlusion",
+                           "phong_fused", "compact_mask")),
+}
+# kernel 2 against its plain version: the hottest and some cold tiles
+CUT_HOT, CUT_COLD = 8, 24
 
 
 def log(msg: str) -> None:
@@ -98,20 +125,31 @@ def smi_line() -> str:
 class Capture:
     """Record the arguments each kernel wrapper is called with (detached
     from autograd), so that a kernel and its plain version can be compared
-    on the main paths' own inputs."""
+    on the main paths' own inputs: ``args`` keeps the last call of each
+    wrapper (kernel 2's hot launch under ``primary_hit_hot``), ``calls``
+    every call of ``compact_mask``."""
 
-    def __init__(self, culled, shade):
-        self.targets = [(culled, "primary_hit"), (culled, "shadow_occlusion"),
-                        (shade, "phong_fused"), (shade, "phong_shade_bwd")]
-        self.args = {}
+    def __init__(self, culled, shade, accel):
+        self.targets = [(culled, "primary_hit"), (culled, "primary_hit_ray"),
+                        (culled, "shadow_occlusion"),
+                        (shade, "phong_fused"), (shade, "phong_shade_bwd"),
+                        (accel, "compact_mask"), (culled, "compact_mask")]
+        self.args, self.kwargs = {}, {}
+        self.calls = []
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
         for (mod, name), fn in zip(self.targets, self.saved):
-            def spy(*a, _fn=fn, _name=name):
-                self.args[_name] = tuple(
-                    x.detach() if hasattr(x, "detach") else x for x in a)
-                return _fn(*a)
+            def spy(*a, _fn=fn, _name=name, **kw):
+                a_ = tuple(x.detach() if hasattr(x, "detach") else x
+                           for x in a)
+                if _name == "compact_mask":
+                    self.calls.append(a_)
+                else:
+                    key = ("primary_hit_hot" if kw.get("tile_ids") is not None
+                           else _name)
+                    self.args[key], self.kwargs[key] = a_, kw
+                return _fn(*a, **kw)
             setattr(mod, name, spy)
         return self
 
@@ -120,16 +158,28 @@ class Capture:
             setattr(mod, name, fn)
 
 
+def primary_hit_ray_plain(culled):
+    """Kernel 2's plain version with the wrapper's signature."""
+    def plain(dirs, origins, *a, tile_ids=None):
+        return culled.primary_hit_plain(dirs, *a, origins=origins,
+                                        tile_ids=tile_ids)
+    return plain
+
+
 class PlainVersions:
     """Route the renderer, forward and backward, through the plain PyTorch
     versions on the card."""
 
-    def __init__(self, culled, shade, shading):
+    def __init__(self, culled, shade, shading, accel):
         self.swaps = [(culled, "primary_hit", culled.primary_hit_plain),
+                      (culled, "primary_hit_ray",
+                       primary_hit_ray_plain(culled)),
                       (culled, "shadow_occlusion",
                        culled.shadow_occlusion_plain),
                       (shade, "phong_shade", shading.phong_core),
-                      (shade, "phong_shade_bwd", shade.phong_shade_bwd_plain)]
+                      (shade, "phong_shade_bwd", shade.phong_shade_bwd_plain),
+                      (accel, "compact_mask", accel.compact_mask_plain),
+                      (culled, "compact_mask", accel.compact_mask_plain)]
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n, _ in self.swaps]
@@ -141,8 +191,8 @@ class PlainVersions:
             setattr(mod, name, fn)
 
 
-def compare_primary(torch, k, p, what):
-    """Kernel A outputs k vs plain p: (mismatch share, max abs err)."""
+def compare_primary(torch, k, p, what, name="primary_hit"):
+    """Kernel A (2) outputs k vs plain p: (mismatch share, max abs err)."""
     t_k, n_k, ins_k, mat_k, gid_k, slot_k = k
     t_p, n_p, ins_p, mat_p, gid_p, slot_p = p
     agree = ((ins_k == ins_p) & (mat_k == mat_p) & (gid_k == gid_p)
@@ -155,11 +205,11 @@ def compare_primary(torch, k, p, what):
     n_bad = int((dn > N_ATOL).sum())
     err = max(float(dt.max()) if dt.numel() else 0.0,
               float(dn.max()) if dn.numel() else 0.0)
-    log(f"  primary_hit [{what}]: discrete mismatches {share:.2e} of "
+    log(f"  {name} [{what}]: discrete mismatches {share:.2e} of "
         f"{t_k.numel()} rays, t/n out of tolerance {t_bad}/{n_bad}, "
         f"max |t|,|n| err {err:.3e}")
     check(share <= DISCRETE_SHARE and t_bad == 0 and n_bad == 0,
-          f"primary_hit kernel disagrees with its plain version ({what})")
+          f"{name} kernel disagrees with its plain version ({what})")
     return share, err
 
 
@@ -237,6 +287,29 @@ def device_ms(torch, fn, args, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_windows(torch, fn, warm: int = 3):
+    """Per-call ms of WINDOWS windows of WINDOW_FRAMES calls under
+    set_sync_debug_mode('error'), and the calls' outputs."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    windows, outs = [], []
+    for _ in range(WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            for _ in range(WINDOW_FRAMES):
+                outs.append(fn())
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.synchronize()
+        windows.append(start.elapsed_time(end) / WINDOW_FRAMES)
+    return windows, outs
+
+
 def box_scene(torch, device):
     """Rotated OBBs, a sphere and a plane: the box paths of A and B."""
     import numpy as np
@@ -286,6 +359,270 @@ def train_scene(scene, trainable):
     return apply_params(scene, params), params
 
 
+def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phases 9-13: the 4096-object paths c5_grid4096 and c4_mirror4096.
+    Returns (per-path launch counts, per-kernel (ms, plain ms), per-kernel
+    max abs error) for the new kernels."""
+    from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig,
+                                                         make_train_step)
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.utils.metrics import rays_per_frame
+
+    paths = {}
+    t0 = time.perf_counter()
+    for cfg, (tile, path_kernels) in PATHS_4096.items():
+        builder, h, w, depth = BENCH_CONFIGS[cfg]
+        scene, cam = builder(device=dev)
+        lights = shading.static_shadow_mask(scene)
+        bmask = shading.static_bounce_mask(scene) if depth else (True, True)
+        spec = accel.suggest_cull_config(scene, cam, h, w, (tile, tile),
+                                         shadow_lights=lights)
+        child = (accel.suggest_child_cull_config(scene, cam, h, w, spec,
+                                                 shadow_lights=lights)
+                 if depth else None)
+        kw = dict(depth=depth, cull=spec, child_cull=child,
+                  shadow_lights=lights, bounce_mask=bmask)
+        paths[cfg] = dict(scene=scene, cam=cam, h=h, w=w, depth=depth, kw=kw,
+                          kernels=path_kernels, lights=lights, bmask=bmask)
+        log(f"  {cfg}: {w}x{h}, depth {depth}, tile {tile}; cull spec {spec}"
+            + (f"; child spec {child}" if child else "")
+            + f"; shadow lights {lights}")
+    c4m = paths["c4_mirror4096"]
+    child = c4m["kw"]["child_cull"]
+    hot_p = accel.cull_hot_p(child)
+    log(f"  sizing {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. kernel 6 against its plain version on the paths' own masks
+    t0 = time.perf_counter()
+    log("[9/13] compaction kernel (kernel 6) vs plain version, full size")
+    caps = {}
+    for cfg, pth in paths.items():
+        with Capture(culled, shade, accel) as cap, torch.no_grad():
+            render(pth["scene"], pth["cam"], pth["h"], pth["w"], **pth["kw"])
+        caps[cfg] = cap
+    errs, n_masks = {}, 0
+    for cfg, cap in caps.items():
+        for mask, k in cap.calls:
+            if mask.shape[-1] < accel.MIN_N_FOR_KERNEL:
+                continue
+            ki, kv, kc = accel.compact_mask(mask, k)
+            pi, pv, pc = accel.compact_mask_plain(mask, k)
+            same = (torch.equal(kv, pv) and torch.equal(kc, pc)
+                    and torch.equal(ki * kv, pi * pv)
+                    and not bool(ki[~kv].any()))
+            n_masks += 1
+            log(f"  compact_mask [{cfg}] mask {tuple(mask.shape)}, K {k}: "
+                f"{'equal' if same else 'DIFFERENT'}; survivors per row max "
+                f"{int(pc.max())}, mean {float(pc.float().mean()):.1f}")
+            check(same, f"compact_mask kernel disagrees with its plain "
+                  f"version ({cfg}, {tuple(mask.shape)})")
+    check(n_masks >= 6, f"expected the paths' wide masks, got {n_masks}")
+    errs["compact_mask"] = 0.0
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. kernel 2 (cold and hot) against its plain version on a cut
+    t0 = time.perf_counter()
+    log(f"[10/13] kernel 2 vs plain version on c4_mirror4096's inputs: the "
+        f"{CUT_HOT} hottest and {CUT_COLD} evenly spaced cold tiles")
+    cap = caps["c4_mirror4096"]
+    check(hot_p > 0, f"the c4_mirror4096 child spec has no hot budget: "
+          f"{child}")
+    a_c, a_h = cap.args["primary_hit_ray"], cap.args["primary_hit_hot"]
+    ids_h = cap.kwargs["primary_hit_hot"]["tile_ids"].long()
+    cnt_h = a_h[5]
+    truly = (cnt_h > 0).any(dim=1)
+    n_hot = int(truly.sum())
+    log(f"  hot_p {hot_p}; truly hot tiles in the smoke frame: {n_hot}")
+    check(n_hot >= 1, "no truly hot tile in the c4_mirror4096 smoke frame")
+    tile_p = a_c[6]
+    n_tiles = a_c[5].shape[0]
+
+    def rays(x, ids):
+        return x.reshape(n_tiles, tile_p, 3)[ids].reshape(-1, 3).contiguous()
+
+    hb = torch.nonzero(truly).flatten()[:CUT_HOT]
+    hot_set = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    hot_set[ids_h[truly]] = True
+    cold = torch.nonzero(~hot_set & (a_c[5][:, 0] > 0)).flatten()
+    if cold.numel() < CUT_COLD:
+        cold = torch.nonzero(~hot_set).flatten()
+    cold = cold[torch.linspace(0, cold.numel() - 1, CUT_COLD,
+                               device=dev).long()]
+    cut_c = (rays(a_c[0], cold), rays(a_c[1], cold), a_c[2][cold].contiguous(),
+             a_c[3][cold].contiguous(), a_c[4], a_c[5][cold].contiguous(),
+             tile_p)
+    cut_h = (rays(a_h[0], ids_h[hb]), rays(a_h[1], ids_h[hb]), a_h[2], a_h[3],
+             a_h[4], cnt_h[hb].contiguous(), tile_p)
+    ids_cut = torch.arange(hb.numel(), dtype=torch.int32, device=dev)
+    plain2 = primary_hit_ray_plain(culled)
+    log(f"  cold cut: {cold.numel()} tiles, sphere rows "
+        f"{tuple(cut_c[2].shape)}, counts {cut_c[5][:, 0].tolist()}")
+    errs["primary_hit_ray"] = compare_primary(
+        torch, culled.primary_hit_ray(*cut_c), plain2(*cut_c),
+        "c4_mirror4096 cold cut", "primary_hit_ray")[1]
+    log(f"  hot cut: {hb.numel()} tiles over the global table "
+        f"{tuple(cut_h[2].shape)}")
+    errs["primary_hit_hot"] = compare_primary(
+        torch, culled.primary_hit_ray(*cut_h, tile_ids=ids_cut),
+        plain2(*cut_h, tile_ids=ids_cut), "c4_mirror4096 hot cut",
+        "primary_hit_hot")[1]
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the forward paths
+    t0 = time.perf_counter()
+    log(f"[11/13] forward paths: {FRAMES} frames each, engine culled_pallas")
+    launches = {}
+    for cfg, pth in paths.items():
+        h, w = pth["h"], pth["w"]
+        kernels.LAUNCHES.clear()
+        with torch.no_grad():
+            frames = [render(pth["scene"], pth["cam"], h, w,
+                             with_cull_stats=True, **pth["kw"])
+                      for _ in range(FRAMES)]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        launches[f"render_{cfg}"] = got
+        log(f"  {cfg}: launches over {FRAMES} frames: {got}")
+        check(all(got.get(k, 0) >= FRAMES for k in pth["kernels"]),
+              f"{cfg}: every kernel of the path must launch on every frame")
+        check(got.get("phong_shade_bwd", 0) == 0,
+              "a forward frame must not run the backward")
+        ovfs = [int(o) for _, o in frames]
+        log(f"  {cfg}: cull_overflow_events per frame: {ovfs}")
+        check(all(o == 0 for o in ovfs), f"cull overflow on {cfg}")
+        img = frames[-1][0]
+        check(tuple(img.shape) == (h, w, 3), f"image shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"{cfg}: non-finite image")
+        check(all(torch.equal(f[0], img) for f in frames), "frames differ")
+        with PlainVersions(culled, shade, shading, accel), torch.no_grad():
+            img_plain = render(pth["scene"], pth["cam"], h, w, **pth["kw"])
+        diff = (img - img_plain).abs().amax(dim=-1)
+        share = float((diff <= 1.0 / 255.0).float().mean())
+        log(f"  {cfg}: image vs plain versions on the card: {share:.6f} of "
+            f"pixels within 1/255, max diff {float(diff.max()):.3e}; mean "
+            f"{float(img.mean()):.5f}")
+        check(share >= 0.999, f"{cfg}: image disagrees with the plain "
+              "versions' image")
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. timing
+    t0 = time.perf_counter()
+    log(f"[12/13] timing, forward and training step ({smi})")
+    steps = {}
+    for cfg, pth in paths.items():
+        h, w = pth["h"], pth["w"]
+        scene, cam = pth["scene"], pth["cam"]
+
+        def frame(pth=pth, h=h, w=w):
+            with torch.no_grad():
+                return render(pth["scene"], pth["cam"], h, w,
+                              with_cull_stats=True, **pth["kw"])
+
+        fc = FitConfig(height=h, width=w, depth=pth["depth"],
+                       cull=pth["kw"]["cull"],
+                       child_cull=pth["kw"]["child_cull"],
+                       trainable=DEFAULT_TRAINABLE)
+        init_fn, step_fn = make_train_step(
+            cam, fc, optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+        params, opt = init_fn(scene)
+        target = torch.zeros((h, w, 3), device=dev)
+        steps[cfg] = (init_fn, step_fn, target)
+
+        def train_step(params=params, opt=opt, step_fn=step_fn,
+                       target=target, scene=scene):
+            return step_fn(params, opt, scene, target)
+
+        n_rays = rays_per_frame(h, w, scene.lights.count, pth["depth"],
+                                shadow_lights=pth["lights"],
+                                bounce_mask=pth["bmask"])
+        for what, fn, ovf_at in (("frame", frame, 1),
+                                 ("training step", train_step, 3)):
+            windows, outs = timed_windows(torch, fn)
+            check(int(torch.stack([o[ovf_at] for o in outs]).sum()) == 0,
+                  f"{cfg}: overflow while timing the {what}")
+            med = statistics.median(windows)
+            dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
+                                       for _ in range(5))
+            log(f"  {cfg} {what}: median {med:.4f} ms, min "
+                f"{min(windows):.4f} ms over {WINDOWS} windows of "
+                f"{WINDOW_FRAMES} ({[round(x, 4) for x in windows]}), "
+                f"sync-free under set_sync_debug_mode('error'); device time "
+                f"(one call behind a spin kernel, median of 5) {dev_ms:.4f} "
+                f"ms; {n_rays} rays/frame -> "
+                f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
+    kernel_ms = {}
+    mask, k = next(c for c in caps["c5_grid4096"].calls
+                   if c[0].shape[-1] >= accel.MIN_N_FOR_KERNEL)
+    full_h = (a_h, cap.kwargs["primary_hit_hot"])
+    for name, fn, plain, args, kw in (
+            ("compact_mask", accel.compact_mask, accel.compact_mask_plain,
+             (mask, k), {}),
+            ("primary_hit_ray", culled.primary_hit_ray, plain2, a_c, {}),
+            ("primary_hit_hot", culled.primary_hit_ray, plain2, *full_h)):
+        def call(f, kw=kw):
+            return lambda *a: f(*a, **kw)
+        t_kern = [device_ms(torch, call(fn), args) for _ in range(2)]
+        t_plain = [device_ms(torch, call(plain), args, reps=1)
+                   for _ in range(2)]
+        kernel_ms[name] = (statistics.mean(t_kern), statistics.mean(t_plain))
+        cell = "c5_grid4096" if name == "compact_mask" else "c4_mirror4096"
+        log(f"  {name}: kernel {kernel_ms[name][0]:.4f} ms, plain version "
+            f"{kernel_ms[name][1]:.4f} ms (device time per call on the "
+            f"full-size inputs of {cell})")
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. the training paths
+    t0 = time.perf_counter()
+    log(f"[13/13] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+        f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
+    for cfg, pth in paths.items():
+        init_fn, step_fn, target = steps[cfg]
+        scene = pth["scene"]
+        params, opt = init_fn(scene)
+        kernels.LAUNCHES.clear()
+        outs = [step_fn(params, opt, scene, target) for _ in range(STEPS)]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        launches[f"train_step_{cfg}"] = got
+        log(f"  {cfg}: launches over {STEPS} steps: {got}")
+        check(all(got.get(k, 0) >= STEPS
+                  for k in pth["kernels"] + ("phong_shade_bwd",)),
+              f"{cfg}: every kernel of the path must launch on every step")
+        ovfs = [int(o[3]) for o in outs]
+        log(f"  {cfg}: losses {[float(o[2]) for o in outs]}; overflow "
+            f"{ovfs}")
+        check(all(o == 0 for o in ovfs), f"cull overflow training {cfg}")
+
+        def one_step_grads():
+            p, o = init_fn(scene)
+            _, _, loss, _ = step_fn(p, o, scene, target)
+            return float(loss), {k: v.grad for k, v in p.items()}
+
+        loss_k, grads_k = one_step_grads()
+        with PlainVersions(culled, shade, shading, accel):
+            loss_p, grads_p = one_step_grads()
+        log(f"  {cfg}: first step's loss: kernels {loss_k:.9g}, plain "
+            f"versions {loss_p:.9g}")
+        check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+              f"{cfg}: training loss disagrees with the plain versions'")
+        for k in DEFAULT_TRAINABLE:
+            gk, gp = grads_k[k], grads_p[k]
+            scale = float(gp.abs().max())
+            err = float((gk - gp).abs().max())
+            log(f"  {cfg} grad {k}: max |g| {scale:.4e}, max |kernel - "
+                f"plain| {err:.3e} ({err / max(scale, 1e-30):.2e} of max "
+                f"|g|)")
+            check(bool(torch.isfinite(gk).all()) and scale > 0.0,
+                  f"{cfg}: gradient of {k} must be finite and non-zero")
+            check(err <= GRAD_TOL * scale,
+                  f"{cfg}: gradient of {k} disagrees with the plain "
+                  "versions'")
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    return launches, kernel_ms, errs
+
+
 def main() -> int:
     import torch
 
@@ -296,7 +633,7 @@ def main() -> int:
 
     from openglraytracer_tpu_torch import kernels
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
-    from openglraytracer_tpu_torch.ops import culled, shade, shading
+    from openglraytracer_tpu_torch.ops import accel, culled, shade, shading
     from openglraytracer_tpu_torch.ops.accel import (parse_cull_spec,
                                                      suggest_cull_config,
                                                      tile_image)
@@ -317,7 +654,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/8] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -325,23 +662,23 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/8] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/13] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  {line.strip()}")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/8] kernels vs plain versions")
+    log("[3/13] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
                                shadow_lights=shadow_lights)
     log(f"  c3 cull spec {spec}, shadow lights {shadow_lights}")
     zero_target = torch.zeros((H, W, 3), device=dev)
-    with Capture(culled, shade) as cap, torch.no_grad():
+    with Capture(culled, shade, accel) as cap, torch.no_grad():
         render(scene, cam, H, W, cull=spec, shadow_lights=shadow_lights)
     c3_args = dict(cap.args)
-    with Capture(culled, shade) as cap:
+    with Capture(culled, shade, accel) as cap:
         s, _ = train_scene(scene, DEFAULT_TRAINABLE)
         img = render(s, cam, H, W, cull=spec, shadow_lights=shadow_lights)
         torch.mean(torch.square(img - zero_target)).backward()
@@ -369,7 +706,7 @@ def main() -> int:
 
     bscene, bcam = box_scene(torch, dev)
     bspec = suggest_cull_config(bscene, bcam, 256, 256, (16, 16))
-    with Capture(culled, shade) as cap:
+    with Capture(culled, shade, accel) as cap:
         bs, _ = train_scene(bscene, ("boxes.position", "boxes.angles",
                                      "spheres.center", "materials.diffuse"))
         bimg = render(bs, bcam, 256, 256, cull=bspec)
@@ -409,7 +746,7 @@ def main() -> int:
           "the backward's box replay disagrees with kernel A")
 
     # ---- 4. the forward path
-    log(f"[4/8] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/13] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -430,7 +767,7 @@ def main() -> int:
     check(tuple(img.shape) == (H, W, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(all(torch.equal(f[0], img) for f in frames), "frames differ")
-    with PlainVersions(culled, shade, shading), torch.no_grad():
+    with PlainVersions(culled, shade, shading, accel), torch.no_grad():
         img_plain = render(scene, cam, H, W, cull=spec,
                            shadow_lights=shadow_lights)
     diff = (img - img_plain).abs().amax(dim=-1)
@@ -454,36 +791,14 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/8] forward timing ({name}; {smi})")
+    log(f"[5/13] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
             return render(scene, cam, H, W, cull=spec,
                           shadow_lights=shadow_lights, with_cull_stats=True)
 
-    def timed_windows(fn, warm: int = 3):
-        """Per-call ms of WINDOWS windows of WINDOW_FRAMES calls under
-        set_sync_debug_mode('error'), and the calls' outputs."""
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        windows, outs = [], []
-        for _ in range(WINDOWS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                start.record()
-                for _ in range(WINDOW_FRAMES):
-                    outs.append(fn())
-                end.record()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            end.synchronize()
-            windows.append(start.elapsed_time(end) / WINDOW_FRAMES)
-        return windows, outs
-
-    windows, outs = timed_windows(frame)
+    windows, outs = timed_windows(torch, frame)
     check(int(torch.stack([o[1] for o in outs]).sum()) == 0,
           "overflow while timing")
     n_rays = rays_per_frame(H, W, scene.lights.count, 0,
@@ -526,7 +841,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/8] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/13] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -552,7 +867,7 @@ def main() -> int:
         return float(loss), {k: v.grad for k, v in p.items()}
 
     loss_k, grads_k = one_step_grads()
-    with PlainVersions(culled, shade, shading):
+    with PlainVersions(culled, shade, shading, accel):
         loss_p, grads_p = one_step_grads()
     log(f"  first step's loss: kernels {loss_k:.9g}, plain versions "
         f"{loss_p:.9g}")
@@ -570,12 +885,12 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/8] training timing ({name}; {smi})")
+    log(f"[7/13] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
 
-    windows, outs = timed_windows(train_step)
+    windows, outs = timed_windows(torch, train_step)
     check(int(torch.stack([o[3] for o in outs]).sum()) == 0,
           "overflow while timing the training step")
     med, best = statistics.median(windows), min(windows)
@@ -592,7 +907,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/8] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/13] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -611,6 +926,11 @@ def main() -> int:
     log(f"  losses {[(st, round(v, 6)) for st, v in flosses]}")
     check(flosses[-1][1] < flosses[0][1], "the fit's loss must fall")
 
+    launches_4096, kernel_ms_4096, errs_4096 = run_4096(
+        torch, dev, kernels, culled, shade, shading, accel, smi)
+    kernel_ms.update(kernel_ms_4096)
+    errs.update(errs_4096)
+
     sources = {"primary_hit": ("csrc/primary_hit.cu",
                                "openglraytracer_tpu/ops/pallas_culled.py:150"),
                "shadow_occlusion": (
@@ -620,19 +940,35 @@ def main() -> int:
                                "openglraytracer_tpu/ops/pallas_shade.py:45"),
                "phong_shade_bwd": (
                    "csrc/phong_shade_bwd.cu",
-                   "openglraytracer_tpu/ops/pallas_shade.py:111")}
+                   "openglraytracer_tpu/ops/pallas_shade.py:111"),
+               "primary_hit_ray": (
+                   "csrc/primary_hit.cu",
+                   "openglraytracer_tpu/ops/pallas_culled.py:150"),
+               "primary_hit_hot": (
+                   "csrc/primary_hit.cu",
+                   "openglraytracer_tpu/ops/pallas_culled.py:150"),
+               "compact_mask": (
+                   "csrc/compact_mask.cu",
+                   "openglraytracer_tpu/ops/pallas_compact.py:52")}
+    path_launches = {"render_c3_grid64": fwd_launches,
+                     "train_step_c3_grid64": train_launches, **launches_4096}
     rows = []
-    for k in all_kernels:
+    for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
+                            "compact_mask"):
         src, replaces = sources[k]
         # launches: the count from the path the kernel was ported for (the
-        # forward frames for the forward kernels, the training steps for
-        # the backward); both counts under "paths"
-        main = train_launches if k == "phong_shade_bwd" else fwd_launches
+        # c3 forward frames for the forward kernels, the c3 training steps
+        # for the backward, the c4_mirror4096 frames for kernels 2 and 6);
+        # every path's count under "paths"
+        main = (train_launches if k == "phong_shade_bwd" else
+                launches_4096["render_c4_mirror4096"] if k in (
+                    "primary_hit_ray", "primary_hit_hot", "compact_mask")
+                else fwd_launches)
         rows.append({"name": k, "route": "cuda",
                      "source": f"openglraytracer_tpu_torch/{src}",
-                     "replaces": replaces, "launches": main[k],
-                     "paths": {"render": fwd_launches[k],
-                               "train_step": train_launches[k]},
+                     "replaces": replaces, "launches": main.get(k, 0),
+                     "paths": {pn: pl.get(k, 0)
+                               for pn, pl in path_launches.items()},
                      "max_abs_err": errs[k], "ms": kernel_ms[k][0],
                      "plain_ms": kernel_ms[k][1]})
     log(smi)

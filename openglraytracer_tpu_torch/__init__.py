@@ -7,12 +7,14 @@ plain PyTorch version of the same function beside it. On a CPU tensor a kernel
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-The port covers engine ``culled_pallas`` at depth 0, forward and backward:
-ray generation, the tile-cone broad phase, the primary-hit and
-shadow-occlusion narrow-phase kernels, survivor-routed materials and the fused
-Phong shade kernel; the analytic winner backward of the narrow phase, the
-shade backward kernel and the inverse-rendering fit (``train/inverse.py``).
-Other engines and bounces are listed in ROADMAP.md.
+The port covers engine ``culled_pallas``, forward and backward, at depth 0
+and with bounce children on the culled path: ray generation, the tile-cone
+broad phase with its compaction kernel, the primary-hit kernel (shared-origin
+and per-ray modes, with the hot-primary launch) and the shadow-occlusion
+kernel, survivor-routed materials, the fused Phong shade kernel and the
+bounce blend; the analytic winner backward of the narrow phase, the shade
+backward kernel and the inverse-rendering fit (``train/inverse.py``). Other
+engines and dense bounce children are listed in ROADMAP.md.
 
 The package imports neither ``jax`` nor ``openglraytracer_tpu``.
 """

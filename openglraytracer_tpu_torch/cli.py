@@ -6,14 +6,20 @@ Port of the ``configs``, ``render`` and ``fit`` commands of
   python -m openglraytracer_tpu_torch.cli configs
   python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
       --cull-tile 64 --out c3.png --time
+  python -m openglraytracer_tpu_torch.cli render --scene c4_mirror4096 \\
+      --out c4m.png                   # depth 1, culled bounce children
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
       --height 256 --steps 60 --lr 0.02
 
 ``render`` and ``fit`` take the reference's flags where they apply, plus
 ``--device`` (default ``cuda``; there is no silent fall back to the CPU).
-Flags for what this package does not do yet (other engines, bounces, child
-culling, the stack bounce engine; PNG targets, soft, sharded and
-checkpointed fits) are rejected with a message.
+Bounces (depth > 0) run their children on the culled path with a child spec
+sized from a measured bounce pass: with ``--child-cull``, and by default for
+the builtin configs whose reference benchmark row culls its children
+(``c4_mirror4096``). Flags for what this package does not do yet (other
+engines, dense bounce children, the stack bounce engine; bounces in ``fit``;
+PNG targets, soft, sharded and checkpointed fits) are rejected with a
+message.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ import time
 import torch
 
 ENGINES = ["auto", "xla", "pallas", "culled", "culled_pallas"]
+# builtin configs whose reference benchmark row culls the bounce children
+# (bench.py PLAN, use_child_cull)
+CHILD_CULL_CONFIGS = ("c4_mirror4096",)
 
 
 def _device(name: str) -> torch.device:
@@ -95,21 +104,23 @@ def _reject_unported(args, depth: int):
         raise SystemExit(f"--engine {args.engine} is not yet ported to "
                          "PyTorch/CUDA; this package renders with "
                          "--engine culled_pallas (see ROADMAP.md)")
-    if args.child_cull:
-        raise SystemExit("--child-cull is not yet ported (bounce children "
-                         "come with the bounce slice; see ROADMAP.md)")
     if args.bounce != "tree":
         raise SystemExit(f"--bounce {args.bounce} is not yet ported "
                          "(see ROADMAP.md)")
-    if depth > 0:
-        raise SystemExit(f"depth {depth}: reflection/refraction bounces are "
-                         "not yet ported; render with --depth 0 "
-                         "(see ROADMAP.md)")
+    if args.child_cull and depth <= 0:
+        raise SystemExit("--child-cull needs --depth >= 1 (it sizes the "
+                         "bounce children's survivor lists)")
+    if depth > 0 and not (args.child_cull
+                          or args.scene in CHILD_CULL_CONFIGS):
+        raise SystemExit(f"depth {depth}: dense bounce children are not yet "
+                         "ported (see ROADMAP.md); pass --child-cull to "
+                         "trace them on the culled path")
 
 
 def cmd_render(args):
     from openglraytracer_tpu_torch.models.scene import save_scene
-    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+    from openglraytracer_tpu_torch.ops.accel import (
+        suggest_child_cull_config, suggest_cull_config)
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
     from openglraytracer_tpu_torch.utils.image import save_png
@@ -137,6 +148,14 @@ def cmd_render(args):
                      zip(("kp", "ks", "hot_m", "kb", "ksb"), spec[1:])))
     kwargs = dict(depth=depth, engine="culled_pallas", cull=spec,
                   shadow_lights=shadow_lights)
+    if depth > 0:
+        cspec = suggest_child_cull_config(scene, cam, h, w, spec,
+                                          shadow_lights=shadow_lights)
+        print("child cull: "
+              + " ".join(f"{k}={v}" for k, v in
+                         zip(("kp", "ks", "hot_m", "kb", "ksb", "hot_p"),
+                             cspec[1:])))
+        kwargs["child_cull"] = cspec
     with _profiled(args.profile_dir, device), torch.no_grad():
         img = render(scene, cam, h, w, **kwargs)
         if device.type == "cuda":
@@ -177,8 +196,9 @@ def _reject_unported_fit(args):
                          "PyTorch/CUDA; this package fits with --engine "
                          "culled_pallas (see ROADMAP.md)")
     if args.depth > 0:
-        raise SystemExit(f"depth {args.depth}: reflection/refraction bounces "
-                         "are not yet ported; fit with --depth 0 "
+        raise SystemExit(f"depth {args.depth}: the fit command does not size "
+                         "a bounce-child spec yet; fit with --depth 0, or "
+                         "call train/inverse.fit with FitConfig.child_cull "
                          "(see ROADMAP.md)")
 
 
@@ -188,7 +208,8 @@ def cmd_fit(args):
     torch.Generator seeded with 0, and fit back."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
-    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+    from openglraytracer_tpu_torch.ops.accel import (
+        suggest_child_cull_config, suggest_cull_config)
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.train.inverse import FitConfig, fit
     from openglraytracer_tpu_torch.utils.image import save_png
@@ -249,7 +270,8 @@ def main(argv=None):
     r.add_argument("--cull-tile", type=int, default=32,
                    help="pixel tile side of the culled engine")
     r.add_argument("--child-cull", action="store_true",
-                   help="not yet ported (rejected)")
+                   help="cull the bounce children too (bounce cones; needs "
+                        "depth >= 1; the default for c4_mirror4096)")
     r.add_argument("--bounce", default="tree", choices=["tree", "stack"],
                    help="'stack' is not yet ported (rejected)")
     r.add_argument("--camera-pos", type=float, nargs=3, default=None,

@@ -1,29 +1,46 @@
-// Kernel A: the closest primary hit over a tile's survivor rows.
+// Kernels A and 2: the closest hit over a tile's survivor rows.
 //
-// Replaces openglraytracer_tpu/ops/pallas_culled.py::_primary_kernel in its
-// shared-pinhole mode (the pallas_call in culled_geometry_pallas). Per ray:
-// the closest hit over the tile's sphere rows, then its box rows, then every
-// plane, in ascending slot order. Tie rules: running minimum with strict <,
-// so the first survivor wins; boxes and planes merge with strict <, so
-// objects beat planes at equal t. Output per ray: t, the unit normal
-// (flipped for inside sphere hits, zero on a miss), the inside flag, the
-// material id, the global object id and the survivor slot (-1 for planes).
+// Replaces openglraytracer_tpu/ops/pallas_culled.py::_primary_kernel in
+// both of its modes: shared-pinhole (kernel A, the first pallas_call of
+// culled_geometry_pallas) and per-ray origin (kernel 2: the same pallas_call
+// for bounce children, and the hot-primary pallas_call over the global
+// object table). One template, a flag for the mode: the intersection code
+// is written once. Per ray: the closest hit over the tile's sphere rows,
+// then its box rows, then every plane, in ascending slot order. Tie rules:
+// running minimum with strict <, so the first survivor wins; boxes and
+// planes merge with strict <, so objects beat planes at equal t. Output per
+// ray: t, the unit normal (flipped for inside sphere hits, zero on a miss),
+// the inside flag, the material id, the global object id and the survivor
+// slot (-1 for planes).
 //
 // Row layouts (written by ops/culled.py):
+//   shared mode, the pinhole origin o0 folded into the rows:
 //   sphere (T, Kp, 8):  [ocx ocy ocz qc mat gid valid pad], oc = o0 - c,
-//                       qc = oc.oc - r^2 (the pinhole origin is shared)
+//                       qc = oc.oc - r^2
 //   box    (T, Kb, 24): [mins(3) maxs(3) ro(3) rot(9) mat gid valid pad(3)],
 //                       ro = R^T (o0 - pos)
 //   plane  (P, 16):     [n(3) off unit_n(3) off-n.o0 mat gid pad(6)]
+//   per-ray mode, raw geometry (the origin-relative terms are per ray):
+//   sphere (T, Kp, 8):  [cx cy cz r^2 mat gid valid pad]
+//   box    (T, Kb, 24): [mins(3) maxs(3) pos(3) rot(9) mat gid valid pad(3)]
+//   plane  (P, 16):     as shared mode with o0 = 0 (slot 7 holds off)
 //   counts (T, 2) int32: [min(p_count, Kp), min(b_count, Kb)]
 //
-// What bounds it on the H100: memory traffic, not arithmetic. A ray reads
-// 12 bytes of direction and writes a 29-byte hit record; a survivor costs
-// about 25 float ops, and at the c3 cell a tile keeps 0.76 spheres on
-// average. The design keeps each row read once per block: one thread per
-// ray, blocks of 256 rays inside one tile, and the tile's rows staged in
-// shared memory in chunks, so every tile loops to its own survivor count
-// with no padding to a static K.
+// The hot-primary launch is the per-ray kernel over a grid of M hot tiles:
+// tile_ids maps block row b to the ray tile it reads, the (1, N, 8) and
+// (1, Nb, 24) global tables have a tile stride of 0, counts (M, 2) are N
+// and Nb on the truly hot tiles and 0 on the slack, and the outputs are
+// (M * tile_p) rays in block order; the slot is then the global row id.
+//
+// What bounds it on the H100: memory traffic in shared and cold per-ray
+// mode, not arithmetic. A ray reads 12 bytes of direction (24 with its
+// origin) and writes a 29-byte hit record; a survivor costs about 25 float
+// ops (35 per ray in per-ray mode). The design keeps each row read once per
+// block: one thread per ray, blocks of 256 rays inside one tile, and the
+// tile's rows staged in shared memory in chunks, so every tile loops to its
+// own survivor count with no padding to a static K. The hot launch is
+// bound by its sphere tests instead (tile_p * N per hot tile); its global
+// table is staged through shared memory in the same chunks from L2.
 #include "common.cuh"
 
 namespace oglrt {
@@ -40,22 +57,41 @@ struct Best {
   int ins, flp, mat, gid, slot;
 };
 
+struct Ray {
+  float ox, oy, oz;   // per-ray mode only
+  float dx, dy, dz;
+  float qa, inv_2qa;
+  bool qa_ok;
+};
+
 // The sphere quadratic cancels at nearly every hit (qd < 1e-3 qb^2 for the
 // c3 grid), so the rounding of qb and qd sets t to about 1e-5 relative.
 // They are fused multiply-adds, written out with fmaf (--fmad=false fuses
 // nothing by itself) at the places where XLA's CPU compiler fuses the
-// reference's expressions, so that t agrees with the JAX package's.
-__device__ __forceinline__ void fold_sphere(const float* row, int j, float dx,
-                                            float dy, float dz, float qa,
-                                            bool qa_ok, float inv_2qa,
-                                            Best& b) {
-  const float ocx = row[0], ocy = row[1], ocz = row[2], qc = row[3];
+// reference's expressions, so that t agrees with the JAX package's. In
+// per-ray mode the 3-sum of oc.oc is fused the same way as d.d.
+template <bool kPerRay>
+__device__ __forceinline__ void fold_sphere(const float* row, int j,
+                                            const Ray& ray, Best& b) {
+  float ocx, ocy, ocz, qc;
+  if (kPerRay) {
+    ocx = ray.ox - row[0];
+    ocy = ray.oy - row[1];
+    ocz = ray.oz - row[2];
+    qc = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - row[3];
+  } else {
+    ocx = row[0];
+    ocy = row[1];
+    ocz = row[2];
+    qc = row[3];
+  }
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
   const float qb = 2.0f * fmaf(dz, ocz, fmaf(dx, ocx, dy * ocy));
-  const float qd = fmaf(qb, qb, -(4.0f * qa * qc));
-  bool ok = (qd >= 0.0f) && qa_ok && (row[6] > 0.5f);
+  const float qd = fmaf(qb, qb, -(4.0f * ray.qa * qc));
+  bool ok = (qd >= 0.0f) && ray.qa_ok && (row[6] > 0.5f);
   const float sq = ok ? sqrtf(fmaxf(qd, kSqrtEps)) : 0.0f;
-  const float t1 = (-qb + sq) * inv_2qa;
-  const float t2 = (-qb - sq) * inv_2qa;
+  const float t1 = (-qb + sq) * ray.inv_2qa;
+  const float t2 = (-qb - sq) * ray.inv_2qa;
   const float t_near = fminf(t1, t2);
   const float t_far = fmaxf(t1, t2);
   ok = ok && (t_far >= 0.0f);
@@ -64,7 +100,7 @@ __device__ __forceinline__ void fold_sphere(const float* row, int j, float dx,
   ok = ok && (t > 0.0f);
   t = ok ? t : kInfT;
   if (t < b.t) {
-    // u = (o0 - c) + t d = p - c, normalized at the end
+    // u = (o - c) + t d = p - c, normalized at the end
     b.t = t;
     b.nx = fmaf(t, dx, ocx);
     b.ny = fmaf(t, dy, ocy);
@@ -77,14 +113,29 @@ __device__ __forceinline__ void fold_sphere(const float* row, int j, float dx,
   }
 }
 
-__device__ __forceinline__ void fold_box(const float* row, int j, float dx,
-                                         float dy, float dz, Best& b) {
+template <bool kPerRay>
+__device__ __forceinline__ void fold_box(const float* row, int j,
+                                         const Ray& ray, Best& b) {
   const float bm0 = row[0], bm1 = row[1], bm2 = row[2];
   const float bx0 = row[3], bx1 = row[4], bx2 = row[5];
-  const float rox = row[6], roy = row[7], roz = row[8];
   const float r00 = row[9], r01 = row[10], r02 = row[11];
   const float r10 = row[12], r11 = row[13], r12 = row[14];
   const float r20 = row[15], r21 = row[16], r22 = row[17];
+  float rox, roy, roz;
+  if (kPerRay) {
+    // world -> local origin: R^T (o - pos)
+    const float wx = ray.ox - row[6];
+    const float wy = ray.oy - row[7];
+    const float wz = ray.oz - row[8];
+    rox = r00 * wx + r10 * wy + r20 * wz;
+    roy = r01 * wx + r11 * wy + r21 * wz;
+    roz = r02 * wx + r12 * wy + r22 * wz;
+  } else {
+    rox = row[6];
+    roy = row[7];
+    roz = row[8];
+  }
+  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
   // world -> local direction: R^T d
   const float rdx = r00 * dx + r10 * dy + r20 * dz;
   const float rdy = r01 * dx + r11 * dy + r21 * dz;
@@ -127,10 +178,14 @@ __device__ __forceinline__ void fold_box(const float* row, int j, float dx,
   }
 }
 
-__device__ __forceinline__ void fold_plane(const float* row, float dx,
-                                           float dy, float dz, Best& b) {
-  const float nd = row[0] * dx + row[1] * dy + row[2] * dz;
-  float t = row[7] * inv_safe(nd);
+template <bool kPerRay>
+__device__ __forceinline__ void fold_plane(const float* row, const Ray& ray,
+                                           Best& b) {
+  float off_no = row[7];   // off - n.o0 (per-ray mode: off)
+  if (kPerRay)
+    off_no = off_no - (row[0] * ray.ox + row[1] * ray.oy + row[2] * ray.oz);
+  const float nd = row[0] * ray.dx + row[1] * ray.dy + row[2] * ray.dz;
+  float t = off_no * inv_safe(nd);
   const bool ok = (fabsf(nd) > 1.0e-9f) && (t > 0.0f);
   t = ok ? t : kInfT;
   if (t < b.t) {   // strict: objects beat planes at equal t
@@ -147,38 +202,52 @@ __device__ __forceinline__ void fold_plane(const float* row, float dx,
   }
 }
 
-// grid (T, ceil(tile_p / kBlock)); block kBlock rays of one tile
+// grid (B, ceil(tile_p / kBlock)); block kBlock rays of one tile. Block row
+// b reads ray tile tile_ids[b] (b itself when tile_ids is null), the counts
+// of row b, and the rows of tile b (of tile 0 when global_rows: the hot
+// launch's one table); it writes rays b * tile_p + p.
+template <bool kPerRay>
 __global__ void __launch_bounds__(kBlock) primary_hit_kernel(
-    const float* __restrict__ dirs, const float* __restrict__ sph,
-    const float* __restrict__ box, const float* __restrict__ pln,
-    const int* __restrict__ cnt, int tile_p, int kp, int kb, int n_pln,
-    float* __restrict__ t_out, float* __restrict__ n_out,
+    const float* __restrict__ dirs, const float* __restrict__ origins,
+    const float* __restrict__ sph, const float* __restrict__ box,
+    const float* __restrict__ pln, const int* __restrict__ cnt,
+    const int* __restrict__ tile_ids, bool global_rows, int tile_p, int kp,
+    int kb, int n_pln, float* __restrict__ t_out, float* __restrict__ n_out,
     bool* __restrict__ ins_out, int* __restrict__ mat_out,
     int* __restrict__ gid_out, int* __restrict__ slot_out) {
   __shared__ float s_sph[kSphChunk * kSphCols];
   __shared__ float s_box[kBoxChunk * kBoxCols];
 
-  const int tile = blockIdx.x;
+  const int blk = blockIdx.x;
+  const int tile = tile_ids ? tile_ids[blk] : blk;
   const int p = blockIdx.y * blockDim.x + threadIdx.x;
   const bool live = p < tile_p;
-  const long long r = static_cast<long long>(tile) * tile_p + p;
+  const long long r_in = static_cast<long long>(tile) * tile_p + p;
+  const long long r = static_cast<long long>(blk) * tile_p + p;
 
-  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  Ray ray = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
   if (live) {
-    dx = dirs[3 * r];
-    dy = dirs[3 * r + 1];
-    dz = dirs[3 * r + 2];
+    ray.dx = dirs[3 * r_in];
+    ray.dy = dirs[3 * r_in + 1];
+    ray.dz = dirs[3 * r_in + 2];
+    if (kPerRay) {
+      ray.ox = origins[3 * r_in];
+      ray.oy = origins[3 * r_in + 1];
+      ray.oz = origins[3 * r_in + 2];
+    }
   }
-  const float qa = fmaf(dz, dz, fmaf(dx, dx, dy * dy));   // see fold_sphere
-  const bool qa_ok = qa > kDivEps;
-  const float inv_2qa = 0.5f / (qa < kDivEps ? kDivEps : qa);
+  // see fold_sphere
+  ray.qa = fmaf(ray.dz, ray.dz, fmaf(ray.dx, ray.dx, ray.dy * ray.dy));
+  ray.qa_ok = ray.qa > kDivEps;
+  ray.inv_2qa = 0.5f / (ray.qa < kDivEps ? kDivEps : ray.qa);
 
   Best b = {kInfT, 0.0f, 0.0f, 0.0f, 0, 0, 0, -1, 0};
+  const long long row_tile = global_rows ? 0 : blk;
 
   // the trip counts are uniform over the block, so every thread reaches
   // every barrier
-  const int np = min(cnt[2 * tile], kp);
-  const float* tile_sph = sph + static_cast<long long>(tile) * kp * kSphCols;
+  const int np = min(cnt[2 * blk], kp);
+  const float* tile_sph = sph + row_tile * kp * kSphCols;
   for (int base = 0; base < np; base += kSphChunk) {
     const int m = min(kSphChunk, np - base);
     __syncthreads();   // the previous chunk is consumed
@@ -187,12 +256,11 @@ __global__ void __launch_bounds__(kBlock) primary_hit_kernel(
     __syncthreads();
     if (live)
       for (int jj = 0; jj < m; ++jj)
-        fold_sphere(&s_sph[jj * kSphCols], base + jj, dx, dy, dz, qa, qa_ok,
-                    inv_2qa, b);
+        fold_sphere<kPerRay>(&s_sph[jj * kSphCols], base + jj, ray, b);
   }
 
-  const int nb = min(cnt[2 * tile + 1], kb);
-  const float* tile_box = box + static_cast<long long>(tile) * kb * kBoxCols;
+  const int nb = min(cnt[2 * blk + 1], kb);
+  const float* tile_box = box + row_tile * kb * kBoxCols;
   for (int base = 0; base < nb; base += kBoxChunk) {
     const int m = min(kBoxChunk, nb - base);
     __syncthreads();
@@ -201,11 +269,12 @@ __global__ void __launch_bounds__(kBlock) primary_hit_kernel(
     __syncthreads();
     if (live)
       for (int jj = 0; jj < m; ++jj)
-        fold_box(&s_box[jj * kBoxCols], base + jj, dx, dy, dz, b);
+        fold_box<kPerRay>(&s_box[jj * kBoxCols], base + jj, ray, b);
   }
 
   if (!live) return;
-  for (int k = 0; k < n_pln; ++k) fold_plane(pln + k * kPlnCols, dx, dy, dz, b);
+  for (int k = 0; k < n_pln; ++k)
+    fold_plane<kPerRay>(pln + k * kPlnCols, ray, b);
 
   const float hit_f = b.t < kMissT ? 1.0f : 0.0f;
   const float inv_len =
@@ -221,22 +290,50 @@ __global__ void __launch_bounds__(kBlock) primary_hit_kernel(
   slot_out[r] = b.slot;
 }
 
+template <bool kPerRay>
+int launch(const float* dirs, const float* origins, const float* sph,
+           const float* box, const float* pln, const int* cnt,
+           const int* tile_ids, bool global_rows, int n_blocks, int tile_p,
+           int kp, int kb, int n_pln, float* t, float* n, bool* inside,
+           int* mat, int* gid, int* slot, void* stream) {
+  if (n_blocks == 0 || tile_p == 0) return 0;
+  const dim3 grid(n_blocks, (tile_p + kBlock - 1) / kBlock);
+  primary_hit_kernel<kPerRay><<<grid, kBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      dirs, origins, sph, box, pln, cnt, tile_ids, global_rows, tile_p, kp,
+      kb, n_pln, t, n, inside, mat, gid, slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace oglrt
 
+// Kernel A, shared-pinhole mode: T tiles of tile_p rays.
 extern "C" int oglrt_primary_hit(const float* dirs, const float* sph,
                                  const float* box, const float* pln,
                                  const int* cnt, int n_tiles, int tile_p,
                                  int kp, int kb, int n_pln, float* t,
                                  float* n, bool* inside, int* mat, int* gid,
                                  int* slot, void* stream) {
-  if (n_tiles == 0 || tile_p == 0) return 0;
-  const dim3 grid(n_tiles, (tile_p + oglrt::kBlock - 1) / oglrt::kBlock);
-  oglrt::primary_hit_kernel<<<grid, oglrt::kBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      dirs, sph, box, pln, cnt, tile_p, kp, kb, n_pln, t, n, inside, mat, gid,
-      slot);
-  return static_cast<int>(cudaGetLastError());
+  return oglrt::launch<false>(dirs, nullptr, sph, box, pln, cnt, nullptr,
+                              false, n_tiles, tile_p, kp, kb, n_pln, t, n,
+                              inside, mat, gid, slot, stream);
+}
+
+// Kernel 2, per-ray mode. tile_ids null: the cold launch over T tiles with
+// per-tile rows. tile_ids (M,): the hot launch over the M listed tiles with
+// the global (1, kp, 8) / (1, kb, 24) tables.
+extern "C" int oglrt_primary_hit_ray(const float* dirs, const float* origins,
+                                     const float* sph, const float* box,
+                                     const float* pln, const int* cnt,
+                                     const int* tile_ids, int n_blocks,
+                                     int tile_p, int kp, int kb, int n_pln,
+                                     float* t, float* n, bool* inside,
+                                     int* mat, int* gid, int* slot,
+                                     void* stream) {
+  return oglrt::launch<true>(dirs, origins, sph, box, pln, cnt, tile_ids,
+                             tile_ids != nullptr, n_blocks, tile_p, kp, kb,
+                             n_pln, t, n, inside, mat, gid, slot, stream);
 }
 
 extern "C" const char* oglrt_error_string(int err) {

@@ -1,11 +1,14 @@
-"""Broad-phase acceleration: tile-cone culling for primary and shadow rays.
+"""Broad-phase acceleration: tile-cone culling for primary, shadow and
+bounce rays.
 
 Port of the parts of ``openglraytracer_tpu/ops/accel.py`` that engine
-``culled_pallas`` runs: the tile layout, the conservative cone tests, top-K
-survivor compaction, the survivor tables and records, the dense hot-tile
-shadow pass, survivor-routed material rows, the tile-structured analytic
-backward of the narrow phase (``_culled_bwd``) and the host-side sizing and
-overflow recount of the cull spec.
+``culled_pallas`` runs: the tile layout, the conservative cone tests (the
+bounce cones of secondary-ray bundles included), survivor compaction (the
+compaction kernel for wide masks), the survivor tables and records, the
+dense hot-tile shadow pass, survivor-routed material rows, the
+tile-structured analytic backward of the narrow phase (``_culled_bwd``) and
+the host-side sizing of the primary and bounce-child cull specs and the
+overflow recount.
 
   1. Partition the image into pixel tiles. All primary rays of a tile share
      the camera origin and span a narrow cone: axis = mean direction,
@@ -30,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import Scene
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit)
@@ -73,7 +77,8 @@ def tile_cones(dirs):
     return axis, torch.clamp(cos_half, -1.0, 1.0)
 
 
-def sphere_vs_cone(apex, axis, cos_half, centers, radii, max_dist=None):
+def sphere_vs_cone(apex, axis, cos_half, centers, radii, max_dist=None,
+                   expand=None):
     """Conservative overlap of spheres with per-tile cones.
 
     apex (T, 3) or (3,); axis (T, 3); cos_half (T,); centers (N, 3);
@@ -83,6 +88,11 @@ def sphere_vs_cone(apex, axis, cos_half, centers, radii, max_dist=None):
     angle(axis, v) <= half + asin(r/|v|) is evaluated as
     cos(angle) >= cos(half)*cos(asin) - sin(half)*sin(asin) with
     sin(asin) = r/|v| — no trig. A cone with cos_half <= 0 keeps everything.
+
+    expand (T,): per-tile Minkowski expansion of every radius, for bundles
+    whose origins span a box rather than a point (a ray from any point of a
+    box B hits S iff the ray from B's center hits S dilated by B's
+    half-diagonal).
     """
     apex = torch.atleast_2d(apex)                        # (T or 1, 3)
     vx = centers[None, :, 0] - apex[:, 0:1]              # (T, N)
@@ -92,7 +102,8 @@ def sphere_vs_cone(apex, axis, cos_half, centers, radii, max_dist=None):
     inv_d = torch.rsqrt(torch.clamp(d2, min=_SQRT_EPS))
     ca = (axis[:, 0:1] * vx + axis[:, 1:2] * vy + axis[:, 2:3] * vz) * inv_d
 
-    r_eff = radii[None, :]
+    r_eff = radii[None, :] if expand is None \
+        else radii[None, :] + expand[:, None]            # (T or 1, N)
     inside = d2 <= r_eff * r_eff                         # apex inside sphere
     sin_r = torch.clamp(r_eff * inv_d, max=1.0)
     cos_r = torch.sqrt(torch.clamp(1.0 - sin_r * sin_r, min=0.0))
@@ -105,19 +116,79 @@ def sphere_vs_cone(apex, axis, cos_half, centers, radii, max_dist=None):
     return keep
 
 
-def compact_mask(mask, k: int):
-    """Dense top-K compaction of a (T, N) bool mask.
+def bounce_cones(origins_t, dirs_t, active_t):
+    """Conservative per-tile cone of a secondary-ray bundle (the reflection
+    or refraction children of a culled trace). There is no shared apex, so
+    the bundle is bounded by the box of its active origins (apex = the box
+    center, Minkowski expansion rho = its half-diagonal) plus a direction
+    cone over the active rays.
 
-    Returns (idx (T, K) int32 ascending among survivors, valid (T, K) bool,
-    count (T,) int32 true survivor totals — count > K means overflow).
-    idx is unspecified where ~valid (consumers gate on valid). The key
-    (N - i) * mask makes top-K return survivors in ascending id order."""
+    origins_t, dirs_t (T, P, 3); active_t (T, P): rays that can contribute
+    (parent hit with a positive branch weight and a nonzero direction; the
+    zero vector of a totally internally reflected refract() misses
+    everything and must not open the cone).
+    Returns (apex (T, 3), axis (T, 3), cos_half (T,), rho (T,),
+    empty (T,)); tiles with no active ray are empty (keep nothing)."""
+    am = active_t[..., None]
+    bmin = torch.amin(torch.where(am, origins_t, INF_T), dim=1) - _BBOX_MARGIN
+    bmax = torch.amax(torch.where(am, origins_t, -INF_T), dim=1) \
+        + _BBOX_MARGIN
+    apex = 0.5 * (bmin + bmax)
+    rho = 0.5 * torch.sqrt(torch.clamp(
+        torch.sum(torch.square(bmax - bmin), -1), min=_SQRT_EPS))
+
+    s = torch.sum(torch.where(am, dirs_t, 0.0), dim=1)
+    axis = s * torch.rsqrt(torch.clamp(torch.sum(s * s, -1, keepdim=True),
+                                       min=_SQRT_EPS))
+    dots = torch.sum(axis[:, None, :] * dirs_t, -1)
+    cos_half = torch.amin(torch.where(active_t, dots, 1.0), dim=1)
+    empty = ~torch.any(active_t, dim=1)
+    return apex, axis, torch.clamp(cos_half, -1.0, 1.0), rho, empty
+
+
+# Masks at least this wide go to the compaction kernel on the card; below
+# it torch.topk's fixed cost is lower (the reference's own threshold,
+# openglraytracer_tpu/ops/pallas_compact.py MIN_N_FOR_KERNEL).
+MIN_N_FOR_KERNEL = 1024
+
+
+def compact_mask_plain(mask, k: int):
+    """Plain version of the compaction kernel: torch.topk over the key
+    (N - i) * mask, which returns survivors in ascending id order.
+    Arguments and results as compact_mask, except that idx is unspecified
+    where ~valid."""
     n = mask.shape[-1]
     key = torch.where(mask, torch.arange(n, 0, -1, dtype=torch.int32,
                                          device=mask.device)[None, :], 0)
     vals, idx = torch.topk(key, min(k, n), dim=-1)
     return (idx.to(torch.int32), vals > 0,
             torch.sum(mask, dim=-1, dtype=torch.int32))
+
+
+@torch.no_grad()
+def compact_mask(mask, k: int):
+    """Dense top-K compaction of a (T, N) bool mask.
+
+    Returns (idx (T, K) int32 ascending among survivors, valid (T, K) bool,
+    count (T,) int32 true survivor totals — count > K means overflow),
+    K = min(k, N). Consumers gate idx on valid. A mask at least
+    MIN_N_FOR_KERNEL wide on a CUDA device runs the compaction kernel
+    (csrc/compact_mask.cu, idx 0 where ~valid); narrower masks and CPU
+    tensors run compact_mask_plain."""
+    n = mask.shape[-1]
+    if n < MIN_N_FOR_KERNEL or kernels.on_cpu(mask):
+        return compact_mask_plain(mask, k)
+    dev = mask.device
+    mask = mask.contiguous()
+    t_rows, k_eff = mask.shape[0], min(k, n)
+    kernels.check("mask", mask, dev, torch.bool, (t_rows, n))
+    idx = torch.empty((t_rows, k_eff), dtype=torch.int32, device=dev)
+    valid = torch.empty((t_rows, k_eff), dtype=torch.bool, device=dev)
+    count = torch.empty((t_rows,), dtype=torch.int32, device=dev)
+    kernels.launch("oglrt_compact_mask", dev, mask, t_rows, n, k_eff, idx,
+                   valid, count)
+    kernels.LAUNCHES["compact_mask"] += 1
+    return idx, valid, count
 
 
 def _dense_compact(apex, axis, cos_half, centers, radii, k,
@@ -289,6 +360,15 @@ def parse_cull_spec(cull):
     return tile, kp, ks, hot_m, kb, ksb
 
 
+def cull_hot_p(cull) -> int:
+    """The optional 7th spec element: the hot-PRIMARY tile budget of a
+    bounce-child spec. Tiles whose bounce cone keeps more objects than Kp
+    run a dense pass over the global object table instead of a per-tile
+    survivor list (kernel 2's hot launch), so Kp can be a quantile of the
+    counts instead of their max. 0 = no hot-primary pass."""
+    return cull[6] if len(cull) > 6 else 0
+
+
 def cull_overflow_count(aux: CullAux) -> torch.Tensor:
     """Device int32 scalar: number of (tile, list) slots whose true survivor
     count exceeded the static K actually used — renders where objects were
@@ -380,7 +460,8 @@ def _scatter_winner_rows(contrib, surv_idx, j_local, n_obj: int):
 
 
 def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
-                tile_p: int, gt, gp, gn, need_rays: bool = False):
+                tile_p: int, gt, gp, gn, need_rays: bool = False,
+                hot_pass: bool = False):
     """Analytic winner-only backward of the culled narrow phase. Port of
     ``accel._culled_bwd`` (reused verbatim by the reference's
     ``culled_pallas_geometry_op``).
@@ -391,6 +472,16 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     added back through the same lists. Box rotations are differentiated per
     box through euler_rotation_3x3b, not per ray. On a miss the forward's
     p is the origin, so p's cotangent goes to the origins.
+
+    Winner overflow (a divergence from the reference): a ray whose winner
+    is a sphere (box) but whose j_local (jb_local) is -1 lost its winner
+    from the capped list (a hot tile with more distinct winners than Kp).
+    It gets zero cotangents, for its winner's parameters and for its ray;
+    the reference replays a sphere of radius 0 at the origin there and
+    hands the ray a finite but wrong cotangent. The tile's count > K
+    reports the event through cull_overflow_count. Only the hot-primary
+    pass rebuilds lists that can lose a winner: hot_pass says whether the
+    forward ran one.
 
     gt (R,), gp (R, 3), gn (R, 3): cotangents of hit.t, hit.p, hit.n.
     Returns (g_center (N, 3), g_radius (N,), g_mins, g_maxs, g_position,
@@ -410,6 +501,17 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     is_sph = (hm & (idx >= 0) & (idx < n_sph)) if n_sph else none
     is_box = (hm & (idx >= n_sph) & (idx < n_sph + n_box)) if n_box \
         else none
+
+    # winner overflow: the winner fell off its capped list (see above)
+    lost = None
+    if hot_pass:
+        lost = none
+        if n_sph:
+            lost = lost | (is_sph & (aux.j_local.reshape(-1) < 0))
+        if n_box:
+            lost = lost | (is_box & (aux.jb_local.reshape(-1) < 0))
+        is_sph = is_sph & ~lost
+        is_box = is_box & ~lost
 
     if n_sph:
         win = _winner_rows(torch.cat([sph.center, sph.radius[:, None]], -1),
@@ -441,10 +543,13 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
         pn[:, 2] = 1.0
         poff = torch.zeros(r_total, dtype=dtype, device=device)
 
+    # a miss's p is its origin; a lost winner's ray gets nothing
+    gp_direct_o = torch.where(hm[:, None], 0.0, gp)
+    if lost is not None:
+        hm = hm & ~lost
     live = hm[:, None]
     gt = torch.where(hm, gt, 0.0)
     gn = torch.where(live, gn, 0.0)
-    gp_direct_o = torch.where(live, 0.0, gp)
     gp = torch.where(live, gp, 0.0)
 
     # replay one candidate per ray and take its VJP
@@ -634,9 +739,19 @@ def suggest_cull_config(scene: Scene, camera, height: int, width: int,
 
 
 def _spec_from_counts(scene: Scene, p_count, s_count, pb_count, sb_count,
-                      tile, headroom: float, min_k: int, hot: bool = True):
-    """Size a cull spec from measured survivor counts. (The reference's
-    hot-PRIMARY sizing for bounce bundles is not ported yet.)"""
+                      tile, headroom: float, min_k: int, hot: bool = True,
+                      hot_primary: bool = False, w_count=None):
+    """Size a cull spec from measured survivor counts (shared by
+    suggest_cull_config and suggest_child_cull_config).
+
+    hot_primary=True (bounce-child specs): also size a hot-primary tile
+    budget, appended as the 7th element, with the quantile/cost model of
+    the shadow lists: Kp becomes a quantile cap and the hot_p over-cap
+    tiles take kernel 2's hot launch over the global table (see
+    cull_hot_p). Its m grid reaches T/2, since bounce counts are far
+    heavier-tailed than shadow counts. w_count (T,), the measured
+    distinct-winner counts, floors Kp so that the winner lists the hot pass
+    rebuilds do not overflow at the measured frame."""
     n = int(scene.spheres.count)
     n_box = int(scene.boxes.count)
     p_count, s_count, pb_count, sb_count = (
@@ -647,20 +762,39 @@ def _spec_from_counts(scene: Scene, p_count, s_count, pb_count, sb_count,
 
     def box_spec():
         if not n_box:
-            return ()
+            return (0, 0) if hot_primary else ()
         kb = max(1, min(n_box, int(np.ceil(int(np.max(pb_count))
                                            * headroom))))
         max_sb = int(np.max(sb_count)) if sb_count.size else 0
         ksb = max(1, min(n_box, int(np.ceil(max_sb * headroom))))
         return (kb, ksb)
 
-    kp = rounded(int(np.max(p_count))) if n else min_k
+    hot_p = 0
+    if hot_primary and n:
+        counts_p = np.sort(p_count)[::-1]                    # (T,) desc
+        t_tiles = counts_p.shape[0]
+        w = None if w_count is None else w_count.cpu().numpy()
+        w_floor = rounded(int(np.max(w))) if w is not None and w.size \
+            else min_k
+        best = None
+        for m in [0] + [max(1, t_tiles // f) for f in (64, 32, 16, 8, 4, 2)]:
+            kp_m = int(counts_p[min(m, t_tiles - 1)]) if m < t_tiles else 0
+            kp_m = max(rounded(kp_m), w_floor)
+            # the shadow model's units: per-tile list work (64-lane floor)
+            # plus m dense scans of all N
+            cost = t_tiles * max(kp_m, 64) + m * n
+            if best is None or cost < best[0]:
+                best = (cost, kp_m, m)
+        _, kp, hot_p = best
+    else:
+        kp = rounded(int(np.max(p_count))) if n else min_k
+    tail = (hot_p,) if hot_primary else ()
     if not s_count.size:
-        return (tile, kp, min_k, 0) + box_spec()
+        return (tile, kp, min_k, 0) + box_spec() + tail
 
     if not hot:
         ks = rounded(int(np.max(s_count)))
-        return (tile, kp, ks, 0) + box_spec()
+        return (tile, kp, ks, 0) + box_spec() + tail
 
     counts = np.sort(s_count, axis=-1)[:, ::-1]              # (L, T) desc
     t_tiles = counts.shape[-1]
@@ -678,4 +812,159 @@ def _spec_from_counts(scene: Scene, p_count, s_count, pb_count, sb_count,
     _, ks, hot_m = best
     if n == 0:
         hot_m = 0                       # the hot pass is a sphere-only path
-    return (tile, kp, ks, hot_m) + box_spec()
+    return (tile, kp, ks, hot_m) + box_spec() + tail
+
+
+@torch.no_grad()
+def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
+                       cull, shadow_lights: tuple | None = None):
+    """Per-tile survivor counts of the bounce children of a culled trace,
+    the sizing pass of secondary-ray culling.
+
+    Traces the primaries once (shadows off) with the parent spec ``cull``,
+    spawns the reflection and (when a material is transparent) refraction
+    bundles, and measures (1) the bounce-cone sphere/box survivor counts and
+    (2) from an exact child pass at Kp = the measured maximum, the children's
+    per-light shadow-cone counts and distinct-winner counts. Counts are the
+    elementwise maximum over the live branches, so one child spec covers
+    both. Returns (p_count (T,), s_count (L, T), pb_count (T,),
+    sb_count (L, T), w_count (T,), wb_count (T,)).
+
+    Counts are measured at bounce level 1; deeper levels reuse the spec, and
+    their overflow counters report any level that outgrows it."""
+    from openglraytracer_tpu_torch.models.scene import AIR_IOR
+    from openglraytracer_tpu_torch.ops.culled import culled_geometry
+    from openglraytracer_tpu_torch.ops.raygen import generate_rays
+    from openglraytracer_tpu_torch.ops.render import BOUNCE_EPS
+    from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
+    from openglraytracer_tpu_torch.ops.transforms import reflect, refract
+
+    (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
+    tile_p = th * tw
+    origins, dirs = generate_rays(camera, height, width)
+    o = tile_image(origins, th, tw).reshape(-1, 3)
+    d = tile_image(dirs, th, tw).reshape(-1, 3)
+    n_sph = int(scene.spheres.count)
+    n_box = int(scene.boxes.count)
+    n_lights = scene.lights.count
+    t_tiles = o.shape[0] // tile_p
+    no_shadows = tuple([False] * n_lights)
+    has_refl, has_refr = static_bounce_mask(scene)
+    zero = torch.zeros((t_tiles,), dtype=torch.int32, device=o.device)
+    if n_box:
+        bc, br = box_bounding_spheres(scene)
+
+    def bundle_counts(co, cd, active):
+        act_t = (active & (torch.sum(cd * cd, -1) > _DIV_EPS)) \
+            .reshape(t_tiles, tile_p)
+        apex, axis, cos_half, rho, empty = bounce_cones(
+            co.reshape(t_tiles, tile_p, 3), cd.reshape(t_tiles, tile_p, 3),
+            act_t)
+        pc = pb = zero
+        if n_sph:
+            m = sphere_vs_cone(apex, axis, cos_half, scene.spheres.center,
+                               scene.spheres.radius, expand=rho)
+            pc = torch.sum(m & (~empty)[:, None], dim=-1, dtype=torch.int32)
+        if n_box:
+            m = sphere_vs_cone(apex, axis, cos_half, bc, br, expand=rho)
+            pb = torch.sum(m & (~empty)[:, None], dim=-1, dtype=torch.int32)
+        return pc, pb
+
+    hit, _, _ = culled_geometry(scene, o, d, tile_p, kp, 8, no_shadows, 0,
+                                kb, ksb)
+    mat_id = hit.material_id.long()
+    p_count = pb_count = zero
+    bundles = []
+    if has_refl:
+        refl = scene.materials.reflectivity[mat_id]
+        active = hit.hit & (refl > 0.0)
+        co = hit.p + hit.n * BOUNCE_EPS
+        cd = reflect(d, hit.n)
+        p_count, pb_count = bundle_counts(co, cd, active)
+        bundles.append((active, co, cd))
+    if has_refr:
+        active_r = hit.hit & (scene.materials.transparency[mat_id] > 0.0)
+        ior = scene.materials.refraction_index[mat_id]
+        ratio = torch.where(hit.inside, ior / AIR_IOR, AIR_IOR / ior)
+        co_r = hit.p - hit.n * BOUNCE_EPS
+        cd_r = refract(d, hit.n, ratio[:, None])
+        pc_r, pb_r = bundle_counts(co_r, cd_r, active_r)
+        p_count = torch.maximum(p_count, pc_r)
+        pb_count = torch.maximum(pb_count, pb_r)
+        bundles.append((active_r, co_r, cd_r))
+    kp_c = min(max(n_sph, 1), max(8, int(torch.max(p_count))))
+    kb_c = max(1, int(torch.max(pb_count))) if n_box else 0
+
+    def distinct(gid_t, hm_t, lo, n_obj):
+        """(T,) number of distinct winners among objects [lo, lo + n_obj)."""
+        if not n_obj:
+            return zero
+        is_w = hm_t & (gid_t >= lo) & (gid_t < lo + n_obj)
+        wm = torch.zeros((t_tiles, n_obj), dtype=torch.int32,
+                         device=o.device).scatter_reduce(
+            1, torch.clamp(gid_t - lo, 0, n_obj - 1).long(),
+            is_w.to(torch.int32), "amax")
+        return torch.sum(wm, dim=-1, dtype=torch.int32)
+
+    def child_shadow_counts(co, cd, active):
+        hit, _, _ = culled_geometry(scene, co, cd, tile_p, kp_c, 8,
+                                    no_shadows, 0, kb_c, 1, active=active)
+        gid_t = hit.obj_id.reshape(t_tiles, tile_p)
+        hm_t = hit.hit.reshape(t_tiles, tile_p)
+        w_cnt = distinct(gid_t, hm_t, 0, n_sph)
+        wb_cnt = distinct(gid_t, hm_t, n_sph, n_box)
+        shadow_org = hit.p + hit.n * SHADOW_EPS
+        cols, bcols = [], []
+        for li in range(n_lights):
+            if shadow_lights is not None and not shadow_lights[li]:
+                cols.append(zero)
+                bcols.append(zero)
+                continue
+            lpos = scene.lights.position[li]
+            cols.append(torch.sum(shadow_cull_mask(
+                scene, shadow_org, hit.hit, tile_p, lpos), dim=-1,
+                dtype=torch.int32) if n_sph else zero)
+            bcols.append(torch.sum(shadow_cull_mask(
+                scene, shadow_org, hit.hit, tile_p, lpos, centers=bc,
+                radii=br), dim=-1, dtype=torch.int32) if n_box else zero)
+        empty = torch.zeros((0, t_tiles), dtype=torch.int32, device=o.device)
+        return (torch.stack(cols) if cols else empty,
+                torch.stack(bcols) if bcols else empty, w_cnt, wb_cnt)
+
+    # shadow counts from each live branch's own child hit points
+    s_count = sb_count = w_count = wb_count = None
+    for active, co, cd in bundles:
+        counts = child_shadow_counts(co, cd, active)
+        if s_count is None:
+            s_count, sb_count, w_count, wb_count = counts
+        else:
+            s_count, sb_count, w_count, wb_count = (
+                torch.maximum(a, b) for a, b in zip(
+                    (s_count, sb_count, w_count, wb_count), counts))
+    if s_count is None:   # no live bounce branch
+        s_count = sb_count = torch.zeros((0, t_tiles), dtype=torch.int32,
+                                         device=o.device)
+        w_count = wb_count = zero
+    return p_count, s_count, pb_count, sb_count, w_count, wb_count
+
+
+def suggest_child_cull_config(scene: Scene, camera, height: int, width: int,
+                              cull, headroom: float = 1.5, min_k: int = 8,
+                              shadow_lights: tuple | None = None):
+    """Cull spec ((th, tw), kp, ks, hot_m, kb, ksb, hot_p) of the bounce
+    children of a culled trace: measure the bounce-bundle survivor counts
+    (bounce_cull_counts) and size them as the primary spec is sized, with Kp
+    a quantile cap plus a budget of hot_p over-cap tiles for kernel 2's hot
+    launch (the reference's hot_primary=True, the sizing of its culled_pallas
+    children). ``cull`` is the parent spec, whose tile the children inherit
+    (they keep the parent's tile-major ray order). Runs on the host: call it
+    once, outside a frame."""
+    if shadow_lights is None:
+        from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+        shadow_lights = static_shadow_mask(scene)
+    tile = parse_cull_spec(cull)[0]
+    p_count, s_count, pb_count, sb_count, w_count, _ = bounce_cull_counts(
+        scene, camera, height, width, cull, shadow_lights)
+    return _spec_from_counts(scene, p_count, s_count, pb_count, sb_count,
+                             tile, headroom, min_k, hot_primary=True,
+                             w_count=w_count)

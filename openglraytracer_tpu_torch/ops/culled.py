@@ -1,35 +1,39 @@
-"""Culled narrow phase: tile survivor lists scanned by two CUDA kernels.
+"""Culled narrow phase: tile survivor lists scanned by CUDA kernels.
 
 Port of ``openglraytracer_tpu/ops/pallas_culled.py`` (named for what it is:
-nothing here is Pallas). The broad phase of ``ops/accel.py`` feeds two
+nothing here is Pallas). The broad phase of ``ops/accel.py`` feeds
 hand-written Hopper kernels that scan only each tile's survivors:
 
   torch   broad phase: tile cones -> conservative sphere-vs-cone masks ->
-          top-K compaction -> survivor rows gathered per tile, with the
-          per-ray-invariant terms precomputed (oc = o0 - c and qc for
-          spheres, the local-space origin for boxes: primary rays share one
-          pinhole origin)
-  kernel A (``primary_hit``, csrc/primary_hit.cu): closest hit over the
-          tile's sphere rows, box rows and all planes
+          survivor compaction (kernel 6, ``compact_mask``, for masks of at
+          least 1024 objects) -> survivor rows gathered per tile
+  kernel A (``primary_hit``, csrc/primary_hit.cu) in shared-pinhole mode
+          (primary rays): the per-ray-invariant terms are precomputed into
+          the rows (oc = o0 - c and qc for spheres, the local-space origin
+          for boxes); closest hit over the tile's sphere rows, box rows and
+          all planes
+  kernel 2 (``primary_hit_ray``, the same source) in per-ray mode (bounce
+          children, whose origins differ per ray): raw rows, the
+          origin-relative terms per ray; and its hot launch over the global
+          object table for the tiles whose bounce cone kept too many
+          objects, followed by the rebuild of their winner lists
   torch   shadow cones from the hit points -> per-light survivor lists
   kernel B (``shadow_occlusion``, csrc/shadow_occlusion.cu): per-light
           occlusion of the unnormalized surface->light segment, sphere
           occlusion kept apart so the hot-tile dense pass can replace it
-  torch   hot-tile override and CullAux assembly
+  torch   hot-tile shadow override and CullAux assembly
 
 Each kernel wrapper runs its plain PyTorch version (``*_plain``, same
 arguments, vectorized over rays, looping over survivor slots in the
 kernel's fold order) on CPU tensors and launches the kernel on CUDA
 tensors, counting launches in ``kernels.LAUNCHES``.
 
-``culled_geometry_op`` is the differentiable entry (the counterpart of the
-reference's ``culled_pallas_geometry_op``): its forward is
-``culled_geometry`` and its backward the tile-structured winner replay of
+``culled_geometry_op`` (primary rays) and ``bounce_culled_geometry_op``
+(bounce children) are the differentiable entries, the counterparts of the
+reference's ``culled_pallas_geometry_op`` and
+``bounce_culled_pallas_geometry_op``: the forward is ``culled_geometry``
+and the backward the tile-structured winner replay of
 ``ops/accel.py _culled_bwd``. Only t, p and n carry gradients.
-
-Only the shared-pinhole mode is ported: the per-ray-origin mode for bounce
-children and the hot-primary dense pass come with the bounce slice (see
-ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,8 +50,11 @@ from openglraytracer_tpu_torch.ops.accel import (
     _gather_tile_rows,
     _segment_occluded,
     _sphere_table,
+    bounce_cones,
     box_bounding_spheres,
+    compact_mask,
     shadow_tile_cones,
+    sphere_vs_cone,
     tile_cones,
 )
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
@@ -75,16 +82,31 @@ def _fma(a, b, c):
 # Kernel A: primary closest hit over survivor rows
 # ---------------------------------------------------------------------------
 
-def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int):
-    """Plain version of kernel A. dirs (R, 3); sph (T, Kp, 8); box
+def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int, origins=None,
+                      tile_ids=None):
+    """Plain version of kernels A and 2. dirs (R, 3); sph (T, Kp, 8); box
     (T, Kb, 24); pln (P, 16); cnt (T, 2) int32 per-tile trip counts.
     Returns the raw record (t (R,), n (R, 3), inside (R,) bool,
     mat (R,) int32, gid (R,) int32, slot (R,) int32): t is INF_T where no
     candidate hit, n is unit (zero where t >= MISS_T), gid -1 and slot 0
-    where nothing hit, slot -1 for planes."""
-    t_tiles = cnt.shape[0]
-    d = dirs.reshape(t_tiles, tile_p, 3)
+    where nothing hit, slot -1 for planes.
+
+    origins (R, 3) switches on per-ray mode (kernel 2): the rows hold raw
+    geometry and the origin-relative terms are computed per ray (row
+    layouts in csrc/primary_hit.cu). tile_ids (M,) makes it the hot launch:
+    block b scans ray tile tile_ids[b] against the one global table
+    sph (1, N, 8) / box (1, Nb, 24) with counts cnt (M, 2), and the M *
+    tile_p results come in block order with the global row id as slot."""
+    n_blk = cnt.shape[0]
+    d = dirs.reshape(-1, tile_p, 3)
+    o = None if origins is None else origins.reshape(-1, tile_p, 3)
+    if tile_ids is not None:
+        d, o = d[tile_ids.long()], o[tile_ids.long()]
+        sph = sph.expand(n_blk, -1, -1)
+        box = box.expand(n_blk, -1, -1)
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    if o is not None:
+        ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     # the sphere quadratic's fused multiply-adds: see csrc/primary_hit.cu
     qa = _fma(dz, dz, _fma(dx, dx, dy * dy))
     qa_ok = qa > _DIV_EPS
@@ -103,7 +125,11 @@ def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int):
 
     for j in range(sph.shape[1]):
         row = sph[:, j, :, None]                    # (T, 8, 1)
-        ocx, ocy, ocz, qc = row[:, 0], row[:, 1], row[:, 2], row[:, 3]
+        if o is None:
+            ocx, ocy, ocz, qc = row[:, 0], row[:, 1], row[:, 2], row[:, 3]
+        else:                                       # row [c(3) r^2 ...]
+            ocx, ocy, ocz = ox - row[:, 0], oy - row[:, 1], oz - row[:, 2]
+            qc = _fma(ocz, ocz, _fma(ocx, ocx, ocy * ocy)) - row[:, 3]
         qb = 2.0 * _fma(dz, ocz, _fma(dx, ocx, dy * ocy))
         qd = _fma(qb, qb, -(4.0 * qa * qc))
         ok = (qd >= 0.0) & qa_ok & (row[:, 6] > 0.5) \
@@ -133,10 +159,16 @@ def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int):
         row = box[:, j, :, None]                    # (T, 24, 1)
         bm0, bm1, bm2 = row[:, 0], row[:, 1], row[:, 2]
         bx0, bx1, bx2 = row[:, 3], row[:, 4], row[:, 5]
-        rox, roy, roz = row[:, 6], row[:, 7], row[:, 8]
         r00, r01, r02 = row[:, 9], row[:, 10], row[:, 11]
         r10, r11, r12 = row[:, 12], row[:, 13], row[:, 14]
         r20, r21, r22 = row[:, 15], row[:, 16], row[:, 17]
+        if o is None:
+            rox, roy, roz = row[:, 6], row[:, 7], row[:, 8]
+        else:                                       # R^T (o - pos)
+            wx, wy, wz = ox - row[:, 6], oy - row[:, 7], oz - row[:, 8]
+            rox = r00 * wx + r10 * wy + r20 * wz
+            roy = r01 * wx + r11 * wy + r21 * wz
+            roz = r02 * wx + r12 * wy + r22 * wz
         rdx = r00 * dx + r10 * dy + r20 * dz        # R^T d
         rdy = r01 * dx + r11 * dy + r21 * dz
         rdz = r02 * dx + r12 * dy + r22 * dz
@@ -180,8 +212,11 @@ def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int):
 
     for k in range(pln.shape[0]):
         row = pln[k]
+        off_no = row[7]       # off - n.o0 (per-ray mode: off)
+        if o is not None:
+            off_no = off_no - (row[0] * ox + row[1] * oy + row[2] * oz)
         nd = row[0] * dx + row[1] * dy + row[2] * dz
-        t = row[7] * _inv_safe(nd)
+        t = off_no * _inv_safe(nd)
         ok = (torch.abs(nd) > 1.0e-9) & (t > 0.0)
         t = torch.where(ok, t, INF_T)
         upd = t < tb          # strict: objects beat planes at equal t
@@ -230,6 +265,50 @@ def primary_hit(dirs, sph, box, pln, cnt, tile_p: int):
                    t_tiles, tile_p, kp, kb, n_pln, t, n, inside, mat, gid,
                    slot)
     kernels.LAUNCHES["primary_hit"] += 1
+    return t, n, inside, mat, gid, slot
+
+
+@torch.no_grad()
+def primary_hit_ray(dirs, origins, sph, box, pln, cnt, tile_p: int,
+                    tile_ids=None):
+    """Kernel 2 (csrc/primary_hit.cu, per-ray mode) on CUDA tensors, its
+    plain version on CPU tensors; arguments and results as
+    primary_hit_plain with origins. tile_ids None: the cold launch over the
+    T tiles' survivor rows (counted as ``primary_hit_ray``); tile_ids (M,)
+    int32: the hot launch over the global tables (``primary_hit_hot``)."""
+    if kernels.on_cpu(dirs):
+        return primary_hit_plain(dirs, sph, box, pln, cnt, tile_p,
+                                 origins=origins, tile_ids=tile_ids)
+    dev = dirs.device
+    n_blocks, kp, kb, n_pln = cnt.shape[0], sph.shape[1], box.shape[1], \
+        pln.shape[0]
+    r_in = dirs.shape[0]
+    f32 = torch.float32
+    kernels.check("dirs", dirs, dev, f32, (r_in, 3))
+    kernels.check("origins", origins, dev, f32, (r_in, 3))
+    if r_in % tile_p:
+        raise ValueError(f"dirs: {r_in} rays are not whole tiles of {tile_p}")
+    row_tiles = n_blocks if tile_ids is None else 1
+    kernels.check("sph", sph, dev, f32, (row_tiles, kp, SPH_COLS))
+    kernels.check("box", box, dev, f32, (row_tiles, kb, BOX_COLS))
+    kernels.check("pln", pln, dev, f32, (n_pln, PLN_COLS))
+    kernels.check("cnt", cnt, dev, torch.int32, (n_blocks, 2))
+    if tile_ids is None:
+        if n_blocks * tile_p != r_in:
+            raise ValueError(f"cnt: {n_blocks} tiles for {r_in} rays")
+    else:
+        kernels.check("tile_ids", tile_ids, dev, torch.int32, (n_blocks,))
+    r_out = n_blocks * tile_p
+    t = torch.empty(r_out, dtype=f32, device=dev)
+    n = torch.empty((r_out, 3), dtype=f32, device=dev)
+    inside = torch.empty(r_out, dtype=torch.bool, device=dev)
+    mat, gid, slot = (torch.empty(r_out, dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    kernels.launch("oglrt_primary_hit_ray", dev, dirs, origins, sph, box, pln,
+                   cnt, tile_ids, n_blocks, tile_p, kp, kb, n_pln, t, n,
+                   inside, mat, gid, slot)
+    kernels.LAUNCHES["primary_hit_ray" if tile_ids is None
+                     else "primary_hit_hot"] += 1
     return t, n, inside, mat, gid, slot
 
 
@@ -387,6 +466,25 @@ def _primary_box_rows(scene: Scene, o0, b_idx, b_valid):
     return _pad_cols(out, BOX_COLS)
 
 
+def _secondary_sphere_rows(scene: Scene, p_idx, p_valid):
+    """(T, Kp, 8) [c(3) r^2 mat gid valid pad]: raw geometry for the per-ray
+    kernel (there is no shared origin to precompute oc and qc against)."""
+    rows = _gather_tile_rows(_sphere_table(scene), p_idx)   # (T, Kp, 6)
+    r2 = rows[..., 3] * rows[..., 3]
+    return torch.cat([
+        rows[..., 0:3], r2[..., None], rows[..., 4:6],
+        p_valid.to(rows.dtype)[..., None],
+        torch.zeros_like(r2)[..., None]], dim=-1)
+
+
+def _secondary_box_rows(scene: Scene, b_idx, b_valid):
+    """(T, Kb, 24) [mins maxs pos rot9 mat gid valid ...]: the box position
+    in slots 6:9 (the per-ray kernel computes R^T (o - pos) itself)."""
+    rows = _gather_tile_rows(_box_table(scene), b_idx)      # (T, Kb, 20)
+    out = torch.cat([rows, b_valid.to(rows.dtype)[..., None]], dim=-1)
+    return _pad_cols(out, BOX_COLS)
+
+
 def _plane_table(scene: Scene, o0, n_sph: int, n_box: int):
     """(P, 16) [n(3) off un(3) off-n.o0 mat gid ...]; raw normal for the
     candidate t, unit normal for the output normal."""
@@ -439,18 +537,29 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                     ks: int, shadow_lights: tuple | None = None,
                     hot_m: int = 0, kb: int = 0, ksb: int = 0,
                     active=None, hot_p: int = 0):
-    """Culled narrow phase in shared-pinhole mode. Port of
-    ``pallas_culled.culled_geometry_pallas``.
+    """Culled narrow phase. Port of ``pallas_culled.culled_geometry_pallas``.
 
-    origins/dirs (R, 3) in tile-major order (accel.tile_image) with one
-    shared origin; tile_p rays per tile; kp/ks sphere survivor caps; kb/ksb
-    box caps (0 = all boxes); hot_m hottest shadow tiles per light get the
-    dense pass; shadow_lights static per-light bools (None = all cast).
+    origins/dirs (R, 3) in tile-major order (accel.tile_image); tile_p rays
+    per tile; kp/ks sphere survivor caps; kb/ksb box caps (0 = all boxes);
+    hot_m hottest shadow tiles per light get the dense pass; shadow_lights
+    static per-light bools (None = all cast).
+
+    active None: shared-pinhole mode (primary rays, one origin; kernel A).
+    active (R,) bool: secondary mode for bounce children (kernel 2): per-ray
+    origins, the bounce-cone broad phase (origin-box apex, Minkowski
+    expanded objects; rays with a zero direction, the refract() result of
+    total internal reflection, cannot open a cone) and inactive rays forced
+    to miss. hot_p > 0 (secondary mode only): the hot_p tiles whose cone
+    keeps more objects than Kp (or Kb) scan the global object table in
+    kernel 2's hot launch instead of their lists, which is exact, and their
+    lists are rebuilt as the ascending distinct winners, capped at Kp, so
+    material routing and the backward treat them as cold tiles; a hot tile
+    reports overflow only when its winners exceed Kp.
     Returns (Hit (R,), occluded (R, L) bool, CullAux)."""
-    if active is not None or hot_p:
-        raise NotImplementedError(
-            "culled_geometry: the per-ray-origin (bounce) mode and its "
-            "hot-primary pass are not yet ported; see ROADMAP.md")
+    shared = active is None
+    if hot_p and shared:
+        raise ValueError("hot_p is a secondary-mode (bounce bundle) feature: "
+                         "pass active")
     r_total = origins.shape[0]
     t_tiles = r_total // tile_p
     dtype, device = origins.dtype, origins.device
@@ -469,35 +578,115 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                 torch.zeros((t_tiles, 0, cols), dtype=dtype, device=device))
 
     # ---- broad phase: dense per-tile compaction
-    axis, cos_half = tile_cones(dirs.reshape(t_tiles, tile_p, 3))
+    dirs_t = dirs.reshape(t_tiles, tile_p, 3)
+    if shared:
+        axis, cos_half = tile_cones(dirs_t)
+
+        def compact(centers, radii, k):
+            return _dense_compact(o0, axis, cos_half, centers, radii, k)
+    else:
+        act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
+        apex, axis, cos_half, expand, empty_t = bounce_cones(
+            origins.reshape(t_tiles, tile_p, 3), dirs_t,
+            act.reshape(t_tiles, tile_p))
+
+        def compact(centers, radii, k):
+            mask = sphere_vs_cone(apex, axis, cos_half, centers, radii,
+                                  expand=expand)
+            return compact_mask(mask & (~empty_t)[:, None], k)
+
     if n_sph:
-        p_idx, p_valid, p_count = _dense_compact(
-            o0, axis, cos_half, scene.spheres.center, scene.spheres.radius,
-            kp)
-        sph_rows = _primary_sphere_rows(scene, o0, p_idx, p_valid)
+        p_idx, p_valid, p_count = compact(scene.spheres.center,
+                                          scene.spheres.radius, kp)
+        sph_rows = (_primary_sphere_rows(scene, o0, p_idx, p_valid) if shared
+                    else _secondary_sphere_rows(scene, p_idx, p_valid))
     else:
         p_idx, p_valid, p_count, sph_rows = no_list(SPH_COLS)
     kp_eff = p_idx.shape[-1]
 
     if n_box:
         bc_bs, br_bs = box_bounding_spheres(scene)
-        b_idx, b_valid, b_count = _dense_compact(o0, axis, cos_half, bc_bs,
-                                                 br_bs, kb)
-        box_rows = _primary_box_rows(scene, o0, b_idx, b_valid)
+        b_idx, b_valid, b_count = compact(bc_bs, br_bs, kb)
+        box_rows = (_primary_box_rows(scene, o0, b_idx, b_valid) if shared
+                    else _secondary_box_rows(scene, b_idx, b_valid))
     else:
         b_idx, b_valid, b_count, box_rows = no_list(BOX_COLS)
     kb_eff = b_idx.shape[-1]
 
-    pln_tab = _plane_table(scene, o0, n_sph, n_box)
+    pln_tab = _plane_table(scene, o0 if shared else torch.zeros_like(o0),
+                           n_sph, n_box).contiguous()
 
-    # ---- kernel A: primary narrow phase
+    # ---- hot-primary tile selection: tiles whose bounce cone kept more
+    # objects than the caps take the global-table launch below; the cold
+    # launch skips them (trip count 0)
+    hot_on = hot_p > 0 and (n_sph > 0 or n_box > 0)
     cnt_a = torch.stack([torch.clamp(p_count, max=kp_eff),
                          torch.clamp(b_count, max=kb_eff)],
-                        dim=-1).to(torch.int32).contiguous()
-    t_flat, n, ins, mat, gid, slot = primary_hit(
-        dirs.contiguous(), sph_rows.contiguous(), box_rows.contiguous(),
-        pln_tab.contiguous(), cnt_a, tile_p)
+                        dim=-1).to(torch.int32)
+    if hot_on:
+        hp_m = min(hot_p, t_tiles)
+        over = torch.zeros((t_tiles,), dtype=torch.bool, device=device)
+        score = zero_c
+        if n_sph:
+            over = over | (p_count > kp_eff)
+            score = score + p_count
+        if n_box and kb_eff < n_box:
+            over = over | (b_count > kb_eff)
+        if n_box:
+            score = score + b_count
+        hotp_ids = _top_tiles(torch.where(over, score, -1), hp_m)
+        hotp_real = over[hotp_ids]                            # (M,)
+        is_hotp = torch.zeros_like(over).index_copy(0, hotp_ids, hotp_real)
+        cnt_a = torch.where(is_hotp[:, None], 0, cnt_a)
 
+    # ---- kernel A (shared) or kernel 2 (per ray): primary narrow phase
+    if shared:
+        outs = primary_hit(dirs.contiguous(), sph_rows.contiguous(),
+                           box_rows.contiguous(), pln_tab,
+                           cnt_a.contiguous(), tile_p)
+    else:
+        outs = primary_hit_ray(dirs.contiguous(), origins.contiguous(),
+                               sph_rows.contiguous(), box_rows.contiguous(),
+                               pln_tab, cnt_a.contiguous(), tile_p)
+
+    # ---- hot-primary pass: kernel 2 over the global object tables with
+    # trip counts N on the truly hot tiles and 0 on the top-k slack; exact,
+    # every object scanned
+    if hot_on:
+        def global_rows(rows_fn, n_obj, cols):
+            """(1, n_obj, cols): every object as one tile's list."""
+            if not n_obj:
+                return torch.zeros((1, 0, cols), dtype=dtype, device=device)
+            return rows_fn(scene, torch.arange(n_obj, dtype=torch.int32,
+                                               device=device)[None, :],
+                           torch.ones((1, n_obj), dtype=torch.bool,
+                                      device=device))
+
+        g_sph = global_rows(_secondary_sphere_rows, n_sph, SPH_COLS)
+        g_box = global_rows(_secondary_box_rows, n_box, BOX_COLS)
+        cnt_h = torch.stack([torch.where(hotp_real, n_sph, 0),
+                             torch.where(hotp_real, n_box, 0)],
+                            dim=-1).to(torch.int32)
+        outs_h = primary_hit_ray(
+            dirs.contiguous(), origins.contiguous(), g_sph.contiguous(),
+            g_box.contiguous(), pln_tab, cnt_h, tile_p,
+            tile_ids=hotp_ids.to(torch.int32))
+
+        def hmerge(x_full, x_hot):
+            x_t = x_full.reshape((t_tiles, tile_p) + x_full.shape[1:])
+            x_h = x_hot.reshape((hp_m, tile_p) + x_hot.shape[1:])
+            sel = hotp_real.reshape((hp_m,) + (1,) * (x_h.ndim - 1))
+            return x_t.index_copy(0, hotp_ids,
+                                  torch.where(sel, x_h, x_t[hotp_ids])
+                                  ).reshape(x_full.shape)
+
+        outs = tuple(hmerge(xf, xh) for xf, xh in zip(outs, outs_h))
+    t_flat, n, ins, mat, gid, slot = outs
+
+    if not shared:
+        # inactive secondary rays are misses (their colors carry no bounce
+        # weight; the miss keeps them out of the shadow cones below)
+        t_flat = torch.where(active, t_flat, INF_T)
     hit_mask = t_flat < MISS_T
     in_flat = ins & hit_mask
     mat_flat = torch.where(hit_mask, mat, 0)
@@ -507,6 +696,50 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     is_box_w = hit_mask & (gid_flat >= n_sph) & (gid_flat < n_sph + n_box)
     j_local = torch.where(is_sph_w.reshape(t_tiles, tile_p), slot_t, -1)
     jb_local = torch.where(is_box_w.reshape(t_tiles, tile_p), slot_t, -1)
+
+    # ---- posthoc winner lists of the hot tiles: the hot launch reports
+    # global row ids as slots; rebuild the ascending distinct-winner lists
+    # (capped at Kp/Kb: a count above the cap is overflow the backward would
+    # feel, reported through the count contract) and re-rank j_local and
+    # jb_local into them
+    if hot_on:
+        hitm_h = hit_mask.reshape(t_tiles, tile_p)[hotp_ids] \
+            & hotp_real[:, None]
+        gid_h = gid_flat.reshape(t_tiles, tile_p)[hotp_ids]   # (M, P)
+
+        def splice(full, hot_rows):
+            sel = hotp_real.reshape((hp_m,) + (1,) * (full.ndim - 1))
+            return full.index_copy(0, hotp_ids,
+                                   torch.where(sel, hot_rows,
+                                               full[hotp_ids]))
+
+        def winner_lists(lo, n_obj, k_eff):
+            win = hitm_h & (gid_h >= lo) & (gid_h < lo + n_obj)
+            loc = torch.clamp(gid_h - lo, 0, n_obj - 1).long()
+            wm = torch.zeros((hp_m, n_obj), dtype=torch.int32,
+                             device=device).scatter_reduce(
+                                 1, loc, win.to(torch.int32), "amax") > 0
+            w_idx, w_valid, w_cnt = compact_mask(wm, k_eff)
+            rank = torch.gather(torch.cumsum(wm, 1, dtype=torch.int32), 1,
+                                loc) - 1
+            # ranks past the cap fall off the list: -1 ("not this list's
+            # winner"); the tile's count > k reports it
+            jl = torch.where(win & (rank < k_eff), rank, -1)
+            return w_idx, w_valid, w_cnt, jl
+
+        if n_sph:
+            w_idx, w_valid, w_cnt, jl_h = winner_lists(0, n_sph, kp_eff)
+            p_idx = splice(p_idx, w_idx)
+            p_valid = splice(p_valid, w_valid)
+            p_count = splice(p_count, w_cnt)
+            j_local = splice(j_local, jl_h)
+        if n_box:
+            wb_idx, wb_valid, wb_cnt, jb_h = winner_lists(n_sph, n_box,
+                                                          kb_eff)
+            b_idx = splice(b_idx, wb_idx)
+            b_valid = splice(b_valid, wb_valid)
+            b_count = splice(b_count, wb_cnt)
+            jb_local = splice(jb_local, jb_h)
 
     t_for_p = torch.where(hit_mask, t_flat, 0.0)
     p = origins + t_for_p[:, None] * dirs
@@ -640,20 +873,23 @@ def _with_leaves(scene: Scene, leaves) -> Scene:
 class _CulledGeometryOp(torch.autograd.Function):
     """Forward: culled_geometry. Backward: accel._culled_bwd. Takes the
     scene (for its non-differentiable columns), the static arguments of
-    culled_geometry, the geometry leaves of _GEOMETRY_LEAVES and the rays;
-    returns the Hit fields, the occlusion and the CullAux fields, of which
-    only t, p and n are differentiable."""
+    culled_geometry (hot_p last), the active mask of secondary mode (None
+    in shared mode; it gets no cotangent), the geometry leaves of
+    _GEOMETRY_LEAVES and the rays; returns the Hit fields, the occlusion
+    and the CullAux fields, of which only t, p and n are differentiable."""
 
     @staticmethod
-    def forward(ctx, scene, static, *tensors):
+    def forward(ctx, scene, static, active, *tensors):
         leaves, (origins, dirs) = tensors[:-2], tensors[-2:]
         scene = _with_leaves(scene, leaves)
-        hit, occ, aux = culled_geometry(scene, origins, dirs, *static)
+        hit, occ, aux = culled_geometry(scene, origins, dirs, *static[:7],
+                                        active=active,
+                                        hot_p=static[7])
         ctx.mark_non_differentiable(*hit[3:], occ, *aux)
         ctx.save_for_backward(*tensors, hit.inside, hit.obj_id, hit.hit,
                               aux.p_idx, aux.j_local, aux.b_idx,
                               aux.jb_local)
-        ctx.scene, ctx.tile_p = scene, static[0]
+        ctx.scene, ctx.tile_p, ctx.hot_pass = scene, static[0], static[7] > 0
         return (*hit, occ, *aux)
 
     @staticmethod
@@ -668,11 +904,20 @@ class _CulledGeometryOp(torch.autograd.Function):
                   obj_id=obj_id, hit=hit_mask)
         aux = CullAux(**{f: None for f in CullAux._fields})._replace(
             p_idx=p_idx, j_local=j_local, b_idx=b_idx, jb_local=jb_local)
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         grads = _culled_bwd(scene, origins, dirs, hit, aux, ctx.tile_p,
-                            gt, gp, gn, need_rays=any(need[-2:]))
-        return (None, None, *(g if want else None
-                              for g, want in zip(grads, need)))
+                            gt, gp, gn, need_rays=any(need[-2:]),
+                            hot_pass=ctx.hot_pass)
+        return (None, None, None, *(g if want else None
+                                    for g, want in zip(grads, need)))
+
+
+def _apply_op(scene, origins, dirs, static, active):
+    leaves = [getattr(getattr(scene, part), field)
+              for part, field in _GEOMETRY_LEAVES]
+    out = _CulledGeometryOp.apply(scene, static, active, *leaves, origins,
+                                  dirs)
+    return (Hit(*out[:_N_HIT]), out[_N_HIT], CullAux(*out[_N_HIT + 1:]))
 
 
 def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
@@ -683,9 +928,22 @@ def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
     to the spheres' center and radius, the boxes' mins, maxs, position and
     angles, the planes' normal and offset, and the rays. Arguments and
     results as culled_geometry."""
-    leaves = [getattr(getattr(scene, part), field)
-              for part, field in _GEOMETRY_LEAVES]
-    out = _CulledGeometryOp.apply(
-        scene, (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb), *leaves,
-        origins, dirs)
-    return (Hit(*out[:_N_HIT]), out[_N_HIT], CullAux(*out[_N_HIT + 1:]))
+    return _apply_op(scene, origins, dirs,
+                     (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb, 0),
+                     None)
+
+
+def bounce_culled_geometry_op(scene: Scene, origins, dirs, active,
+                              tile_p: int, kp: int, ks: int,
+                              shadow_lights: tuple | None = None,
+                              hot_m: int = 0, kb: int = 0, ksb: int = 0,
+                              hot_p: int = 0):
+    """culled_geometry in secondary mode (per-ray origins, the active mask,
+    the optional hot-primary pass) with the same analytic backward: the
+    winner replay never assumed a shared origin, so the cotangents of the
+    children's origins and directions flow back to the parent's hit points
+    and normals. The reference's ``bounce_culled_pallas_geometry_op``;
+    active gets no cotangent."""
+    return _apply_op(scene, origins, dirs,
+                     (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb, hot_p),
+                     active)

@@ -1,10 +1,13 @@
 """Phong ADS shading math.
 
 Port of the parts of ``openglraytracer_tpu/ops/shading.py`` that the culled
-forward path uses: the packed 20-column material table, the static mask of
-lights that need shadow rays, and ``phong_core`` — the lighting math over
-raw per-ray arrays, which is also the plain version of the fused shade
-kernel (``ops/shade.py``). Reference quirks kept: the shadow segment is the
+path uses: the packed 20-column material table and its per-ray views, the
+static masks of lights that need shadow rays and of bounce branches that can
+contribute, ``phong_core`` — the lighting math over raw per-ray arrays,
+which is also the plain version of the fused shade kernel
+(``ops/shade.py``) — and ``phong_shade_lit``, the plain-torch shade of bounce
+children (as in the reference, which shades them with its XLA chain, not
+the fused kernel). Reference quirks kept: the shadow segment is the
 unnormalized light_pos - p, and the output is ``phong.rgb * phong.a``.
 """
 
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from openglraytracer_tpu_torch.models.scene import Scene
-from openglraytracer_tpu_torch.ops.intersect import _safe_normalize
+from openglraytracer_tpu_torch.ops.intersect import Hit, _safe_normalize
 
 _POW_EPS = 1.0e-12
 SHADOW_EPS = 0.01  # shadow-ray origin offset along the normal
@@ -37,6 +40,27 @@ def material_table(scene: Scene):
     ], dim=-1)
 
 
+def materials_from_rows(scene: Scene, rows):
+    """(R, 20) packed rows -> a Materials of (R, ...) columns."""
+    return scene.materials._replace(
+        ambient=rows[..., 0:4],
+        diffuse=rows[..., 4:8],
+        specular=rows[..., 8:12],
+        emissive=rows[..., 12:16],
+        shininess=rows[..., 16],
+        reflectivity=rows[..., 17],
+        transparency=rows[..., 18],
+        refraction_index=rows[..., 19],
+    )
+
+
+def gather_materials(scene: Scene, material_id):
+    """Per-ray materials (a Materials of (R, ...) columns) gathered from the
+    packed table by material id."""
+    return materials_from_rows(scene, torch.index_select(
+        material_table(scene), 0, material_id))
+
+
 def static_shadow_mask(scene: Scene) -> tuple:
     """Which lights need shadow rays: a light with zero diffuse AND zero
     specular cannot change the image when occluded (its ambient term is
@@ -46,6 +70,18 @@ def static_shadow_mask(scene: Scene) -> tuple:
     s = scene.lights.specular.detach().cpu().numpy()
     return tuple(bool((d[i] != 0.0).any() or (s[i] != 0.0).any())
                  for i in range(scene.lights.count))
+
+
+def static_bounce_mask(scene: Scene) -> tuple[bool, bool]:
+    """(has_reflection, has_refraction): which bounce branches can
+    contribute. A reflection child counts only where reflectivity > 0 and a
+    refraction child only where transparency > 0, so a material table whose
+    maxima are 0 makes that branch dead for every ray, and skipping it is
+    output- and gradient-identical. Reads the material table on the host:
+    call it once, outside a frame."""
+    refl = scene.materials.reflectivity.detach().cpu()
+    tau = scene.materials.transparency.detach().cpu()
+    return bool((refl > 0.0).any()), bool((tau > 0.0).any())
 
 
 def phong_core(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
@@ -84,3 +120,16 @@ def phong_core(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
 
     phong = ambient + diffuse + specular + m_emis
     return phong[..., :3] * phong[..., 3:4]   # rgb * alpha
+
+
+def phong_shade_lit(scene: Scene, dirs, hit: Hit, occluded, mat_rows=None):
+    """ADS Phong (R, 3) of each ray's hit given the occlusion (R, L), in
+    plain torch over phong_core. mat_rows: the (R, 20) material rows routed
+    through the cull survivor lists; None gathers them by material id."""
+    if mat_rows is None:
+        mat_rows = torch.index_select(material_table(scene), 0,
+                                      hit.material_id)
+    lights = scene.lights
+    return phong_core(mat_rows, lights.position, lights.ambient,
+                      lights.diffuse, lights.specular, dirs, hit.p, hit.n,
+                      occluded)

@@ -1,8 +1,8 @@
 """Camera / object transform math.
 
 Port of ``openglraytracer_tpu/ops/transforms.py`` (perspective, view and
-camera matrices, batched euler rotations). Matrices multiply column vectors,
-``M @ v``, exactly as the reference GLSL does.
+camera matrices, batched euler rotations, reflect and refract). Matrices
+multiply column vectors, ``M @ v``, exactly as the reference GLSL does.
 
 The camera matrices are computed on the camera's device once per frame. The
 inverse view-projection is formed in closed form, inverse(view) @
@@ -150,3 +150,20 @@ def camera_matrices(cam: Camera):
     inv_proj = _inverse_perspective(cam.v_fov, cam.aspect, cam.near,
                                     cam.far)
     return proj, view, inv_view @ inv_proj
+
+
+def reflect(d, n):
+    """GLSL reflect: d - 2 dot(n, d) n (n assumed unit)."""
+    return d - 2.0 * torch.sum(n * d, dim=-1, keepdim=True) * n
+
+
+def refract(d, n, eta):
+    """GLSL refract(I, N, eta): the zero vector on total internal
+    reflection. d, n unit vectors; eta the ratio of refraction indices."""
+    cos_i = torch.sum(n * d, dim=-1, keepdim=True)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    # double where: sqrt's derivative is infinite at 0, and inf * 0 from the
+    # masked branch would make the gradient NaN at grazing incidence
+    k_safe = torch.where(k > 0.0, k, 1.0)
+    out = eta * d - (eta * cos_i + torch.sqrt(k_safe)) * n
+    return torch.where(k > 0.0, out, torch.zeros_like(out))

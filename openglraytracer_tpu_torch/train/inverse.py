@@ -2,7 +2,8 @@
 descent.
 
 Port of ``openglraytracer_tpu/train/inverse.py`` for the single-device fit
-on the hard engine ``culled_pallas`` at depth 0. Trainable leaves are chosen
+on the hard engine ``culled_pallas``, at depth 0 or, with a bounce-child
+cull spec (``FitConfig.child_cull``), with bounces. Trainable leaves are chosen
 by dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
 a render, and its gradient runs through the shade backward kernel and the
@@ -67,6 +68,7 @@ class FitConfig:
     log_every: int = 10
     engine: str = ENGINE
     cull: tuple | None = None       # ((th, tw), kp, ks[, hot_m[, kb, ksb]])
+    child_cull: tuple | None = None  # bounce-child spec, needed at depth > 0
     log_path: str | None = None     # JSONL sink for fit()'s MetricsLogger
     # not ported yet: setting any of these raises (see ROADMAP.md)
     checkpoint_dir: str | None = None
@@ -91,6 +93,11 @@ def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
     if cfg.cull is None:
         raise ValueError(f"engine '{cfg.engine}' needs FitConfig.cull; size "
                          "it with ops/accel.suggest_cull_config")
+    if cfg.depth > 0 and cfg.child_cull is None:
+        raise NotImplementedError(
+            f"depth {cfg.depth} without FitConfig.child_cull: dense bounce "
+            "children are not yet ported (see ROADMAP.md); size a child "
+            "spec with ops/accel.suggest_child_cull_config")
 
 
 def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
@@ -102,9 +109,10 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     fresh leaf tensor (a copy of the scene's) that requires grad; opt is
     ``torch.optim.Adam(lr=cfg.learning_rate)`` over them, or
     ``optimizer(list_of_params)`` when an optimizer factory is given. It
-    also reads the light table on the host, once, for the static shadow
-    mask (all lights cast when a light leaf is trainable, since a trainable
-    light could leave zero).
+    also reads the light and material tables on the host, once, for the
+    static shadow and bounce masks (all lights cast when a light leaf is
+    trainable, and both bounce branches run when a reflectivity or
+    transparency is, since training could make them matter).
 
     step_fn(params, opt, scene, target) -> (params, opt, loss,
     cull_overflow): one forward, backward and optimizer step on the
@@ -113,15 +121,22 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     this step's culled broad phase; step_fn never waits for the device."""
     _reject_unported(cfg, camera, mesh)
     lights_trainable = any(p.startswith("lights.") for p in cfg.trainable)
+    bounce_trainable = any(p in ("materials.reflectivity",
+                                 "materials.transparency", "materials")
+                           for p in cfg.trainable)
     make_opt = optimizer or (
         lambda ps: torch.optim.Adam(ps, lr=cfg.learning_rate))
     state = {}
 
     def init_fn(scene: Scene):
-        from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+        from openglraytracer_tpu_torch.ops.shading import (
+            static_bounce_mask, static_shadow_mask)
         state["shadow_lights"] = (
             (True,) * scene.lights.count if lights_trainable
             else static_shadow_mask(scene))
+        state["bounce_mask"] = (
+            (True, True) if bounce_trainable or cfg.depth == 0
+            else static_bounce_mask(scene))
         params = {p: x.detach().clone().requires_grad_()
                   for p, x in extract_params(scene, cfg.trainable).items()}
         return params, make_opt(list(params.values()))
@@ -130,8 +145,9 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
         opt.zero_grad(set_to_none=True)
         img, ovf = render(apply_params(scene, params), camera, cfg.height,
                           cfg.width, depth=cfg.depth, engine=cfg.engine,
-                          cull=cfg.cull,
+                          cull=cfg.cull, child_cull=cfg.child_cull,
                           shadow_lights=state["shadow_lights"],
+                          bounce_mask=state["bounce_mask"],
                           with_cull_stats=True)
         loss = torch.mean(torch.square(img - target))
         loss.backward()

@@ -1,10 +1,13 @@
-"""Where a c3_grid64 frame or training step of the PyTorch/CUDA port spends
-its device time.
+"""Where a frame or training step of the PyTorch/CUDA port spends its
+device time.
 
-    python scripts/profile_torch_c3.py [--frames 5] [--train] [--out-dir DIR]
+    python scripts/profile_torch_c3.py [--scene c3_grid64|c5_grid4096|
+        c4_mirror4096] [--frames 5] [--train] [--ops] [--out-dir DIR]
 
-Renders c3_grid64 (1024x1024, depth 0, engine culled_pallas, 64x64 tiles)
-on the GPU under torch.profiler — or, with --train, runs its training step
+Renders the scene (c3_grid64: 1024x1024, depth 0, 64x64 tiles;
+c5_grid4096: 2048x2048, depth 0, 32x32 tiles; c4_mirror4096: 1024x1024,
+depth 1 with culled bounce children, 32x32 tiles; engine culled_pallas) on
+the GPU under torch.profiler — or, with --train, runs its training step
 (forward, backward and an SGD step of mean(img^2) with respect to
 spheres.center, spheres.radius and materials.diffuse) — and prints the
 device time by kernel name, the wall time per frame or step between CUDA
@@ -25,15 +28,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
+# the cull tile side of each scene, as the reference's benchmark sizes it
+TILES = {"c3_grid64": 64, "c5_grid4096": 32, "c4_mirror4096": 32}
+
+
 def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
-    from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
-    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+    from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
+    from openglraytracer_tpu_torch.ops.accel import (
+        suggest_child_cull_config, suggest_cull_config)
     from openglraytracer_tpu_torch.ops.render import render
-    from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+    from openglraytracer_tpu_torch.ops.shading import (static_bounce_mask,
+                                                       static_shadow_mask)
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--scene", default="c3_grid64", choices=list(TILES))
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile the training step instead of the frame")
@@ -46,27 +56,35 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
 
     dev = torch.device("cuda", 0)
-    scene, cam = sphere_grid_scene(8, device=dev)
+    builder, h, w, depth = BENCH_CONFIGS[args.scene]
+    tile = TILES[args.scene]
+    scene, cam = builder(device=dev)
     lights = static_shadow_mask(scene)
-    spec = suggest_cull_config(scene, cam, 1024, 1024, (64, 64),
+    spec = suggest_cull_config(scene, cam, h, w, (tile, tile),
                                shadow_lights=lights)
+    child = (suggest_child_cull_config(scene, cam, h, w, spec,
+                                       shadow_lights=lights)
+             if depth else None)
+    bmask = static_bounce_mask(scene) if depth else (True, True)
 
     if args.train:
         from openglraytracer_tpu_torch.train.inverse import (FitConfig,
                                                              make_train_step)
         init_fn, step_fn = make_train_step(
-            cam, FitConfig(height=1024, width=1024, cull=spec),
+            cam, FitConfig(height=h, width=w, depth=depth, cull=spec,
+                           child_cull=child),
             optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-7))
         params, opt = init_fn(scene)
-        target = torch.zeros((1024, 1024, 3), device=dev)
+        target = torch.zeros((h, w, 3), device=dev)
 
         def run():
             return step_fn(params, opt, scene, target)
     else:
         def run():
             with torch.no_grad():
-                return render(scene, cam, 1024, 1024, cull=spec,
-                              shadow_lights=lights)
+                return render(scene, cam, h, w, depth=depth, cull=spec,
+                              child_cull=child, shadow_lights=lights,
+                              bounce_mask=bmask)
     what = "step" if args.train else "frame"
 
     for _ in range(3):
@@ -88,7 +106,8 @@ def main(argv=None):
     rows = sorted(((e.device_time_total / 1e3 / args.frames, e.count
                     // args.frames, e.key) for e in events), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"{torch.cuda.get_device_name(0)}; spec {spec}")
+    print(f"{torch.cuda.get_device_name(0)}; {args.scene} {w}x{h} depth "
+          f"{depth}; spec {spec}" + (f"; child spec {child}" if child else ""))
     print(f"{what} wall {wall_ms:.4f} ms (CUDA events, profiler on); device "
           f"busy {busy:.4f} ms = {100 * busy / wall_ms:.1f}%; "
           f"{sum(r[1] for r in rows)} kernel launches per {what}")
@@ -106,7 +125,7 @@ def main(argv=None):
                   f"{e.count // args.frames:6d}  {e.key} {e.input_shapes}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        path = os.path.join(args.out_dir, f"c3_{what}_trace.json")
+        path = os.path.join(args.out_dir, f"{args.scene}_{what}_trace.json")
         prof.export_chrome_trace(path)
         print(f"wrote {path}")
 

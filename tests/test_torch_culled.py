@@ -91,12 +91,16 @@ def test_culled_geometry_matches_jax(case):
 
 
 def test_culled_geometry_rejects_bounce_mode():
+    """The hot-primary pass belongs to secondary mode (bounce bundles, with
+    an active mask); asking for it on primary rays raises."""
     scene, cam = sphere_grid_scene(2)
     ts, tc = to_torch_scene(scene), to_torch_camera(cam)
     o, d = (x.reshape(-1, 3) for x in t_rays(tc, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        culled_geometry(ts, o, d, 256, 4, 4,
-                        active=torch.ones(256, dtype=torch.bool))
+    with pytest.raises(ValueError, match="secondary"):
+        culled_geometry(ts, o, d, 256, 4, 4, hot_p=1)
+    hit, _, _ = culled_geometry(ts, o, d, 256, 4, 4,
+                                active=torch.zeros(256, dtype=torch.bool))
+    assert not bool(hit.hit.any())     # inactive rays are misses
 
 
 def test_shade_matches_jax_kernel():
