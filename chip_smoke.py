@@ -5,11 +5,15 @@ Drives the port's main paths through the entry points a user calls — the
 forward ``render`` and the training step of ``train/inverse.make_train_step``
 (value and gradient of the pixel MSE with respect to spheres.center,
 spheres.radius and materials.diffuse, then an SGD step) — at the full size
-of three rows of the reference's benchmark, engine culled_pallas:
-c3_grid64 (64 spheres, 1024x1024, depth 0, 64x64 tiles), c5_grid4096 (4096
-spheres, 2048x2048, depth 0, 32x32 tiles) and c4_mirror4096 (4096 mirror
-spheres, 1024x1024, depth 1 with culled bounce children, 32x32 tiles). It
-exits non-zero on any failure. Phases:
+of rows of the reference's benchmark. Engine culled_pallas: c3_grid64 (64
+spheres, 1024x1024, depth 0, 64x64 tiles), c5_grid4096 (4096 spheres,
+2048x2048, depth 0, 32x32 tiles) and c4_mirror4096 (4096 mirror spheres,
+1024x1024, depth 1 with culled bounce children, 32x32 tiles). Engine pallas
+(the dense engine, kernel 7): c3_grid64 at depth 0, and the reference's
+animated OBB world (reference_frame(1.2): a glass sphere, four rotated
+glass, mirror and wall boxes, no plane, 3 lights) at 1280x720, depth 0 and
+depth 1, its training step also with respect to the boxes' positions and
+angles. It exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build: compile the CUDA kernels from csrc/ (one nvcc per source, in
@@ -47,11 +51,31 @@ exits non-zero on any failure. Phases:
      kernels 6 and 2 beside their plain versions at full size
  13. their training paths for 3 steps each: every kernel launched on every
      step, no overflow, gradients as in phase 6
+ 14. kernel 7 (dense_hit) against its plain version on the inputs the
+     pallas paths hand it: c3's 1,048,576 primary rays, the OBB world's
+     primary rays and both sets of depth-1 children, zero-direction rays
+     (as total internal reflection hands them on) from inside every
+     surface of the OBB frame, and a cut of 65,536 c5_grid4096 rays
+     against all 4096 spheres (the chunked staging)
+ 15. the pallas forward paths for 3 frames each (c3 depth 0, the OBB world
+     at depth 0 and 1): dense_hit launched once per depth-0 frame and 3
+     times per depth-1 frame, a finite image within 1/255 of the plain
+     versions' on >= 99.9% of pixels
+ 16. their frame and training step timed as in phases 5 and 7, and kernel
+     7 beside its plain version and its bound at c3 and the OBB world
+ 17. their training paths for 3 steps each (the OBB world also with respect
+     to the boxes' positions and angles): launches, finite non-zero
+     gradients that agree with the plain versions'
 
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
-launch name; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits with code 1 and prints no result.
+launch name: its time, its plain version's, its bound (the least time the
+card could take for the same work: the larger of the bytes it must move,
+each input read once and each output written once, over 3.35 TB/s and its
+float operations on this run's inputs over 67 TFLOP/s, both the H100 SXM's
+data-sheet peaks; see BOUND_OPS) and, where one PyTorch call computes the
+same function, that call's time. The last line is {"ok": true, "device":
+{...}}. Without a CUDA device it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -103,6 +127,36 @@ PATHS_4096 = {
 }
 # kernel 2 against its plain version: the hottest and some cold tiles
 CUT_HOT, CUT_COLD = 8, 24
+# the dense engine's paths: name -> (scene, height, width, depth); the OBB
+# world at the time and size of the reference's animated_obb_720p row
+OBB_TIME = 1.2
+DENSE_PATHS = {"c3_grid64": ("c3", 1024, 1024, 0),
+               "obb": ("obb", 720, 1280, 0),
+               "obb_depth1": ("obb", 720, 1280, 1)}
+OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
+                 "boxes.position", "boxes.angles")
+# kernel 7 at 4096 spheres: a cut of this many c5_grid4096 rays
+C5_CUT = 65536
+# H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Float operations per unit of work, counted from each kernel's source
+# (csrc/): + - * / sqrt min max as one, fma as two; compares, selects,
+# loads and the special functions' extra steps are not counted, so each
+# bound is a floor. The units: "ray" per ray of the launch; "sphere",
+# "box", "plane" per (ray, object) test of the closest hit; "light" per
+# (ray, light) of a shadow or shade pass; "s_sphere", "s_box", "s_plane"
+# per (ray, light, object) test of an occlusion pass.
+BOUND_OPS = {
+    "primary_hit": dict(ray=19, sphere=18, box=40, plane=7),
+    "primary_hit_ray": dict(ray=19, sphere=27, box=58, plane=13),
+    "primary_hit_hot": dict(ray=19, sphere=27, box=58, plane=13),
+    "shadow_occlusion": dict(light=8, s_sphere=23, s_box=58, s_plane=13),
+    "phong_fused": dict(ray=25, light=90),
+    "phong_shade_bwd": dict(ray=60, light=270),
+    "compact_mask": dict(mask=1),
+    "dense_hit": dict(ray=31, sphere=28, box=58, plane=12, light=10,
+                      s_sphere=28, s_box=58, s_plane=12),
+}
 
 
 def log(msg: str) -> None:
@@ -171,7 +225,9 @@ class PlainVersions:
     versions on the card."""
 
     def __init__(self, culled, shade, shading, accel):
-        self.swaps = [(culled, "primary_hit", culled.primary_hit_plain),
+        from openglraytracer_tpu_torch.ops import dense
+        self.swaps = [(dense, "dense_hit", dense.dense_hit_plain),
+                      (culled, "primary_hit", culled.primary_hit_plain),
                       (culled, "primary_hit_ray",
                        primary_hit_ray_plain(culled)),
                       (culled, "shadow_occlusion",
@@ -261,6 +317,99 @@ def compare_shade_bwd(torch, k, p, what):
     check(share <= DISCRETE_SHARE,
           f"phong_shade_bwd kernel disagrees with its plain version ({what})")
     return max_abs
+
+
+def _work_units(name, args, kwargs):
+    """Units of work of one kernel call on these inputs (see BOUND_OPS);
+    survivor-list kernels count the tests their trip counts ask for."""
+    def total(cnt, cap):
+        return int(cnt.clamp(max=cap).sum())
+
+    if name in ("primary_hit", "primary_hit_ray", "primary_hit_hot"):
+        per_ray = name != "primary_hit"
+        dirs, sph, box, pln, cnt, tile_p = (
+            (args[0],) + tuple(args[2:7]) if per_ray else args[:6])
+        r = cnt.shape[0] * tile_p
+        return dict(ray=r, sphere=total(cnt[:, 0], sph.shape[1]) * tile_p,
+                    box=total(cnt[:, 1], box.shape[1]) * tile_p,
+                    plane=r * pln.shape[0])
+    if name == "shadow_occlusion":
+        so, _, _, light_on, ssph, sbox, pln, cnt, tile_p = args
+        lit = [j for j, on in enumerate(light_on) if on]
+        r = so.shape[0]
+        return dict(
+            light=r * len(lit), s_plane=r * len(lit) * pln.shape[0],
+            s_sphere=sum(total(cnt[:, j, 0], ssph.shape[2]) for j in lit)
+            * tile_p,
+            s_box=sum(total(cnt[:, j, 1], sbox.shape[2]) for j in lit)
+            * tile_p)
+    if name in ("phong_fused", "phong_shade_bwd"):
+        r, n_lights = args[0].shape[0], args[1].shape[0]
+        return dict(ray=r, light=r * n_lights)
+    if name == "compact_mask":
+        return dict(mask=args[0].numel())
+    if name == "dense_hit":
+        o, _, sph, box, pln, lights = args
+        r, n_l = o.shape[0], lights.shape[0]
+        n_s, n_b, n_p = sph.shape[0], box.shape[0], pln.shape[0]
+        return dict(ray=r, sphere=r * n_s, box=r * n_b, plane=r * n_p,
+                    light=r * n_l, s_sphere=r * n_l * n_s,
+                    s_box=r * n_l * n_b, s_plane=r * n_l * n_p)
+    raise KeyError(name)
+
+
+def _bytes_moved(torch, name, args, kwargs, outs):
+    """Bytes one kernel call must move: each input it reads, read once, and
+    each output written once. Of a padded survivor-list tensor (..., K,
+    cols) only the rows the trip counts reach are read, min(cnt, K) per
+    tile (per tile and lit light for the shadow rows); the hot launch reads
+    its one global table as far as its longest count reaches, and the rays
+    of its hot tiles only."""
+    def nb(x):
+        return x.numel() * x.element_size()
+
+    def rows(tab, cnt):
+        return (int(cnt.clamp(max=tab.shape[-2]).sum()) * tab.shape[-1]
+                * tab.element_size())
+
+    out_bytes = sum(nb(x) for x in outs if isinstance(x, torch.Tensor))
+    if name == "primary_hit":
+        dirs, sph, box, pln, cnt, _ = args
+        return out_bytes + nb(dirs) + rows(sph, cnt[:, 0]) + rows(
+            box, cnt[:, 1]) + nb(pln) + nb(cnt)
+    if name in ("primary_hit_ray", "primary_hit_hot"):
+        dirs, origins, sph, box, pln, cnt, tile_p = args[:7]
+        tile_ids = kwargs.get("tile_ids")
+        if tile_ids is None:
+            return out_bytes + nb(dirs) + nb(origins) + rows(
+                sph, cnt[:, 0]) + rows(box, cnt[:, 1]) + nb(pln) + nb(cnt)
+        hot_rays = 2 * cnt.shape[0] * tile_p * 3 * dirs.element_size()
+        return out_bytes + hot_rays + rows(sph, cnt[:, 0].max()) + rows(
+            box, cnt[:, 1].max()) + nb(pln) + nb(cnt) + nb(tile_ids)
+    if name == "shadow_occlusion":
+        so, hp, lights, light_on, ssph, sbox, pln, cnt, _ = args
+        lit = [j for j, on in enumerate(light_on) if on]
+        return out_bytes + nb(so) + nb(hp) + nb(lights) + sum(
+            rows(ssph[:, j], cnt[:, j, 0]) + rows(sbox[:, j], cnt[:, j, 1])
+            for j in lit) + nb(pln) + nb(cnt)
+    # the other kernels read every element of every tensor argument
+    return out_bytes + sum(nb(x) for x in list(args) + list(kwargs.values())
+                           if isinstance(x, torch.Tensor))
+
+
+def bound(torch, name, fn, args, kwargs=None):
+    """The least time the card could take for one call of kernel ``name``
+    on these inputs: (ms, "bytes" or "operations", bytes, operations). The
+    bytes are those _bytes_moved counts; the operations are BOUND_OPS times
+    this call's units of work."""
+    kwargs = kwargs or {}
+    outs = fn(*args, **kwargs)
+    nbytes = _bytes_moved(torch, name, args, kwargs, outs)
+    ops = sum(BOUND_OPS[name][u] * n
+              for u, n in _work_units(name, args, kwargs).items())
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
 
 
 def device_ms(torch, fn, args, reps: int = 10) -> float:
@@ -362,7 +511,8 @@ def train_scene(scene, trainable):
 def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
     """Phases 9-13: the 4096-object paths c5_grid4096 and c4_mirror4096.
     Returns (per-path launch counts, per-kernel (ms, plain ms), per-kernel
-    max abs error) for the new kernels."""
+    max abs error, per-kernel (args, kwargs) of the timed call, the
+    library call's ms) for kernels 2 and 6."""
     from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
     from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
                                                          FitConfig,
@@ -396,7 +546,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/13] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/17] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -424,7 +574,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 10. kernel 2 (cold and hot) against its plain version on a cut
     t0 = time.perf_counter()
-    log(f"[10/13] kernel 2 vs plain version on c4_mirror4096's inputs: the "
+    log(f"[10/17] kernel 2 vs plain version on c4_mirror4096's inputs: the "
         f"{CUT_HOT} hottest and {CUT_COLD} evenly spaced cold tiles")
     cap = caps["c4_mirror4096"]
     check(hot_p > 0, f"the c4_mirror4096 child spec has no hot budget: "
@@ -472,7 +622,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/13] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/17] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -509,7 +659,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/13] timing, forward and training step ({smi})")
+    log(f"[12/17] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -552,7 +702,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
                 f"(one call behind a spin kernel, median of 5) {dev_ms:.4f} "
                 f"ms; {n_rays} rays/frame -> "
                 f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
-    kernel_ms = {}
+    kernel_ms, timed = {}, {}
     mask, k = next(c for c in caps["c5_grid4096"].calls
                    if c[0].shape[-1] >= accel.MIN_N_FOR_KERNEL)
     full_h = (a_h, cap.kwargs["primary_hit_hot"])
@@ -567,15 +717,27 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
         t_plain = [device_ms(torch, call(plain), args, reps=1)
                    for _ in range(2)]
         kernel_ms[name] = (statistics.mean(t_kern), statistics.mean(t_plain))
+        timed[name] = (args, kw)
         cell = "c5_grid4096" if name == "compact_mask" else "c4_mirror4096"
         log(f"  {name}: kernel {kernel_ms[name][0]:.4f} ms, plain version "
             f"{kernel_ms[name][1]:.4f} ms (device time per call on the "
             f"full-size inputs of {cell})")
+    # the library call: torch.topk, the core of compact_mask_plain, alone on
+    # the same mask's keys (a yardstick; the port calls it only for masks
+    # narrower than MIN_N_FOR_KERNEL)
+    n_obj = mask.shape[-1]
+    key = torch.where(mask, torch.arange(n_obj, 0, -1, dtype=torch.int32,
+                                         device=dev)[None, :], 0)
+    topk_ms = statistics.mean(
+        device_ms(torch, lambda: torch.topk(key, min(k, n_obj), dim=-1), ())
+        for _ in range(2))
+    log(f"  compact_mask's library call, torch.topk on the same keys: "
+        f"{topk_ms:.4f} ms")
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/13] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/17] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -620,7 +782,259 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
                   f"{cfg}: gradient of {k} disagrees with the plain "
                   "versions'")
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
-    return launches, kernel_ms, errs
+    return launches, kernel_ms, errs, timed, topk_ms
+
+
+def compare_dense(torch, k, p, what):
+    """Kernel 7 outputs k vs plain p: (mismatch share, max abs err). A ray
+    agrees when its hit flag, winner, inside flag and, where it hit, every
+    light's occlusion bit agree; t and n are held to T_RTOL/T_ATOL/N_ATOL
+    on the rays that agree and hit."""
+    t_k, n_k, ins_k, id_k, occ_k = k
+    t_p, n_p, ins_p, id_p, occ_p = p
+    hit_p = t_p < 1e4
+    agree = ((t_k < 1e4) == hit_p) & (id_k == id_p) & (ins_k == ins_p) \
+        & ((occ_k == occ_p) | ~hit_p[None, :]).all(dim=0)
+    share = 1.0 - float(agree.float().mean())
+    live = agree & hit_p
+    dt = (t_k - t_p).abs()[live]
+    dn = (n_k - n_p).abs()[live]
+    t_bad = int((dt > T_ATOL + T_RTOL * t_p.abs()[live]).sum())
+    n_bad = int((dn > N_ATOL).sum())
+    err = max(float(dt.max()) if dt.numel() else 0.0,
+              float(dn.max()) if dn.numel() else 0.0)
+    occ_share = [round(float(o[hit_p].float().mean()), 4) for o in occ_p]
+    log(f"  dense_hit [{what}]: discrete mismatches {share:.2e} of "
+        f"{t_k.numel()} rays ({float(hit_p.float().mean()):.4f} hit; "
+        f"occluded share per light where hit {occ_share}), t/n out of "
+        f"tolerance {t_bad}/{n_bad}, max |t|,|n| err {err:.3e}")
+    check(share <= DISCRETE_SHARE and t_bad == 0 and n_bad == 0,
+          f"dense_hit kernel disagrees with its plain version ({what})")
+    return share, err
+
+
+def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phases 14-17: the dense engine 'pallas' (kernel 7) on c3_grid64 and
+    the reference's animated OBB world. Returns (per-path launch counts,
+    per-cell kernel 7 numbers, max abs error, the c3 inputs of kernel 7)."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
+                                                           sphere_grid_scene)
+    from openglraytracer_tpu_torch.ops import dense
+    from openglraytracer_tpu_torch.ops.raygen import generate_rays
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig,
+                                                         make_train_step)
+    from openglraytracer_tpu_torch.utils.metrics import rays_per_frame
+
+    scenes = {"c3": sphere_grid_scene(8, device=dev),
+              "obb": reference_frame(OBB_TIME, device=dev)}
+    paths = {}
+    for cfg, (which, h, w, depth) in DENSE_PATHS.items():
+        scene, cam = scenes[which]
+        bmask = shading.static_bounce_mask(scene) if depth else (True, True)
+        trainable = DEFAULT_TRAINABLE if which == "c3" else OBB_TRAINABLE
+        paths[cfg] = dict(scene=scene, cam=cam, h=h, w=w, depth=depth,
+                          trainable=trainable,
+                          kw=dict(depth=depth, engine="pallas",
+                                  bounce_mask=bmask),
+                          launches=3 if depth else 1)
+        log(f"  {cfg}: {w}x{h}, depth {depth}, engine pallas; "
+            f"{scene.spheres.count} spheres, {scene.boxes.count} boxes, "
+            f"{scene.planes.count} planes, {scene.lights.count} lights; "
+            f"bounce mask {bmask}")
+
+    # ---- 14. kernel 7 against its plain version on the paths' own inputs
+    t0 = time.perf_counter()
+    log("[14/17] dense kernel (kernel 7) vs plain version, full size")
+    seen = []
+    fn = dense.dense_hit
+
+    def spy(*a):
+        seen.append(tuple(x.detach() for x in a))
+        return fn(*a)
+    dense.dense_hit = spy
+    try:
+        with torch.no_grad():
+            for cfg in ("c3_grid64", "obb_depth1"):
+                pth = paths[cfg]
+                render(pth["scene"], pth["cam"], pth["h"], pth["w"],
+                       **pth["kw"])
+    finally:
+        dense.dense_hit = fn
+    check(len(seen) == 4, f"expected 4 dense_hit calls, got {len(seen)}")
+    inputs = {"c3 primary": seen[0], "obb primary": seen[1],
+              "obb reflection children": seen[2],
+              "obb refraction children": seen[3]}
+    n_zero = int((seen[3][1] == 0).all(dim=-1).sum())
+    log(f"  obb refraction children with zero direction (total internal "
+        f"reflection): {n_zero} of {seen[3][1].shape[0]}")
+    # zero-direction rays, as total internal reflection hands them to the
+    # kernel (at depth >= 2 in this world: a ray must be inside the glass),
+    # from just inside every surface the OBB frame's primary rays hit
+    o1, d1 = seen[1][:2]
+    t1, n1 = dense.dense_hit_plain(*seen[1])[:2]
+    p1 = o1 + torch.where(t1 < 1e4, t1, 0.0)[:, None] * d1
+    inputs["obb zero-direction rays"] = (
+        (p1 - 1.0e-3 * n1).contiguous(), torch.zeros_like(d1),
+        *seen[1][2:])
+    c5_scene, c5_cam = BENCH_CONFIGS["c5_grid4096"][0](device=dev)
+    o5, d5 = (x.reshape(-1, 3) for x in generate_rays(c5_cam, 2048, 2048))
+    stride = o5.shape[0] // C5_CUT
+    inputs["c5_grid4096 cut"] = (
+        o5[::stride].contiguous(), d5[::stride].contiguous(),
+        *dense._scene_tables(c5_scene))
+    errs = {}
+    for what, a in inputs.items():
+        log(f"  {what}: {a[0].shape[0]} rays, tables sph "
+            f"{tuple(a[2].shape)}, box {tuple(a[3].shape)}, plane "
+            f"{tuple(a[4].shape)}, lights {tuple(a[5].shape)}")
+        errs[what] = compare_dense(torch, dense.dense_hit(*a),
+                                   dense.dense_hit_plain(*a), what)[1]
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the forward paths
+    t0 = time.perf_counter()
+    log(f"[15/17] forward paths: {FRAMES} frames each, engine pallas")
+    launches = {}
+    for cfg, pth in paths.items():
+        h, w = pth["h"], pth["w"]
+        kernels.LAUNCHES.clear()
+        with torch.no_grad():
+            frames = [render(pth["scene"], pth["cam"], h, w,
+                             with_cull_stats=True, **pth["kw"])
+                      for _ in range(FRAMES)]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        launches[f"render_{cfg}_pallas"] = got
+        log(f"  {cfg}: launches over {FRAMES} frames: {got}")
+        check(got == {"dense_hit": FRAMES * pth["launches"]},
+              f"{cfg}: dense_hit must launch {pth['launches']} time(s) per "
+              "frame, and no other kernel")
+        check(all(int(o) == 0 for _, o in frames), "overflow reported")
+        img = frames[-1][0]
+        check(tuple(img.shape) == (h, w, 3), f"image shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"{cfg}: non-finite image")
+        check(all(torch.equal(f[0], img) for f in frames), "frames differ")
+        with PlainVersions(culled, shade, shading, accel), torch.no_grad():
+            img_plain = render(pth["scene"], pth["cam"], h, w, **pth["kw"])
+        diff = (img - img_plain).abs().amax(dim=-1)
+        share = float((diff <= 1.0 / 255.0).float().mean())
+        log(f"  {cfg}: image vs plain versions on the card: {share:.6f} of "
+            f"pixels within 1/255, max diff {float(diff.max()):.3e}; mean "
+            f"{float(img.mean()):.5f}")
+        check(share >= 0.999, f"{cfg}: image disagrees with the plain "
+              "versions' image")
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. timing
+    t0 = time.perf_counter()
+    log(f"[16/17] timing, forward and training step, engine pallas ({smi})")
+    steps = {}
+    for cfg, pth in paths.items():
+        h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
+
+        def frame(pth=pth, h=h, w=w):
+            with torch.no_grad():
+                return render(pth["scene"], pth["cam"], h, w,
+                              with_cull_stats=True, **pth["kw"])
+
+        fc = FitConfig(height=h, width=w, depth=pth["depth"],
+                       engine="pallas", trainable=pth["trainable"])
+        init_fn, step_fn = make_train_step(
+            cam, fc, optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+        params, opt = init_fn(scene)
+        target = torch.zeros((h, w, 3), device=dev)
+        steps[cfg] = (init_fn, step_fn, target)
+
+        def train_step(params=params, opt=opt, step_fn=step_fn,
+                       target=target, scene=scene):
+            return step_fn(params, opt, scene, target)
+
+        # the dense engine casts every light's shadow ray
+        n_rays = rays_per_frame(h, w, scene.lights.count, pth["depth"],
+                                bounce_mask=pth["kw"]["bounce_mask"]
+                                if pth["depth"] else None)
+        for what, fn_, ovf_at in (("frame", frame, 1),
+                                  ("training step", train_step, 3)):
+            windows, outs = timed_windows(torch, fn_)
+            check(int(torch.stack([o[ovf_at] for o in outs]).sum()) == 0,
+                  f"{cfg}: overflow while timing the {what}")
+            med = statistics.median(windows)
+            dev_ms = statistics.median(device_ms(torch, fn_, (), reps=1)
+                                       for _ in range(5))
+            log(f"  {cfg} {what}: median {med:.4f} ms, min "
+                f"{min(windows):.4f} ms over {WINDOWS} windows of "
+                f"{WINDOW_FRAMES} ({[round(x, 4) for x in windows]}), "
+                f"sync-free under set_sync_debug_mode('error'); device time "
+                f"(one call behind a spin kernel, median of 5) {dev_ms:.4f} "
+                f"ms; {n_rays} rays/frame -> "
+                f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
+    cells = {}
+    for what, a in inputs.items():
+        if what in ("c5_grid4096 cut", "obb zero-direction rays"):
+            continue
+        t_kern = [device_ms(torch, dense.dense_hit, a) for _ in range(2)]
+        t_plain = [device_ms(torch, dense.dense_hit_plain, a, reps=1)
+                   for _ in range(2)]
+        b_ms, b_by, nbytes, ops = bound(torch, "dense_hit", dense.dense_hit,
+                                        a)
+        cells[what] = dict(ms=statistics.mean(t_kern),
+                           plain_ms=statistics.mean(t_plain), bound_ms=b_ms,
+                           bound_by=b_by)
+        log(f"  dense_hit [{what}]: kernel {cells[what]['ms']:.4f} ms, "
+            f"plain version {cells[what]['plain_ms']:.4f} ms; bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} GFLOP), {100 * b_ms / cells[what]['ms']:.0f}% "
+            f"of it")
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. the training paths
+    t0 = time.perf_counter()
+    log(f"[17/17] training paths, engine pallas: {STEPS} SGD steps each at "
+        f"lr {STEP_LR:g} of mean(img^2)")
+    for cfg, pth in paths.items():
+        init_fn, step_fn, target = steps[cfg]
+        scene = pth["scene"]
+        params, opt = init_fn(scene)
+        kernels.LAUNCHES.clear()
+        outs = [step_fn(params, opt, scene, target) for _ in range(STEPS)]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        launches[f"train_step_{cfg}_pallas"] = got
+        log(f"  {cfg}: launches over {STEPS} steps: {got}; losses "
+            f"{[float(o[2]) for o in outs]}")
+        check(got == {"dense_hit": STEPS * pth["launches"]},
+              f"{cfg}: dense_hit must launch {pth['launches']} time(s) per "
+              "step, and no other kernel")
+
+        def one_step_grads():
+            p, o = init_fn(scene)
+            _, _, loss, _ = step_fn(p, o, scene, target)
+            return float(loss), {k: v.grad for k, v in p.items()}
+
+        loss_k, grads_k = one_step_grads()
+        with PlainVersions(culled, shade, shading, accel):
+            loss_p, grads_p = one_step_grads()
+        log(f"  {cfg}: first step's loss: kernels {loss_k:.9g}, plain "
+            f"versions {loss_p:.9g}")
+        check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+              f"{cfg}: training loss disagrees with the plain versions'")
+        for k in pth["trainable"]:
+            gk, gp = grads_k[k], grads_p[k]
+            scale = float(gp.abs().max())
+            err = float((gk - gp).abs().max())
+            log(f"  {cfg} grad {k}: max |g| {scale:.4e}, max |kernel - "
+                f"plain| {err:.3e} ({err / max(scale, 1e-30):.2e} of max "
+                f"|g|)")
+            check(bool(torch.isfinite(gk).all()) and scale > 0.0,
+                  f"{cfg}: gradient of {k} must be finite and non-zero")
+            check(err <= GRAD_TOL * scale,
+                  f"{cfg}: gradient of {k} disagrees with the plain "
+                  "versions'")
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    return launches, cells, max(errs.values()), inputs["c3 primary"]
 
 
 def main() -> int:
@@ -654,7 +1068,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/13] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/17] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -662,13 +1076,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/13] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  {line.strip()}")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/13] kernels vs plain versions")
+    log("[3/17] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -746,7 +1160,7 @@ def main() -> int:
           "the backward's box replay disagrees with kernel A")
 
     # ---- 4. the forward path
-    log(f"[4/13] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/17] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -791,7 +1205,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/13] forward timing ({name}; {smi})")
+    log(f"[5/17] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -841,7 +1255,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/13] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/17] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -885,7 +1299,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/13] training timing ({name}; {smi})")
+    log(f"[7/17] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -907,7 +1321,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/13] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/17] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -926,11 +1340,16 @@ def main() -> int:
     log(f"  losses {[(st, round(v, 6)) for st, v in flosses]}")
     check(flosses[-1][1] < flosses[0][1], "the fit's loss must fall")
 
-    launches_4096, kernel_ms_4096, errs_4096 = run_4096(
+    launches_4096, kernel_ms_4096, errs_4096, timed, topk_ms = run_4096(
         torch, dev, kernels, culled, shade, shading, accel, smi)
     kernel_ms.update(kernel_ms_4096)
     errs.update(errs_4096)
+    launches_dense, dense_cells, errs["dense_hit"], dense_c3 = run_dense(
+        torch, dev, kernels, culled, shade, shading, accel, smi)
+    c3_dense = dense_cells["c3 primary"]
+    kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
 
+    from openglraytracer_tpu_torch.ops import dense
     sources = {"primary_hit": ("csrc/primary_hit.cu",
                                "openglraytracer_tpu/ops/pallas_culled.py:150"),
                "shadow_occlusion": (
@@ -949,28 +1368,54 @@ def main() -> int:
                    "openglraytracer_tpu/ops/pallas_culled.py:150"),
                "compact_mask": (
                    "csrc/compact_mask.cu",
-                   "openglraytracer_tpu/ops/pallas_compact.py:52")}
+                   "openglraytracer_tpu/ops/pallas_compact.py:52"),
+               "dense_hit": (
+                   "csrc/dense_hit.cu",
+                   "openglraytracer_tpu/ops/pallas_render.py:115")}
+    # the inputs each row's ms was timed on, for its bound
+    timed_calls = {k: (wrappers[k], c3_args[k], {}) for k in all_kernels}
+    timed_calls["primary_hit_ray"] = (culled.primary_hit_ray,
+                                      *timed["primary_hit_ray"])
+    timed_calls["primary_hit_hot"] = (culled.primary_hit_ray,
+                                      *timed["primary_hit_hot"])
+    timed_calls["compact_mask"] = (accel.compact_mask,
+                                   *timed["compact_mask"])
+    timed_calls["dense_hit"] = (dense.dense_hit, dense_c3, {})
+    library_ms = {"compact_mask": topk_ms}
     path_launches = {"render_c3_grid64": fwd_launches,
-                     "train_step_c3_grid64": train_launches, **launches_4096}
+                     "train_step_c3_grid64": train_launches, **launches_4096,
+                     **launches_dense}
+    kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
-                            "compact_mask"):
+                            "compact_mask", "dense_hit"):
         src, replaces = sources[k]
         # launches: the count from the path the kernel was ported for (the
         # c3 forward frames for the forward kernels, the c3 training steps
-        # for the backward, the c4_mirror4096 frames for kernels 2 and 6);
-        # every path's count under "paths"
+        # for the backward, the c4_mirror4096 frames for kernels 2 and 6,
+        # the c3 pallas frames for kernel 7); every path's count under
+        # "paths"
         main = (train_launches if k == "phong_shade_bwd" else
                 launches_4096["render_c4_mirror4096"] if k in (
                     "primary_hit_ray", "primary_hit_hot", "compact_mask")
-                else fwd_launches)
-        rows.append({"name": k, "route": "cuda",
-                     "source": f"openglraytracer_tpu_torch/{src}",
-                     "replaces": replaces, "launches": main.get(k, 0),
-                     "paths": {pn: pl.get(k, 0)
-                               for pn, pl in path_launches.items()},
-                     "max_abs_err": errs[k], "ms": kernel_ms[k][0],
-                     "plain_ms": kernel_ms[k][1]})
+                else launches_dense["render_c3_grid64_pallas"]
+                if k == "dense_hit" else fwd_launches)
+        fn, args, kw = timed_calls[k]
+        with torch.no_grad():
+            b_ms, b_by, _, _ = bound(torch, k, fn, args, kw)
+        row = {"name": k, "route": "cuda",
+               "source": f"openglraytracer_tpu_torch/{src}",
+               "replaces": replaces, "launches": main.get(k, 0),
+               "paths": {pn: pl.get(k, 0)
+                         for pn, pl in path_launches.items()},
+               "max_abs_err": errs[k], "ms": kernel_ms[k][0],
+               "plain_ms": kernel_ms[k][1], "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": library_ms.get(k)}
+        if k == "dense_hit":
+            row["cells"] = dense_cells
+        rows.append(row)
+        log(f"  {k}: {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * b_ms / row['ms']:.0f}% of it)")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,25 +1,32 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Port of the ``configs``, ``render`` and ``fit`` commands of
+Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
 ``openglraytracer_tpu/cli.py``:
 
   python -m openglraytracer_tpu_torch.cli configs
   python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
       --cull-tile 64 --out c3.png --time
+  python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
+      --engine pallas --out c3.png    # the dense engine, kernel 7
   python -m openglraytracer_tpu_torch.cli render --scene c4_mirror4096 \\
       --out c4m.png                   # depth 1, culled bounce children
+  python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
+      --width 1280 --height 720 --depth 1 --out-pattern frame_{:04d}.png
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
       --height 256 --steps 60 --lr 0.02
 
-``render`` and ``fit`` take the reference's flags where they apply, plus
-``--device`` (default ``cuda``; there is no silent fall back to the CPU).
-Bounces (depth > 0) run their children on the culled path with a child spec
-sized from a measured bounce pass: with ``--child-cull``, and by default for
-the builtin configs whose reference benchmark row culls its children
-(``c4_mirror4096``). Flags for what this package does not do yet (other
-engines, dense bounce children, the stack bounce engine; bounces in ``fit``;
-PNG targets, soft, sharded and checkpointed fits) are rejected with a
-message.
+``render``, ``animate`` and ``fit`` take the reference's flags where they
+apply, plus ``--device`` (default ``cuda``; there is no silent fall back to
+the CPU). Two engines are ported: ``culled_pallas`` (the default of
+``render`` and ``fit``) and the dense ``pallas`` (the default of
+``animate``), which runs at any depth. With ``culled_pallas``, bounces
+(depth > 0) run their children on the culled path with a child spec sized
+from a measured bounce pass: with ``--child-cull``, and by default for the
+builtin configs whose reference benchmark row culls its children
+(``c4_mirror4096``). Flags for what this package does not do yet (the
+engines ``xla``, ``auto`` and ``culled``, the stack bounce engine, culled
+bounces in ``fit`` and ``animate``, ``animate --gif``; PNG targets, soft,
+sharded and checkpointed fits) are rejected with a message.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import time
 import torch
 
 ENGINES = ["auto", "xla", "pallas", "culled", "culled_pallas"]
+PORTED = ("culled_pallas", "pallas")
 # builtin configs whose reference benchmark row culls the bounce children
 # (bench.py PLAN, use_child_cull)
 CHILD_CULL_CONFIGS = ("c4_mirror4096",)
@@ -99,14 +107,24 @@ def _resolve_scene(args, device):
     return scene, cam, h, w, depth
 
 
+def _reject_engine(engine: str, what: str):
+    if engine not in PORTED:
+        raise SystemExit(f"--engine {engine} is not yet ported to "
+                         f"PyTorch/CUDA; this package {what} with --engine "
+                         "culled_pallas or pallas (see ROADMAP.md)")
+
+
 def _reject_unported(args, depth: int):
-    if args.engine != "culled_pallas":
-        raise SystemExit(f"--engine {args.engine} is not yet ported to "
-                         "PyTorch/CUDA; this package renders with "
-                         "--engine culled_pallas (see ROADMAP.md)")
+    _reject_engine(args.engine, "renders")
     if args.bounce != "tree":
         raise SystemExit(f"--bounce {args.bounce} is not yet ported "
                          "(see ROADMAP.md)")
+    if args.engine == "pallas":
+        if args.child_cull:
+            raise SystemExit("--child-cull sizes the culled engine's bounce "
+                             "children; --engine pallas traces every child "
+                             "densely")
+        return
     if args.child_cull and depth <= 0:
         raise SystemExit("--child-cull needs --depth >= 1 (it sizes the "
                          "bounce children's survivor lists)")
@@ -117,12 +135,29 @@ def _reject_unported(args, depth: int):
                          "trace them on the culled path")
 
 
+def _cull_spec(scene, cam, h: int, w: int, t: int, shadow_lights, **kw):
+    """The culled engine's spec for (t, t) tiles (suggest_cull_config with
+    the keywords kw), printed."""
+    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+    if h % t or w % t:
+        raise SystemExit(
+            f"--cull-tile {t} must divide the image: {w}x{h} "
+            f"(--width/--height); pick a dividing tile or resolution "
+            f"(e.g. --height {h - h % t or t})")
+    spec = suggest_cull_config(scene, cam, h, w, (t, t),
+                               shadow_lights=shadow_lights, **kw)
+    print(f"cull: tile={t} "
+          + " ".join(f"{k}={v}" for k, v in
+                     zip(("kp", "ks", "hot_m", "kb", "ksb"), spec[1:])))
+    return spec
+
+
 def cmd_render(args):
     from openglraytracer_tpu_torch.models.scene import save_scene
-    from openglraytracer_tpu_torch.ops.accel import (
-        suggest_child_cull_config, suggest_cull_config)
+    from openglraytracer_tpu_torch.ops.accel import suggest_child_cull_config
     from openglraytracer_tpu_torch.ops.render import render
-    from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+    from openglraytracer_tpu_torch.ops.shading import (static_bounce_mask,
+                                                       static_shadow_mask)
     from openglraytracer_tpu_torch.utils.image import save_png
     from openglraytracer_tpu_torch.utils.metrics import (MetricsLogger,
                                                          rays_per_frame,
@@ -134,21 +169,15 @@ def cmd_render(args):
                          "--device cuda")
     scene, cam, h, w, depth = _resolve_scene(args, device)
     _reject_unported(args, depth)
-    t = args.cull_tile
-    if h % t or w % t:
-        raise SystemExit(
-            f"--cull-tile {t} must divide the image: {w}x{h} "
-            f"(--width/--height); pick a dividing tile or resolution "
-            f"(e.g. --height {h - h % t or t})")
     shadow_lights = static_shadow_mask(scene)
-    spec = suggest_cull_config(scene, cam, h, w, (t, t),
-                               shadow_lights=shadow_lights)
-    print(f"cull: tile={t} "
-          + " ".join(f"{k}={v}" for k, v in
-                     zip(("kp", "ks", "hot_m", "kb", "ksb"), spec[1:])))
-    kwargs = dict(depth=depth, engine="culled_pallas", cull=spec,
+    bounce_mask = static_bounce_mask(scene) if depth > 0 else (True, True)
+    kwargs = dict(depth=depth, engine=args.engine, bounce_mask=bounce_mask,
                   shadow_lights=shadow_lights)
-    if depth > 0:
+    if args.engine == "culled_pallas":
+        kwargs["cull"] = _cull_spec(scene, cam, h, w, args.cull_tile,
+                                    shadow_lights)
+    if args.engine == "culled_pallas" and depth > 0:
+        spec = kwargs["cull"]
         cspec = suggest_child_cull_config(scene, cam, h, w, spec,
                                           shadow_lights=shadow_lights)
         print("child cull: "
@@ -163,8 +192,12 @@ def cmd_render(args):
     if args.time:
         with torch.no_grad():
             dt = time_fn(lambda: render(scene, cam, h, w, **kwargs))
-        n_rays = rays_per_frame(h, w, scene.lights.count, depth,
-                                shadow_lights=shadow_lights)
+        # the dense engine casts every light's shadow ray
+        n_rays = rays_per_frame(
+            h, w, scene.lights.count, depth,
+            shadow_lights=(shadow_lights if args.engine == "culled_pallas"
+                           else None),
+            bounce_mask=bounce_mask)
         MetricsLogger("render").log(
             h=h, w=w, depth=depth, sec=dt,
             mrays_per_s=round(n_rays / dt / 1e6, 2),
@@ -191,15 +224,12 @@ def _reject_unported_fit(args):
         if value:
             raise SystemExit(f"{flag}: {what} is not yet ported (see "
                              "ROADMAP.md)")
-    if args.engine != "culled_pallas":
-        raise SystemExit(f"--engine {args.engine} is not yet ported to "
-                         "PyTorch/CUDA; this package fits with --engine "
-                         "culled_pallas (see ROADMAP.md)")
-    if args.depth > 0:
+    _reject_engine(args.engine, "fits")
+    if args.engine == "culled_pallas" and args.depth > 0:
         raise SystemExit(f"depth {args.depth}: the fit command does not size "
-                         "a bounce-child spec yet; fit with --depth 0, or "
-                         "call train/inverse.fit with FitConfig.child_cull "
-                         "(see ROADMAP.md)")
+                         "a bounce-child spec yet; fit with --depth 0 or "
+                         "--engine pallas, or call train/inverse.fit with "
+                         "FitConfig.child_cull (see ROADMAP.md)")
 
 
 def cmd_fit(args):
@@ -208,8 +238,7 @@ def cmd_fit(args):
     torch.Generator seeded with 0, and fit back."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
-    from openglraytracer_tpu_torch.ops.accel import (
-        suggest_child_cull_config, suggest_cull_config)
+    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.train.inverse import FitConfig, fit
     from openglraytracer_tpu_torch.utils.image import save_png
@@ -217,16 +246,20 @@ def cmd_fit(args):
     _reject_unported_fit(args)
     device = _device(args.device)
     h, w, t = args.height or 128, args.width or 128, args.cull_tile
-    if h % t or w % t:
-        raise SystemExit(f"--cull-tile {t} must divide the fit resolution "
-                         f"{w}x{h}")
     scene_true, cam = sphere_grid_scene(args.grid_side, seed=1,
                                         device=device)
-    # generous headroom: the scene moves during the fit
-    cull = suggest_cull_config(scene_true, cam, h, w, (t, t), headroom=2.0)
-    print(f"cull: {cull}")
+    cull = None
+    if args.engine == "culled_pallas":
+        if h % t or w % t:
+            raise SystemExit(f"--cull-tile {t} must divide the fit "
+                             f"resolution {w}x{h}")
+        # generous headroom: the scene moves during the fit
+        cull = suggest_cull_config(scene_true, cam, h, w, (t, t),
+                                   headroom=2.0)
+        print(f"cull: {cull}")
+    kw = dict(depth=args.depth, engine=args.engine, cull=cull)
     with torch.no_grad():
-        target = render(scene_true, cam, h, w, cull=cull)
+        target = render(scene_true, cam, h, w, **kw)
     gen = torch.Generator().manual_seed(0)
     sph = scene_true.spheres
     noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
@@ -236,7 +269,7 @@ def cmd_fit(args):
         radius=torch.clamp(sph.radius + 0.1 * noise_r, min=0.1)))
 
     cfg = FitConfig(height=h, width=w, depth=args.depth, steps=args.steps,
-                    learning_rate=args.lr,
+                    learning_rate=args.lr, engine=args.engine,
                     trainable=tuple(args.trainable.split(",")), cull=cull)
     t0 = time.time()
     with _profiled(args.profile_dir, device):
@@ -248,8 +281,58 @@ def cmd_fit(args):
         print(f"wrote fitted scene JSON {args.save_scene}")
     if args.out:
         with torch.no_grad():
-            save_png(render(fitted, cam, h, w, cull=cull), args.out)
+            save_png(render(fitted, cam, h, w, **kw), args.out)
         print(f"wrote {args.out}")
+
+
+def cmd_animate(args):
+    """The reference's animated world, reference_frame(start_time + i /
+    fps) for i < frames, rendered to a PNG sequence. With culled_pallas one
+    cull spec (headroom 2) serves the moving sequence; each frame rechecks
+    it on the host and resizes it when it would overflow (never silent)."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+    from openglraytracer_tpu_torch.utils.image import save_png
+
+    _reject_engine(args.engine, "animates")
+    if args.gif:
+        raise SystemExit("--gif is not yet ported (it needs PIL, which the "
+                         "port does not depend on; see ROADMAP.md); the PNG "
+                         "sequence is written without it")
+    if args.engine == "culled_pallas" and args.depth > 0:
+        raise SystemExit(f"depth {args.depth} with --engine culled_pallas: "
+                         "the reference traces these children with the "
+                         "dense XLA engine, which is not yet ported (see "
+                         "ROADMAP.md); use --engine pallas")
+    device = _device(args.device)
+    h, w = args.height, args.width
+    cull = None
+    if args.engine == "culled_pallas":
+        scene0, cam0 = reference_frame(args.start_time, device=device)
+        cull = _cull_spec(scene0, cam0, h, w, args.cull_tile,
+                          static_shadow_mask(scene0), headroom=2.0)
+    for i in range(args.frames):
+        t = args.start_time + i / args.fps
+        scene, cam = reference_frame(t, device=device)
+        if cull is not None:
+            ovf = check_cull_overflow(scene, cam, h, w, cull)
+            if ovf:
+                print(f"frame {i}: cull overflow {ovf} — resizing")
+                cull = _cull_spec(scene, cam, h, w, args.cull_tile,
+                                  static_shadow_mask(scene), headroom=2.0)
+                # K's rounded up to multiples of 16, as the reference does,
+                # so that a scene oscillating around a threshold does not
+                # resize every frame
+                cull = (cull[0],) + tuple(-(-k // 16) * 16 if k else k
+                                          for k in cull[1:])
+        with torch.no_grad():
+            img = render(scene, cam, h, w, depth=args.depth,
+                         engine=args.engine, cull=cull)
+        path = args.out_pattern.format(i)
+        save_png(img, path)
+        print(f"frame {i}: t={t:.3f}s -> {path}")
 
 
 def main(argv=None):
@@ -266,7 +349,7 @@ def main(argv=None):
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--engine", default="culled_pallas", choices=ENGINES,
-                   help="only culled_pallas is ported")
+                   help="culled_pallas and pallas are ported")
     r.add_argument("--cull-tile", type=int, default=32,
                    help="pixel tile side of the culled engine")
     r.add_argument("--child-cull", action="store_true",
@@ -304,7 +387,7 @@ def main(argv=None):
     f.add_argument("--sharded", action="store_true",
                    help="not yet ported (rejected)")
     f.add_argument("--engine", default="culled_pallas", choices=ENGINES,
-                   help="only culled_pallas is ported")
+                   help="culled_pallas (depth 0) and pallas are ported")
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
                    help="not yet ported (rejected)")
     f.add_argument("--cull-tile", type=int, default=32)
@@ -321,6 +404,25 @@ def main(argv=None):
     f.add_argument("--device", default="cuda",
                    help="torch device to fit on (default cuda)")
     f.set_defaults(fn=cmd_fit)
+
+    a = sub.add_parser("animate", help="render the reference animated demo")
+    a.add_argument("--frames", type=int, default=30)
+    a.add_argument("--fps", type=float, default=30.0)
+    a.add_argument("--start-time", type=float, default=0.0)
+    a.add_argument("--width", type=int, default=640)
+    a.add_argument("--height", type=int, default=360)
+    a.add_argument("--depth", type=int, default=0)
+    a.add_argument("--engine", default="pallas", choices=ENGINES,
+                   help="pallas (dense, any depth) or culled_pallas (depth "
+                        "0) are ported")
+    a.add_argument("--cull-tile", type=int, default=8,
+                   help="pixel tile side of engine culled_pallas")
+    a.add_argument("--out-pattern", default="frame_{:04d}.png")
+    a.add_argument("--gif", default=None,
+                   help="not yet ported (rejected)")
+    a.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+    a.set_defaults(fn=cmd_animate)
 
     c = sub.add_parser("configs", help="list builtin configs")
     c.set_defaults(fn=cmd_configs)

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("primary_hit.cu", "shadow_occlusion.cu", "phong_shade.cu",
-           "phong_shade_bwd.cu", "compact_mask.cu")
+           "phong_shade_bwd.cu", "compact_mask.cu", "dense_hit.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "oglrt_primary_hit_ray": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _P, _P, _P, _P, _P, _P, _P],
     "oglrt_compact_mask": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "oglrt_dense_hit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P, _P],
     "oglrt_shadow_occlusion": [_P, _P, _P, ctypes.c_uint, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "oglrt_phong_shade": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P,

@@ -29,6 +29,8 @@ import torch
 MISS_T = 10000.0
 # Index of refraction of open space.
 AIR_IOR = 1.0
+# Global time scale applied to scene/camera animation.
+TIME_SCALE = 0.4
 
 
 class Materials(NamedTuple):
@@ -216,6 +218,49 @@ def make_scene(spheres=None, boxes=None, planes=None, materials=None,
         materials=materials,
         lights=lights,
     )
+
+
+# ---------------------------------------------------------------------------
+# The reference's material and light constants, kept as plain data so that
+# port-fidelity scenes (models/animated.py) can be assembled from them
+# ---------------------------------------------------------------------------
+
+REF_MATERIALS = {
+    # name -> dict; order of fields mirrors the GLSL Material initializers
+    "material1": dict(ambient=1.0, diffuse=(0.5, 0.0, 0.0, 1.0), specular=1.0,
+                      shininess=4.0, emissive=0.0, reflectivity=1.0,
+                      transparency=0.0, refraction_index=1.5),
+    "material2": dict(ambient=1.0, diffuse=(0.3, 0.6, 0.3, 1.0), specular=1.0,
+                      shininess=4.0, emissive=0.0, reflectivity=1.0,
+                      transparency=0.0, refraction_index=1.5),
+    "red_glass": dict(ambient=1.0, diffuse=(1.0, 0.0, 0.0, 1.0), specular=1.0,
+                      shininess=10.0, emissive=0.0, reflectivity=0.8,
+                      transparency=0.4, refraction_index=1.5),
+    "green_glass": dict(ambient=1.0, diffuse=(0.0, 1.0, 0.0, 1.0),
+                        specular=1.0, shininess=10.0, emissive=0.0,
+                        reflectivity=0.4, transparency=0.6,
+                        refraction_index=1.5),
+    "blue_glass": dict(ambient=1.0, diffuse=(0.0, 0.0, 1.0, 1.0), specular=1.0,
+                       shininess=10.0, emissive=0.0, reflectivity=0.4,
+                       transparency=0.6, refraction_index=1.5),
+    "mirror": dict(ambient=1.0, diffuse=(0.6, 0.6, 0.6, 1.0), specular=1.0,
+                   shininess=4.0, emissive=0.0, reflectivity=1.0,
+                   transparency=0.0, refraction_index=1.0),
+    "wall": dict(ambient=0.5, diffuse=0.4, specular=0.3, shininess=3.0,
+                 emissive=0.0, reflectivity=0.3, transparency=0.0,
+                 refraction_index=1.0),
+}
+
+REF_LIGHTS = [
+    # World ambient light (its position still spawns shadow rays in the
+    # reference)
+    dict(position=(0.1, 0.1, 0.1), ambient=0.3, diffuse=0.0, specular=0.0),
+    # Point Light #1 (white)
+    dict(position=(7.0, 7.0, 2.0), ambient=0.05, diffuse=1.0, specular=1.0),
+    # Point Light #2 (red)
+    dict(position=(3.0, -3.0, 4.0), ambient=0.05,
+         diffuse=(1.0, 0.0, 0.0, 1.0), specular=(1.0, 0.0, 0.0, 1.0)),
+]
 
 
 # ---------------------------------------------------------------------------

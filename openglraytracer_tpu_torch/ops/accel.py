@@ -35,6 +35,8 @@ import torch
 
 from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import Scene
+from openglraytracer_tpu_torch.ops.geometry import (box_rotation,
+                                                    winner_backward)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS, material_table
@@ -467,11 +469,9 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     ``culled_pallas_geometry_op``).
 
     Each ray's winner parameters are gathered through the (T, K) survivor
-    lists, one candidate per ray is replayed (geometry._winner_recompute)
-    and differentiated with torch.autograd, and the per-ray cotangents are
-    added back through the same lists. Box rotations are differentiated per
-    box through euler_rotation_3x3b, not per ray. On a miss the forward's
-    p is the origin, so p's cotangent goes to the origins.
+    lists, one candidate per ray is replayed and differentiated
+    (geometry.winner_backward, shared with the dense engine's backward),
+    and the per-ray cotangents are added back through the same lists.
 
     Winner overflow (a divergence from the reference): a ray whose winner
     is a sphere (box) but whose j_local (jb_local) is -1 lost its winner
@@ -487,13 +487,8 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     Returns (g_center (N, 3), g_radius (N,), g_mins, g_maxs, g_position,
     g_angles (M, 3), g_normal (P, 3), g_offset (P,), g_origins, g_dirs);
     the last two are None unless need_rays."""
-    from openglraytracer_tpu_torch.ops.geometry import _winner_recompute
-    from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
-
-    sph, box, pln = scene.spheres, scene.boxes, scene.planes
-    n_sph, n_box, n_pln = sph.count, box.count, pln.count
-    r_total = origins.shape[0]
-    dtype, device = origins.dtype, origins.device
+    sph, box = scene.spheres, scene.boxes
+    n_sph, n_box = sph.count, box.count
 
     idx = hit.obj_id
     hm = hit.hit
@@ -513,96 +508,34 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
         is_sph = is_sph & ~lost
         is_box = is_box & ~lost
 
-    if n_sph:
-        win = _winner_rows(torch.cat([sph.center, sph.radius[:, None]], -1),
-                           aux.p_idx, aux.j_local)          # (R, 4)
-        c = win[:, 0:3]
-        r = torch.where(is_sph, win[:, 3], 1.0)
-    else:
-        c = torch.zeros_like(origins)
-        r = torch.ones(r_total, dtype=dtype, device=device)
-
-    box_params = None
+    sph_rows = (_winner_rows(torch.cat([sph.center, sph.radius[:, None]], -1),
+                             aux.p_idx, aux.j_local) if n_sph else None)
+    box_rows = None
     if n_box:
-        with torch.enable_grad():
-            angles = box.angles.detach().requires_grad_()
-            rot_table = euler_rotation_3x3b(angles).reshape(n_box, 9)
+        angles, rot_table = box_rotation(box)
         btab = torch.cat([box.mins, box.maxs, box.position,
                           rot_table.detach()], dim=-1)     # (M, 18)
-        winb = _winner_rows(btab, aux.b_idx, aux.jb_local)  # (R, 18)
-        box_params = [winb[:, 0:3], winb[:, 3:6], winb[:, 6:9],
-                      winb[:, 9:18].reshape(-1, 3, 3)]
+        box_rows = _winner_rows(btab, aux.b_idx, aux.jb_local)
 
-    if n_pln:
-        pid = torch.clamp(idx - n_sph - n_box, 0, n_pln - 1)
-        pn = torch.index_select(pln.normal, 0, pid)
-        poff = torch.index_select(pln.offset, 0, pid)
-    else:
-        pid = torch.zeros_like(idx)
-        pn = torch.zeros_like(origins)
-        pn[:, 2] = 1.0
-        poff = torch.zeros(r_total, dtype=dtype, device=device)
-
-    # a miss's p is its origin; a lost winner's ray gets nothing
-    gp_direct_o = torch.where(hm[:, None], 0.0, gp)
-    if lost is not None:
-        hm = hm & ~lost
-    live = hm[:, None]
-    gt = torch.where(hm, gt, 0.0)
-    gn = torch.where(live, gn, 0.0)
-    gp = torch.where(live, gp, 0.0)
-
-    # replay one candidate per ray and take its VJP
-    inputs = [c, r, pn, poff] + (box_params or []) \
-        + ([origins, dirs] if need_rays else [])
-    with torch.enable_grad():
-        leaves = [x.detach().requires_grad_() for x in inputs]
-        o_, d_ = (leaves[-2:] if need_rays
-                  else (origins.detach(), dirs.detach()))
-        bp = leaves[4:8] if n_box else None
-        t, p, n = _winner_recompute(leaves[0], leaves[1], leaves[2],
-                                    leaves[3], o_, d_, is_sph, hit.inside,
-                                    hm, box_params=bp, is_box=is_box)
-        grads = torch.autograd.grad((t, p, n), leaves, (gt, gp, gn),
-                                    allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)]
-    gc, gr, gpn, gpoff = grads[:4]
+    g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
+        scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
+        gt, gp, gn, need_rays, lost)
 
     if n_sph:
-        contrib = torch.where(is_sph[:, None],
-                              torch.cat([gc, gr[:, None]], -1), 0.0)
-        g_sph = _scatter_winner_rows(contrib, aux.p_idx, aux.j_local, n_sph)
+        g_sph = _scatter_winner_rows(g_sph_r, aux.p_idx, aux.j_local, n_sph)
         g_center, g_radius = g_sph[:, :3], g_sph[:, 3]
     else:
         g_center, g_radius = torch.zeros_like(sph.center), \
             torch.zeros_like(sph.radius)
 
     if n_box:
-        gbm, gbx, gbp, gbrot = grads[4:8]
-        g_brow = torch.where(is_box[:, None], torch.cat(
-            [gbm, gbx, gbp, gbrot.reshape(-1, 9)], dim=-1), 0.0)
-        g_box = _scatter_winner_rows(g_brow, aux.b_idx, aux.jb_local, n_box)
+        g_box = _scatter_winner_rows(g_box_r, aux.b_idx, aux.jb_local, n_box)
         (g_angles,) = torch.autograd.grad(rot_table, angles, g_box[:, 9:18])
         g_mins, g_maxs, g_pos = g_box[:, 0:3], g_box[:, 3:6], g_box[:, 6:9]
     else:
         g_mins, g_maxs, g_pos, g_angles = (torch.zeros_like(x) for x in (
             box.mins, box.maxs, box.position, box.angles))
 
-    if n_pln:
-        pln_mask = hm & ~is_sph & ~is_box
-        g_pln = torch.where(pln_mask[:, None],
-                            torch.cat([gpn, gpoff[:, None]], -1), 0.0)
-        g_pln = torch.zeros((n_pln, 4), dtype=dtype, device=device) \
-            .index_add_(0, pid, g_pln)
-        g_normal, g_offset = g_pln[:, :3], g_pln[:, 3]
-    else:
-        g_normal, g_offset = torch.zeros_like(pln.normal), \
-            torch.zeros_like(pln.offset)
-
-    go = gd = None
-    if need_rays:
-        go, gd = grads[-2] + gp_direct_o, grads[-1]
     return (g_center, g_radius, g_mins, g_maxs, g_pos, g_angles, g_normal,
             g_offset, go, gd)
 

@@ -57,25 +57,14 @@ from openglraytracer_tpu_torch.ops.accel import (
     sphere_vs_cone,
     tile_cones,
 )
+from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
+                                                    _with_leaves)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
-                                                     INF_T, Hit)
+                                                     INF_T, Hit, _fma,
+                                                     _inv_safe)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS
 
 SPH_COLS, BOX_COLS, PLN_COLS = 8, 24, 16
-
-
-def _inv_safe(x):
-    """Sign-preserving 1/x, |x| clamped away from 0."""
-    xs = torch.where(torch.abs(x) < _DIV_EPS,
-                     torch.where(x < 0, -_DIV_EPS, _DIV_EPS), x)
-    return 1.0 / xs
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once, as the kernel's fmaf: the float32 product is
-    exact in float64, so only the sum rounds (the float64 -> float32 double
-    rounding differs from fmaf on a tie, about once in 2^29)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 # ---------------------------------------------------------------------------
@@ -853,22 +842,6 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
 # ---------------------------------------------------------------------------
 # Differentiable op: forward on kernels A and B, analytic winner backward
 # ---------------------------------------------------------------------------
-
-_N_HIT = len(Hit._fields)
-# the scene leaves that carry gradients, in the order the op takes them
-_GEOMETRY_LEAVES = (("spheres", "center"), ("spheres", "radius"),
-                    ("boxes", "mins"), ("boxes", "maxs"),
-                    ("boxes", "position"), ("boxes", "angles"),
-                    ("planes", "normal"), ("planes", "offset"))
-
-
-def _with_leaves(scene: Scene, leaves) -> Scene:
-    parts = {}
-    for (part, field), x in zip(_GEOMETRY_LEAVES, leaves):
-        parts.setdefault(part, {})[field] = x
-    return scene._replace(**{part: getattr(scene, part)._replace(**fields)
-                             for part, fields in parts.items()})
-
 
 class _CulledGeometryOp(torch.autograd.Function):
     """Forward: culled_geometry. Backward: accel._culled_bwd. Takes the

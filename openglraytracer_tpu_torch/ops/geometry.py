@@ -1,27 +1,37 @@
-"""Winner replay: the (t, p, n) of each ray's winning object, recomputed from
-that object's own parameters as a plain differentiable function.
+"""Winner replay and the analytic backward of the geometry stage.
 
-Port of the replay functions of ``openglraytracer_tpu/ops/geometry.py``
-(``_sphere_recompute``, ``_box_recompute``, ``_plane_recompute`` and
-``_winner_recompute``). The gradient of a hit record with respect to the
-scene flows only through each ray's winner: the argmin over candidates is
-piecewise constant and occlusion is binary. So the analytic backward of the
-culled narrow phase (``ops/accel.py _culled_bwd``) replays one candidate per
-ray with the forward's discrete decisions frozen (winner, inside flag, hit
-mask) and differentiates the replay with ``torch.autograd``.
+Port of ``openglraytracer_tpu/ops/geometry.py``. The gradient of a hit
+record with respect to the scene flows only through each ray's winner: the
+argmin over candidates is piecewise constant and occlusion is binary. So the
+backward gathers each ray's winning object, replays one candidate per ray
+with the forward's discrete decisions frozen (winner, inside flag, hit mask;
+``_sphere_recompute``, ``_box_recompute``, ``_plane_recompute``,
+``_winner_recompute``), differentiates the replay with ``torch.autograd``
+and adds the per-ray cotangents back into the objects: O(R) work, not
+O(R N).
+
+``winner_backward`` is that replay, its VJP and the masking, shared by the
+two engines; each brings its own gather and scatter of the winners' rows.
+The culled engine's (``ops/accel.py _culled_bwd``) runs through the (T, K)
+survivor lists; the dense engine's (``ops/dense.py _dense_bwd``) through
+the global object tables, with ``index_select`` and ``index_add_``. The
+scene leaves both engines' differentiable ops take (``_GEOMETRY_LEAVES``)
+are defined here too, so this module depends on neither engine.
 
 The box replay is the slab test of the forward restricted to one box per
 ray; its face pick compares the replay's t with the replay's own slab
-boundaries, so it is consistent by construction. The dense ``geometry_op``
-of that module waits for the dense engines (see ROADMAP.md).
+boundaries, so it is consistent by construction. Box angles are
+differentiated per box through ``euler_rotation_3x3b``, not per ray.
 """
 
 from __future__ import annotations
 
 import torch
 
-from openglraytracer_tpu_torch.ops.intersect import (_rot_apply,
+from openglraytracer_tpu_torch.models.scene import Scene
+from openglraytracer_tpu_torch.ops.intersect import (Hit, _rot_apply,
                                                      _rot_apply_t, _safe_div)
+from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
 
 
 def _sphere_recompute(c, r, o, d, inside):
@@ -130,3 +140,134 @@ def _winner_recompute(c, r, pn, poff, o, d, is_sph, inside, hit_mask,
     p = torch.where(hm[:, None], p, o)
     n = torch.where(hm[:, None], n, 0.0)
     return t, p, n
+
+
+# ---------------------------------------------------------------------------
+# The shared backward: replay, VJP, masking
+# ---------------------------------------------------------------------------
+
+def box_rotation(boxes):
+    """(angles, rot (M, 9)): a leaf copy of the box angles and their
+    rotation table built from it under autograd, so that a caller can turn
+    cotangents of the table into cotangents of the angles (the per-box
+    angle chain of the backward)."""
+    with torch.enable_grad():
+        angles = boxes.angles.detach().requires_grad_()
+        rot = euler_rotation_3x3b(angles).reshape(boxes.count, 9)
+    return angles, rot
+
+
+def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
+                    sph_rows, box_rows, gt, gp, gn, need_rays: bool,
+                    lost=None):
+    """Per-ray cotangents of each ray's winner, from the cotangents gt (R,),
+    gp (R, 3), gn (R, 3) of hit.t, hit.p and hit.n.
+
+    is_sph / is_box: rays whose winner is a sphere / box (and whose winner
+    row is known). sph_rows (R, 4) [c r] and box_rows (R, 18) [mins maxs
+    pos rot(9)]: the gathered winner rows (None when the scene has none of
+    that kind); planes are gathered here by global object id. lost: rays
+    whose winner is unknown (their cotangents are dropped), or None.
+
+    On a miss the forward's p is the ray origin, so p's cotangent goes to
+    the origin. Returns (g_sph (R, 4), g_box (R, 18), g_normal (P, 3),
+    g_offset (P,), g_origins, g_dirs): the per-ray winner cotangents, zero
+    on rays whose winner is of another kind (None for an absent kind), the
+    planes' cotangents summed with index_add_, and the rays' (None unless
+    need_rays)."""
+    pln = scene.planes
+    n_sph, n_box, n_pln = scene.spheres.count, scene.boxes.count, pln.count
+    r_total = origins.shape[0]
+    dtype, device = origins.dtype, origins.device
+    idx = hit.obj_id
+    hm = hit.hit
+
+    if n_sph:
+        c = sph_rows[:, 0:3]
+        r = torch.where(is_sph, sph_rows[:, 3], 1.0)
+    else:
+        c = torch.zeros_like(origins)
+        r = torch.ones(r_total, dtype=dtype, device=device)
+    box_params = None
+    if n_box:
+        box_params = [box_rows[:, 0:3], box_rows[:, 3:6], box_rows[:, 6:9],
+                      box_rows[:, 9:18].reshape(-1, 3, 3)]
+    if n_pln:
+        pid = torch.clamp(idx - n_sph - n_box, 0, n_pln - 1)
+        pn = torch.index_select(pln.normal, 0, pid)
+        poff = torch.index_select(pln.offset, 0, pid)
+    else:
+        pn = torch.zeros_like(origins)
+        pn[:, 2] = 1.0
+        poff = torch.zeros(r_total, dtype=dtype, device=device)
+
+    # a miss's p is its origin; a lost winner's ray gets nothing
+    gp_direct_o = torch.where(hm[:, None], 0.0, gp)
+    if lost is not None:
+        hm = hm & ~lost
+    live = hm[:, None]
+    gt = torch.where(hm, gt, 0.0)
+    gn = torch.where(live, gn, 0.0)
+    gp = torch.where(live, gp, 0.0)
+
+    # replay one candidate per ray and take its VJP
+    inputs = [c, r, pn, poff] + (box_params or []) \
+        + ([origins, dirs] if need_rays else [])
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        o_, d_ = (leaves[-2:] if need_rays
+                  else (origins.detach(), dirs.detach()))
+        bp = leaves[4:8] if n_box else None
+        t, p, n = _winner_recompute(leaves[0], leaves[1], leaves[2],
+                                    leaves[3], o_, d_, is_sph, hit.inside,
+                                    hm, box_params=bp, is_box=is_box)
+        grads = torch.autograd.grad((t, p, n), leaves, (gt, gp, gn),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    gc, gr, gpn, gpoff = grads[:4]
+
+    g_sph = g_box = None
+    if n_sph:
+        g_sph = torch.where(is_sph[:, None],
+                            torch.cat([gc, gr[:, None]], -1), 0.0)
+    if n_box:
+        gbm, gbx, gbp, gbrot = grads[4:8]
+        g_box = torch.where(is_box[:, None], torch.cat(
+            [gbm, gbx, gbp, gbrot.reshape(-1, 9)], dim=-1), 0.0)
+
+    if n_pln:
+        pln_mask = hm & ~is_sph & ~is_box
+        g_pln = torch.where(pln_mask[:, None],
+                            torch.cat([gpn, gpoff[:, None]], -1), 0.0)
+        g_pln = torch.zeros((n_pln, 4), dtype=dtype, device=device) \
+            .index_add_(0, pid, g_pln)
+        g_normal, g_offset = g_pln[:, :3], g_pln[:, 3]
+    else:
+        g_normal, g_offset = torch.zeros_like(pln.normal), \
+            torch.zeros_like(pln.offset)
+
+    go = gd = None
+    if need_rays:
+        go, gd = grads[-2] + gp_direct_o, grads[-1]
+    return g_sph, g_box, g_normal, g_offset, go, gd
+
+
+# ---------------------------------------------------------------------------
+# The leaves of the engines' differentiable ops
+# ---------------------------------------------------------------------------
+
+_N_HIT = len(Hit._fields)
+# the scene leaves that carry gradients, in the order the op takes them
+_GEOMETRY_LEAVES = (("spheres", "center"), ("spheres", "radius"),
+                    ("boxes", "mins"), ("boxes", "maxs"),
+                    ("boxes", "position"), ("boxes", "angles"),
+                    ("planes", "normal"), ("planes", "offset"))
+
+
+def _with_leaves(scene: Scene, leaves) -> Scene:
+    parts = {}
+    for (part, field), x in zip(_GEOMETRY_LEAVES, leaves):
+        parts.setdefault(part, {})[field] = x
+    return scene._replace(**{part: getattr(scene, part)._replace(**fields)
+                             for part, fields in parts.items()})

@@ -1,10 +1,12 @@
 """Hit record and the numeric guards of the intersection math.
 
 Port of the constants, ``Hit`` and the small helpers of
-``openglraytracer_tpu/ops/intersect.py`` that the culled path and its
-winner replay (``ops/geometry.py``) use. The dense all-objects engine of that
-module is not part of this package yet (see ROADMAP.md); the culled narrow
-phase lives in ``ops/culled.py``.
+``openglraytracer_tpu/ops/intersect.py`` that the culled and dense narrow
+phases (``ops/culled.py``, ``ops/dense.py``) and their winner replay
+(``ops/geometry.py``) use; ``_inv_safe`` and ``_fma`` are the kernels'
+reciprocal and ``fmaf`` as their plain versions compute them. The
+plain-XLA dense engine of that module is not part of this package yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +37,20 @@ def _safe_div(a, b):
     b_safe = torch.where(torch.abs(b) < _DIV_EPS,
                          torch.where(b < 0, -_DIV_EPS, _DIV_EPS), b)
     return a / b_safe
+
+
+def _inv_safe(x):
+    """Sign-preserving 1/x, |x| clamped away from 0."""
+    xs = torch.where(torch.abs(x) < _DIV_EPS,
+                     torch.where(x < 0, -_DIV_EPS, _DIV_EPS), x)
+    return 1.0 / xs
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as the kernel's fmaf: the float32 product is
+    exact in float64, so only the sum rounds (the float64 -> float32 double
+    rounding differs from fmaf on a tie, about once in 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 def _safe_normalize(v, dim=-1):

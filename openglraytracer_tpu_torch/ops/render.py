@@ -1,31 +1,39 @@
-"""The renderer: ``render(scene, camera) -> image`` for engine culled_pallas.
+"""The renderer: ``render(scene, camera) -> image`` for engines pallas and
+culled_pallas.
 
-Port of the ``culled_pallas`` path of ``openglraytracer_tpu/ops/render.py``
-(``trace_rays_fast``, ``render``, ``_apply_bounces``,
-``_trace_child_culled`` and the culled branch of ``_render_jit``). There is
-no jit: these are plain functions that enqueue device work and never wait
-for the device, so a frame (raygen -> image) runs without a host sync once
-the cull specs and the static light and bounce masks are known; they are
-computed on the host, once, outside the frame.
+Port of ``openglraytracer_tpu/ops/render.py`` (``trace_rays_fast``,
+``pick_tracer``, ``render``, ``_apply_bounces``, ``_trace_child_culled``
+and the engine branches of ``_render_jit``). There is no jit: these are
+plain functions that enqueue device work and never wait for the device, so
+a frame (raygen -> image) runs without a host sync once the cull specs and
+the static light and bounce masks are known; they are computed on the
+host, once, outside the frame.
 
-The engine name ``culled_pallas`` names the reference's contract: the cone
-broad phase, then the survivor-list narrow-phase kernels, then the fused
-shade kernel. Here those kernels are CUDA (ops/culled.py, ops/shade.py).
+Two engines, named for the reference's contracts:
+
+  * ``pallas``, the dense engine: every ray against every object in one
+    kernel (kernel 7, ops/dense.py geometry_op), rays
+    in raster order, shaded by the plain-torch ``phong_shade_lit`` with
+    materials gathered by id, as the reference shades this engine in XLA.
+    Bounce children recurse through the same engine.
+  * ``culled_pallas``: the cone broad phase, then the survivor-list
+    narrow-phase kernels, then the fused shade kernel (ops/culled.py,
+    ops/shade.py), rays in tile-major order. Its bounce children take the
+    secondary-ray culled path (``child_cull``: bounce cones, kernel 2 with
+    its hot launch, kernel B) and are shaded by ``phong_shade_lit``.
+    Children without ``child_cull`` run the plain-XLA dense engine in the
+    reference, which is not ported: that raises NotImplementedError (see
+    ROADMAP.md), as do the engines 'xla', 'auto', 'autodiff' and 'culled'.
+    Row blocks, the mirror-chain tracer and the stack bounce engine are not
+    ported either (no parameter selects them here).
 
 Bounces (depth > 0) run the reference's static tree unroll: each level's
 reflection and refraction children are traced for all rays and blended
-``mix(mix(phong, refl, reflectivity), refr, transparency)``. The children
-take the secondary-ray culled path (``child_cull``: bounce cones, kernel 2
-with its hot launch, kernel B) and are shaded by the plain-torch
-``phong_shade_lit``, as the reference shades them with its XLA chain.
-Children without ``child_cull`` run the dense engine in the reference,
-which is not ported: that raises NotImplementedError (see ROADMAP.md), as
-do other engines.
+``mix(mix(phong, refl, reflectivity), refr, transparency)``.
 
 Both functions are differentiable: gradients of the image flow to the
-spheres, boxes and planes through the culled ops' analytic winner backward
-(ops/culled.py) and to the materials and lights through the survivor-routed
-material rows, the shade backward kernel and the children's plain shade.
+spheres, boxes and planes through the analytic winner backward of each
+engine (ops/geometry.winner_backward) and to the materials and lights through the shade.
 A caller that only renders wraps the call in ``torch.no_grad()``.
 """
 
@@ -41,6 +49,7 @@ from openglraytracer_tpu_torch.ops.accel import (cull_hot_p,
                                                  untile_image)
 from openglraytracer_tpu_torch.ops.culled import (bounce_culled_geometry_op,
                                                   culled_geometry_op)
+from openglraytracer_tpu_torch.ops.dense import geometry_op
 from openglraytracer_tpu_torch.ops.raygen import generate_rays
 from openglraytracer_tpu_torch.ops.shade import shade_fused
 from openglraytracer_tpu_torch.ops.shading import (gather_materials,
@@ -51,15 +60,17 @@ from openglraytracer_tpu_torch.ops.shading import (gather_materials,
 from openglraytracer_tpu_torch.ops.transforms import reflect, refract
 
 ENGINE = "culled_pallas"
+DENSE = "pallas"
+ENGINES = (DENSE, ENGINE)
 BOUNCE_EPS = 1.0e-3  # reflection/refraction origin offset along the normal
 
 
 def _check_slice(engine: str, depth: int, child_cull) -> None:
-    if engine != ENGINE:
+    if engine not in ENGINES:
         raise NotImplementedError(
             f"engine '{engine}' is not yet ported; this package renders "
-            f"with engine '{ENGINE}' only; see ROADMAP.md")
-    if depth > 0 and child_cull is None:
+            f"with engines {ENGINES} only; see ROADMAP.md")
+    if engine == ENGINE and depth > 0 and child_cull is None:
         raise NotImplementedError(
             f"depth {depth} without child_cull: dense bounce children (the "
             "dense engine) are not yet ported; pass a child spec from "
@@ -154,15 +165,24 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     with_cull_stats: bool = False,
                     bounce_mask: tuple | None = None,
                     child_cull: tuple | None = None):
-    """Trace tile-major rays (R, 3) sharing one origin: culled narrow phase,
-    survivor-routed materials, fused shade, and with depth > 0 the bounce
-    children. cull = (tile_p, kp, ks[, hot_m[, kb, ksb]]); child_cull =
-    (tile_p, kp, ks, hot_m, kb, ksb[, hot_p]), needed when depth > 0.
+    """Trace rays (R, 3) and shade them, with depth > 0 the bounce children.
+
+    engine 'pallas': any rays; kernel 7 for the geometry, phong_shade_lit,
+    children through the same engine; cull and child_cull are not used.
+    engine 'culled_pallas': tile-major rays sharing one origin; culled
+    narrow phase, survivor-routed materials, fused shade. cull = (tile_p,
+    kp, ks[, hot_m[, kb, ksb]]); child_cull = (tile_p, kp, ks, hot_m, kb,
+    ksb[, hot_p]), needed when depth > 0.
+
     bounce_mask: static (has_refl, has_refr); None reads the material table
     on the host (static_bounce_mask). Returns colors (R, 3), black on
     misses, and with with_cull_stats also a device int32 scalar counting
-    (tile, list) slots that overflowed their static K over every level."""
+    (tile, list) slots that overflowed their static K over every level
+    (always 0 for the dense engine, which drops nothing)."""
     _check_slice(engine, depth, child_cull)
+    if engine == DENSE:
+        return _trace_dense(scene, origins, dirs, depth, with_cull_stats,
+                            bounce_mask)
     if cull is None:
         raise ValueError(
             f"engine='{engine}' needs cull=(tile_p, kp, ks[, hot_m[, kb, "
@@ -184,6 +204,49 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
     return color
 
 
+def _trace_dense(scene: Scene, origins, dirs, depth: int,
+                 with_cull_stats: bool, bounce_mask: tuple | None):
+    """trace_rays_fast for engine 'pallas' (the reference's non-culled
+    branch): geometry_op on kernel 7, which casts every light's shadow ray
+    (so no light mask reaches it), phong_shade_lit with materials gathered
+    by id, and the children through the same engine."""
+    hit, occ = geometry_op(scene, origins, dirs)
+    color = phong_shade_lit(scene, dirs, hit, occ)
+    if depth > 0:
+        if bounce_mask is None:
+            bounce_mask = static_bounce_mask(scene)
+        color = _apply_bounces(
+            scene, dirs, hit, color, depth,
+            lambda o, d, dd, _act: _trace_dense(scene, o, d, dd, False,
+                                                bounce_mask),
+            bounce_mask)
+    color = torch.where(hit.hit[:, None], color, 0.0)
+    if with_cull_stats:     # the dense engine drops no object
+        return color, torch.zeros((), dtype=torch.int32,
+                                  device=color.device)
+    return color
+
+
+def pick_tracer(scene: Scene, engine: str = DENSE,
+                shadow_lights: tuple | None = None,
+                bounce_mask: tuple | None = None):
+    """The trace function of an engine: tracer(scene, origins, dirs,
+    depth=0) -> colors. 'pallas' is the dense engine (kernel 7 forward, the
+    analytic O(R) backward); 'auto' and 'xla' (the plain-XLA dense engine)
+    and 'autodiff' are not yet ported and raise (see ROADMAP.md). scene is
+    unused, as in the reference's signature (the tracer takes its own)."""
+    if engine != DENSE:
+        raise NotImplementedError(
+            f"pick_tracer engine '{engine}' is not yet ported; this package "
+            f"traces with engine '{DENSE}' here (see ROADMAP.md)")
+
+    def tracer(s, o, d, depth=0):
+        return trace_rays_fast(s, o, d, depth, engine=DENSE,
+                               shadow_lights=shadow_lights,
+                               bounce_mask=bounce_mask)
+    return tracer
+
+
 def _check_device(scene: Scene, camera: Camera, device: torch.device):
     for part in (*scene, camera):
         for x in part:
@@ -200,7 +263,9 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
            child_cull: tuple | None = None):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
 
-    cull = ((tile_h, tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it with
+    engine 'pallas' traces the rays in raster order through the dense
+    engine, at any depth; it needs no cull spec. engine 'culled_pallas'
+    needs cull = ((tile_h, tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it with
     ops/accel.suggest_cull_config (counts above K drop objects and are
     reported through with_cull_stats). depth > 0 needs child_cull =
     ((tile_h, tile_w), kp, ks, hot_m, kb, ksb[, hot_p]) with the parent's
@@ -208,20 +273,29 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     bounce_mask: static masks; None reads the light (material) table on
     the host, which waits for the device — pass them to keep the frame
     sync-free. with_cull_stats: return (image, overflow) where overflow is
-    a device int32 scalar counting K overflows over every bounce level."""
+    a device int32 scalar counting K overflows over every bounce level (0
+    for the dense engine)."""
     _check_slice(engine, depth, child_cull)
+    device = (torch.device(device) if device is not None
+              else camera.position.device)
+    _check_device(scene, camera, device)
+    if bounce_mask is None:
+        bounce_mask = static_bounce_mask(scene) if depth > 0 \
+            else (True, True)
+    if engine == DENSE:
+        origins, dirs = generate_rays(camera, height, width)
+        out = _trace_dense(scene, origins.reshape(-1, 3),
+                           dirs.reshape(-1, 3), depth, with_cull_stats,
+                           bounce_mask)
+        if with_cull_stats:
+            return out[0].reshape(height, width, 3), out[1]
+        return out.reshape(height, width, 3)
     if cull is None:
         raise ValueError(
             f"engine='{engine}' needs cull=((th, tw), kp, ks[, hot_m[, kb, "
             "ksb]])")
-    device = (torch.device(device) if device is not None
-              else camera.position.device)
-    _check_device(scene, camera, device)
     if shadow_lights is None:
         shadow_lights = static_shadow_mask(scene)
-    if bounce_mask is None:
-        bounce_mask = static_bounce_mask(scene) if depth > 0 \
-            else (True, True)
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
     cc = None
     if depth > 0:

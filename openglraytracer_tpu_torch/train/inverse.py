@@ -2,13 +2,15 @@
 descent.
 
 Port of ``openglraytracer_tpu/train/inverse.py`` for the single-device fit
-on the hard engine ``culled_pallas``, at depth 0 or, with a bounce-child
-cull spec (``FitConfig.child_cull``), with bounces. Trainable leaves are chosen
-by dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
+on the hard engines: ``culled_pallas``, at depth 0 or, with a bounce-child
+cull spec (``FitConfig.child_cull``), with bounces; and the dense engine
+``pallas`` at any depth, with no cull spec. Trainable leaves are chosen by
+dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
-a render, and its gradient runs through the shade backward kernel and the
-culled op's analytic winner backward. ``torch.optim`` takes the place of
-optax: parameters are leaf tensors updated in place by the optimizer.
+a render, and its gradient runs through the shade's backward and the
+engine's analytic winner backward (ops/geometry.py). ``torch.optim`` takes
+the place of optax: parameters are leaf tensors updated in place by the
+optimizer.
 
 Not ported yet (see ROADMAP.md), and rejected with a message: the
 tile-sharded fit (``mesh``, slice 8), and the soft-coverage forward
@@ -26,7 +28,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from openglraytracer_tpu_torch.models.scene import Camera, Scene
-from openglraytracer_tpu_torch.ops.render import ENGINE, render
+from openglraytracer_tpu_torch.ops.render import DENSE, ENGINE, render
 
 DEFAULT_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse")
 
@@ -67,8 +69,10 @@ class FitConfig:
     trainable: tuple = DEFAULT_TRAINABLE
     log_every: int = 10
     engine: str = ENGINE
-    cull: tuple | None = None       # ((th, tw), kp, ks[, hot_m[, kb, ksb]])
-    child_cull: tuple | None = None  # bounce-child spec, needed at depth > 0
+    # culled_pallas only: ((th, tw), kp, ks[, hot_m[, kb, ksb]]), and the
+    # bounce-child spec, needed at depth > 0
+    cull: tuple | None = None
+    child_cull: tuple | None = None
     log_path: str | None = None     # JSONL sink for fit()'s MetricsLogger
     # not ported yet: setting any of these raises (see ROADMAP.md)
     checkpoint_dir: str | None = None
@@ -90,6 +94,12 @@ def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
     if isinstance(camera, (list, tuple)) and not isinstance(camera, Camera):
         raise ValueError("multi-view fitting is a soft-stage feature "
                          "(hard cull specs are single-camera)")
+    if cfg.engine == DENSE:
+        return
+    if cfg.engine != ENGINE:
+        raise NotImplementedError(
+            f"engine '{cfg.engine}' is not yet ported; fit with "
+            f"'{ENGINE}' or '{DENSE}' (see ROADMAP.md)")
     if cfg.cull is None:
         raise ValueError(f"engine '{cfg.engine}' needs FitConfig.cull; size "
                          "it with ops/accel.suggest_cull_config")

@@ -2,18 +2,24 @@
 device time.
 
     python scripts/profile_torch_c3.py [--scene c3_grid64|c5_grid4096|
-        c4_mirror4096] [--frames 5] [--train] [--ops] [--out-dir DIR]
+        c4_mirror4096|animated_obb] [--engine culled_pallas|pallas]
+        [--depth D] [--frames 5] [--train] [--ops] [--out-dir DIR]
 
 Renders the scene (c3_grid64: 1024x1024, depth 0, 64x64 tiles;
 c5_grid4096: 2048x2048, depth 0, 32x32 tiles; c4_mirror4096: 1024x1024,
-depth 1 with culled bounce children, 32x32 tiles; engine culled_pallas) on
-the GPU under torch.profiler — or, with --train, runs its training step
-(forward, backward and an SGD step of mean(img^2) with respect to
-spheres.center, spheres.radius and materials.diffuse) — and prints the
-device time by kernel name, the wall time per frame or step between CUDA
-events, and the device's busy share of it (the rest is the device waiting
-on the host's launches). With --out-dir it also writes the Chrome trace
-there.
+depth 1 with culled bounce children, 32x32 tiles; animated_obb: the
+reference's animated OBB world at time 1.2, 1280x720, depth 0; --depth
+overrides the depth) with engine culled_pallas or, with --engine pallas,
+the dense engine (kernel 7; no cull spec, children through the same
+engine) on the GPU under torch.profiler — or, with --train, runs its
+training step (forward, backward and an SGD step of mean(img^2) with
+respect to spheres.center, spheres.radius and materials.diffuse, and for
+animated_obb also boxes.position and boxes.angles) — and prints the device
+time by kernel name, the wall time per frame or step between CUDA events,
+and the device's busy share of it (the rest is the device waiting on the
+host's launches). With --out-dir it also writes the Chrome trace there.
+animated_obb takes only --engine pallas (its children need the dense
+engine), c5_grid4096 and c4_mirror4096 only culled_pallas.
 """
 
 from __future__ import annotations
@@ -29,12 +35,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 # the cull tile side of each scene, as the reference's benchmark sizes it
-TILES = {"c3_grid64": 64, "c5_grid4096": 32, "c4_mirror4096": 32}
+TILES = {"c3_grid64": 64, "c5_grid4096": 32, "c4_mirror4096": 32,
+         "animated_obb": None}
+OBB_TIME = 1.2
+OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
+                 "boxes.position", "boxes.angles")
 
 
 def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
+    from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
     from openglraytracer_tpu_torch.ops.accel import (
         suggest_child_cull_config, suggest_cull_config)
@@ -44,6 +55,10 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", default="c3_grid64", choices=list(TILES))
+    p.add_argument("--engine", default="culled_pallas",
+                   choices=["culled_pallas", "pallas"])
+    p.add_argument("--depth", type=int, default=None,
+                   help="overrides the scene's depth")
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile the training step instead of the frame")
@@ -56,23 +71,39 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
 
     dev = torch.device("cuda", 0)
-    builder, h, w, depth = BENCH_CONFIGS[args.scene]
+    dense = args.engine == "pallas"
+    if args.scene == "animated_obb":
+        if not dense:
+            raise SystemExit("animated_obb takes only --engine pallas")
+        (scene, cam), h, w, depth = (reference_frame(OBB_TIME, device=dev),
+                                     720, 1280, 0)
+        trainable = OBB_TRAINABLE
+    else:
+        builder, h, w, depth = BENCH_CONFIGS[args.scene]
+        scene, cam = builder(device=dev)
+        trainable = OBB_TRAINABLE[:3]
+    if args.depth is not None:
+        depth = args.depth
+    if dense and args.scene not in ("c3_grid64", "animated_obb"):
+        raise SystemExit(f"{args.scene} takes only --engine culled_pallas")
     tile = TILES[args.scene]
-    scene, cam = builder(device=dev)
     lights = static_shadow_mask(scene)
-    spec = suggest_cull_config(scene, cam, h, w, (tile, tile),
-                               shadow_lights=lights)
-    child = (suggest_child_cull_config(scene, cam, h, w, spec,
-                                       shadow_lights=lights)
-             if depth else None)
+    spec = child = None
+    if not dense:
+        spec = suggest_cull_config(scene, cam, h, w, (tile, tile),
+                                   shadow_lights=lights)
+        child = (suggest_child_cull_config(scene, cam, h, w, spec,
+                                           shadow_lights=lights)
+                 if depth else None)
     bmask = static_bounce_mask(scene) if depth else (True, True)
 
     if args.train:
         from openglraytracer_tpu_torch.train.inverse import (FitConfig,
                                                              make_train_step)
         init_fn, step_fn = make_train_step(
-            cam, FitConfig(height=h, width=w, depth=depth, cull=spec,
-                           child_cull=child),
+            cam, FitConfig(height=h, width=w, depth=depth,
+                           engine=args.engine, cull=spec, child_cull=child,
+                           trainable=trainable),
             optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-7))
         params, opt = init_fn(scene)
         target = torch.zeros((h, w, 3), device=dev)
@@ -82,7 +113,8 @@ def main(argv=None):
     else:
         def run():
             with torch.no_grad():
-                return render(scene, cam, h, w, depth=depth, cull=spec,
+                return render(scene, cam, h, w, depth=depth,
+                              engine=args.engine, cull=spec,
                               child_cull=child, shadow_lights=lights,
                               bounce_mask=bmask)
     what = "step" if args.train else "frame"
@@ -107,7 +139,8 @@ def main(argv=None):
                     // args.frames, e.key) for e in events), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{torch.cuda.get_device_name(0)}; {args.scene} {w}x{h} depth "
-          f"{depth}; spec {spec}" + (f"; child spec {child}" if child else ""))
+          f"{depth}; engine {args.engine}; spec {spec}"
+          + (f"; child spec {child}" if child else ""))
     print(f"{what} wall {wall_ms:.4f} ms (CUDA events, profiler on); device "
           f"busy {busy:.4f} ms = {100 * busy / wall_ms:.1f}%; "
           f"{sum(r[1] for r in rows)} kernel launches per {what}")
@@ -125,7 +158,9 @@ def main(argv=None):
                   f"{e.count // args.frames:6d}  {e.key} {e.input_shapes}")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        path = os.path.join(args.out_dir, f"{args.scene}_{what}_trace.json")
+        path = os.path.join(
+            args.out_dir,
+            f"{args.scene}_{args.engine}_d{depth}_{what}_trace.json")
         prof.export_chrome_trace(path)
         print(f"wrote {path}")
 

@@ -31,6 +31,7 @@ def test_port_imports_no_jax():
     code = ("import sys, openglraytracer_tpu_torch, "
             "openglraytracer_tpu_torch.cli, openglraytracer_tpu_torch.kernels;"
             "import openglraytracer_tpu_torch.ops.render;"
+            "import openglraytracer_tpu_torch.models.animated;"
             "import openglraytracer_tpu_torch.train.inverse;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openglraytracer_tpu.')) or "
@@ -116,7 +117,7 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--engine", "xla"], ["--engine", "auto"], ["--child-cull"],
     ["--bounce", "stack"], ["--depth", "1"], ["--cull-tile", "24"],
-    ["--time"]])
+    ["--time"], ["--engine", "pallas", "--child-cull"]])
 def test_cli_rejects_unserved_flags(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["render", "--scene", "c1_sphere_plane", "--width", "32",
@@ -159,6 +160,74 @@ def test_cli_fit_checks_the_tile(tmp_path):
     with pytest.raises(SystemExit, match="must divide"):
         cli.main(["fit", "--device", "cpu", "--width", "48", "--height",
                   "48", "--cull-tile", "32"])
+
+
+def test_cli_render_pallas_cpu(tmp_path, capsys):
+    """render --engine pallas: the dense engine needs no cull spec; the PNG
+    holds the port's image."""
+    from PIL import Image
+    out = tmp_path / "c3p.png"
+    cli.main(["render", "--scene", "c3_grid64", "--engine", "pallas",
+              "--width", "48", "--height", "32", "--device", "cpu", "--out",
+              str(out)])
+    assert "cull:" not in capsys.readouterr().out
+    png = np.asarray(Image.open(out).convert("RGB"))
+    scene, cam = sphere_grid_scene(8)
+    img = render(scene, cam, 32, 48, engine="pallas")
+    np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
+
+
+def test_cli_animate_cpu(tmp_path, capsys):
+    """animate: a PNG per frame of the reference's animated world, at
+    start_time + i / fps, depth 1 through the dense engine; the frames
+    move."""
+    from PIL import Image
+    pattern = str(tmp_path / "frame_{:02d}.png")
+    cli.main(["animate", "--frames", "2", "--fps", "4", "--width", "32",
+              "--height", "18", "--depth", "1", "--device", "cpu",
+              "--out-pattern", pattern])
+    printed = capsys.readouterr().out
+    assert "frame 1: t=0.250s" in printed
+    frames = [np.asarray(Image.open(pattern.format(i)).convert("RGB"))
+              for i in range(2)]
+    assert frames[0].shape == (18, 32, 3)
+    assert (frames[0] != frames[1]).any()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gif", "x.gif"], ["--engine", "xla"], ["--engine", "culled"],
+    ["--engine", "culled_pallas", "--depth", "1"]])
+def test_cli_animate_rejects_unported(flags, tmp_path):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["animate", "--frames", "1", "--width", "32", "--height",
+                  "16", "--device", "cpu", "--out-pattern",
+                  str(tmp_path / "f{}.png")] + flags)
+    assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+
+
+def test_cli_animate_culled_cpu(tmp_path, capsys):
+    """animate --engine culled_pallas at depth 0: one cull spec, rechecked
+    per frame."""
+    pattern = str(tmp_path / "c{}.png")
+    cli.main(["animate", "--frames", "2", "--width", "32", "--height",
+              "16", "--engine", "culled_pallas", "--device", "cpu",
+              "--out-pattern", pattern])
+    assert "cull: tile=8" in capsys.readouterr().out
+    assert (tmp_path / "c1.png").stat().st_size > 0
+
+
+def test_cli_fit_pallas_cpu(capsys):
+    """fit --engine pallas: the synthetic fit through the dense engine, at
+    depth 1 (no child spec needed); the loss falls."""
+    cli.main(["fit", "--engine", "pallas", "--device", "cpu",
+              "--grid-side", "2", "--width", "32", "--height", "32",
+              "--depth", "1", "--steps", "5"])
+    printed = capsys.readouterr().out
+    assert "cull:" not in printed
+    line = next(x for x in printed.splitlines() if x.startswith("fit:"))
+    first, final = (float(line.split(w)[1].split(",")[0])
+                    for w in (" first ", " final "))
+    assert final < first
 
 
 def test_cli_device_cuda_needs_a_card(tmp_path):

@@ -375,3 +375,113 @@ def test_depth1_frame_launches_and_is_sync_free(dev, monkeypatch):
     assert int(ovf) == 0
     close = (img - ref).abs().amax(dim=-1) <= 1.0 / 255.0
     assert float(close.float().mean()) >= 0.999
+
+
+def _dense_inputs(monkeypatch, scene, cam, h, w, depth):
+    """The arguments of every dense_hit call of a render (the primary rays,
+    then the bounce children at depth 1), and its image."""
+    from openglraytracer_tpu_torch.ops import dense
+    seen = []
+    fn = dense.dense_hit
+
+    def spy(*a):
+        seen.append(a)
+        return fn(*a)
+    monkeypatch.setattr(dense, "dense_hit", spy)
+    with torch.no_grad():
+        img = render(scene, cam, h, w, depth=depth, engine="pallas")
+    monkeypatch.undo()
+    return seen, img
+
+
+@pytest.mark.parametrize("which", ["c3", "obb"])
+def test_dense_kernel_matches_plain(dev, monkeypatch, which):
+    """Kernel 7 against dense_hit_plain on the rays a render hands it (c3
+    at 256x256; the OBB world at 320x180, depth 1: the primary rays and
+    both sets of children, zero-direction TIR children included). Both
+    round every op alike (--fmad=false, the same fmaf written out and
+    emulated): t, n, inside and obj_id equal, and occlusion equal where the
+    ray hit."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.ops import dense
+    if which == "c3":
+        scene, cam = sphere_grid_scene(8, device=dev)
+        seen, _ = _dense_inputs(monkeypatch, scene, cam, 256, 256, 0)
+    else:
+        scene, cam = reference_frame(1.2, device=dev)
+        seen, _ = _dense_inputs(monkeypatch, scene, cam, 180, 320, 1)
+    assert len(seen) == (1 if which == "c3" else 3)
+    for a in seen:
+        kernels.LAUNCHES.clear()
+        got = dense.dense_hit(*a)
+        assert kernels.LAUNCHES["dense_hit"] == 1
+        want = dense.dense_hit_plain(*a)
+        hit = want[0] < 1e4
+        for x, y in zip(got[:4], want[:4]):
+            assert torch.equal(x, y)
+        assert torch.equal(got[4] & hit, want[4] & hit)
+
+
+def test_dense_frame_and_step_launch_and_are_sync_free(dev):
+    """Engine pallas: one dense_hit launch per depth-0 frame of c3, three
+    per depth-1 frame of the OBB world (primary, reflection and refraction
+    children) and as many per training step; neither waits for the host;
+    the step's gradients are finite and non-zero, box leaves included."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    for builder, h, w, depth, trainable, n in (
+            (lambda: sphere_grid_scene(8, device=dev), 128, 128, 0,
+             inverse.DEFAULT_TRAINABLE, 1),
+            (lambda: reference_frame(0.8, device=dev), 72, 128, 1,
+             inverse.DEFAULT_TRAINABLE + ("boxes.position", "boxes.angles"),
+             3)):
+        scene, cam = builder()
+        bmask = shading.static_bounce_mask(scene) if depth else (True, True)
+        kw = dict(depth=depth, engine="pallas", bounce_mask=bmask)
+        with torch.no_grad():
+            render(scene, cam, h, w, **kw)
+            torch.cuda.synchronize()
+            kernels.LAUNCHES.clear()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = render(scene, cam, h, w, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert dict(kernels.LAUNCHES) == {"dense_hit": n}
+        assert bool(torch.isfinite(img).all())
+        cfg = inverse.FitConfig(height=h, width=w, depth=depth,
+                                engine="pallas", trainable=trainable)
+        init_fn, step_fn = inverse.make_train_step(
+            cam, cfg, optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-7))
+        params, opt = init_fn(scene)
+        target = torch.zeros((h, w, 3), device=dev)
+        step_fn(params, opt, scene, target)
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, _, loss, ovf = step_fn(params, opt, scene, target)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert dict(kernels.LAUNCHES) == {"dense_hit": n}
+        assert int(ovf) == 0 and bool(torch.isfinite(loss))
+        for k, v in params.items():
+            assert bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()), k
+
+
+def test_dense_wrapper_rejects_bad_inputs(dev):
+    from openglraytracer_tpu_torch.ops import dense
+    rays = torch.zeros((8, 3), device=dev)
+    sph = torch.zeros((2, 4), device=dev)
+    box = torch.zeros((0, 18), device=dev)
+    pln = torch.zeros((1, 4), device=dev)
+    lg = torch.zeros((2, 3), device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        dense.dense_hit(rays, rays, torch.zeros((2, 8), device=dev), box,
+                        pln, lg)
+    with pytest.raises(TypeError, match="dtype"):
+        dense.dense_hit(rays, rays.double(), sph, box, pln, lg)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense.dense_hit(rays, torch.zeros((3, 8), device=dev).T, sph, box,
+                        pln, lg)
+    with pytest.raises(ValueError, match="on cpu"):
+        dense.dense_hit(rays.cpu(), rays, sph, box, pln, lg)

@@ -135,3 +135,31 @@ def test_generate_rays_matches_jax(builder):
     np.testing.assert_allclose(np_(td), np_(jd), rtol=0, atol=2e-5)
     np.testing.assert_allclose(np.linalg.norm(np_(td), axis=-1), 1.0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("time", [0.0, 0.3, 0.8, 1.2, 3.7, 11.0])
+def test_reference_frame_matches_jax(time):
+    """The animated OBB world and its orbiting camera: the same leaves,
+    shapes and dtypes as the JAX package's, values equal but for float32
+    sin and cos, which the two libraries may round an ulp apart (one entry
+    at time 1.2): to 3e-7 relative and 1e-6 absolute."""
+    from openglraytracer_tpu.models.animated import reference_frame as jf
+    from openglraytracer_tpu_torch.models.animated import (
+        reference_frame as tf)
+    jscene, jcam = jf(time)
+    tscene, tcam = tf(time)
+    assert tscene.spheres.count == 1 and tscene.boxes.count == 4
+    assert tscene.planes.count == 0 and tscene.lights.count == 3
+    jl = jax.tree_util.tree_leaves((jscene, jcam))
+    tl = _leaves(tscene, tcam)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        assert np_(a).dtype == np_(b).dtype and np_(a).shape == np_(b).shape
+        np.testing.assert_allclose(np_(b), np_(a), rtol=3e-7, atol=1e-6)
+
+
+def test_reference_constants_match_jax():
+    from openglraytracer_tpu.models import scene as js
+    assert ts.REF_MATERIALS == js.REF_MATERIALS
+    assert ts.REF_LIGHTS == js.REF_LIGHTS
+    assert ts.TIME_SCALE == js.TIME_SCALE
