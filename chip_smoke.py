@@ -17,7 +17,9 @@ angles. It exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build: compile the CUDA kernels from csrc/ (one nvcc per source, in
-     parallel, sm_90a)
+     parallel, sm_90a), each kernel's registers, shared memory and spills
+     from ptxas; and the earlier kernel sources in earlier_csrc/ where that
+     copy is present (EARLIER_CSRC)
   3. each c3 kernel against its plain PyTorch version on the card, on the
      inputs the c3 paths give it, and on a small hand-built scene with
      rotated boxes (the box paths of kernels A and B, and the box winner
@@ -43,26 +45,36 @@ angles. It exits non-zero on any failure. Phases:
      over the global table, against its plain version on the inputs a
      c4_mirror4096 frame hands them, cut to the 8 hottest and 24 cold
      tiles; fails unless the child spec has a hot budget and a tile of the
-     frame is truly hot
+     frame is truly hot. Then the hot launch on rays that split warps
+     (graze_hot_inputs: tangent grazes with qd at 0 and an ulp either side,
+     spheres behind the origin, invalid rows, a slack block) against 4096
+     and 5120 spheres (four and five staged chunks): no discrete mismatch
+     at all
  11. the c5_grid4096 and c4_mirror4096 forward paths for 3 frames each:
      every kernel of the path launched on every frame, no overflow, a
      finite image within 1/255 of the plain versions' on >= 99.9% of pixels
  12. their frame and training step timed as in phases 5 and 7, and
-     kernels 6 and 2 beside their plain versions at full size
+     kernels 6 and 2 beside their plain versions at full size (kernel 2
+     and, in phase 5, kernel A in turns with the earlier build where it is
+     present)
  13. their training paths for 3 steps each: every kernel launched on every
      step, no overflow, gradients as in phase 6
  14. kernel 7 (dense_hit) against its plain version on the inputs the
      pallas paths hand it: c3's 1,048,576 primary rays, the OBB world's
      primary rays and both sets of depth-1 children, zero-direction rays
      (as total internal reflection hands them on) from inside every
-     surface of the OBB frame, and a cut of 65,536 c5_grid4096 rays
-     against all 4096 spheres (the chunked staging)
+     surface of the OBB frame, a cut of 65,536 c5_grid4096 rays against
+     all 4096 spheres (the chunked staging), 65,536 rays that graze 1000
+     spheres (graze_dense_inputs) and 65,536 rays in warps whose lanes are
+     blocked from a light by the first sphere on some lanes only
+     (partial_block_inputs): equal bit for bit
  15. the pallas forward paths for 3 frames each (c3 depth 0, the OBB world
      at depth 0 and 1): dense_hit launched once per depth-0 frame and 3
      times per depth-1 frame, a finite image within 1/255 of the plain
      versions' on >= 99.9% of pixels
  16. their frame and training step timed as in phases 5 and 7, and kernel
-     7 beside its plain version and its bound at c3 and the OBB world
+     7 beside its plain version and its bound at c3 and the OBB world (in
+     turns with the earlier build where it is present)
  17. their training paths for 3 steps each (the OBB world also with respect
      to the boxes' positions and angles): launches, finite non-zero
      gradients that agree with the plain versions'
@@ -74,17 +86,21 @@ card could take for the same work: the larger of the bytes it must move,
 each input read once and each output written once, over 3.35 TB/s and its
 float operations on this run's inputs over 67 TFLOP/s, both the H100 SXM's
 data-sheet peaks; see BOUND_OPS) and, where one PyTorch call computes the
-same function, that call's time. The last line is {"ok": true, "device":
+same function, that call's time; the redesigned kernels' rows also carry
+the earlier build's time from the same run (earlier_ms, null without the
+copy). The last line is {"ok": true, "device":
 {...}}. Without a CUDA device it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 H = W = 1024
 TILE = (64, 64)
@@ -137,26 +153,48 @@ OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
                  "boxes.position", "boxes.angles")
 # kernel 7 at 4096 spheres: a cut of this many c5_grid4096 rays
 C5_CUT = 65536
+# an earlier version of the redesigned kernels' sources (primary_hit.cu,
+# dense_hit.cu and common.cuh), put there by hand (the directory is
+# git-ignored): where it is present, phases 5, 12 and 16 time it beside
+# the current kernels, in turns
+EARLIER_CSRC = Path(__file__).resolve().parent / "earlier_csrc"
+EARLIER_SOURCES = ("primary_hit.cu", "dense_hit.cu")
+EARLIER_FUNCTIONS = ("oglrt_primary_hit", "oglrt_primary_hit_ray",
+                     "oglrt_dense_hit")
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
 # (csrc/): + - * / sqrt min max as one, fma as two; compares, selects,
-# loads and the special functions' extra steps are not counted, so each
-# bound is a floor. The units: "ray" per ray of the launch; "sphere",
-# "box", "plane" per (ray, object) test of the closest hit; "light" per
-# (ray, light) of a shadow or shade pass; "s_sphere", "s_box", "s_plane"
-# per (ray, light, object) test of an occlusion pass.
+# loads and the special functions' extra steps are not counted. The units:
+# "ray" per ray of the launch; "sphere", "box", "plane" per (ray, object)
+# test of the closest hit; "light" per (ray, light) of a shadow or shade
+# pass; "s_sphere", "s_box", "s_plane" per (ray, light, object) test of an
+# occlusion pass. A sphere test of kernels A, 2 and 7 is charged its
+# quadratic up to the discriminant ("sphere", "s_sphere"), and its square
+# root, both roots and their min and max only where this run's data gives
+# a discriminant >= 0 ("sphere_root", "s_sphere_root"): a miss needs no
+# root. Kernel 7's occlusion is charged the tests a segment needs, in table
+# order (spheres, boxes, planes) up to its first blocker, where the OR is
+# decided. Kernel B, which also stops at a segment's first blocker, is
+# charged every survivor test: an upper count of its operations, below its
+# bytes on every measured input (both are logged), so that its bound, as
+# every other, is a floor.
 BOUND_OPS = {
-    "primary_hit": dict(ray=19, sphere=18, box=40, plane=7),
-    "primary_hit_ray": dict(ray=19, sphere=27, box=58, plane=13),
-    "primary_hit_hot": dict(ray=19, sphere=27, box=58, plane=13),
+    "primary_hit": dict(ray=19, sphere=10, sphere_root=8, box=40, plane=7),
+    "primary_hit_ray": dict(ray=19, sphere=19, sphere_root=8, box=58,
+                            plane=13),
+    "primary_hit_hot": dict(ray=19, sphere=19, sphere_root=8, box=58,
+                            plane=13),
     "shadow_occlusion": dict(light=8, s_sphere=23, s_box=58, s_plane=13),
     "phong_fused": dict(ray=25, light=90),
     "phong_shade_bwd": dict(ray=60, light=270),
     "compact_mask": dict(mask=1),
-    "dense_hit": dict(ray=31, sphere=28, box=58, plane=12, light=10,
-                      s_sphere=28, s_box=58, s_plane=12),
+    "dense_hit": dict(ray=31, sphere=19, sphere_root=8, box=58, plane=12,
+                      light=10, s_sphere=19, s_sphere_root=8, s_box=58,
+                      s_plane=12),
 }
+# (ray, object) pairs per chunk where the bound counts tests on the card
+PAIR_CHUNK = 1 << 24
 
 
 def log(msg: str) -> None:
@@ -247,8 +285,9 @@ class PlainVersions:
             setattr(mod, name, fn)
 
 
-def compare_primary(torch, k, p, what, name="primary_hit"):
-    """Kernel A (2) outputs k vs plain p: (mismatch share, max abs err)."""
+def compare_primary(torch, k, p, what, name="primary_hit", exact=False):
+    """Kernel A (2) outputs k vs plain p: (mismatch share, max abs err).
+    exact: no discrete mismatch at all."""
     t_k, n_k, ins_k, mat_k, gid_k, slot_k = k
     t_p, n_p, ins_p, mat_p, gid_p, slot_p = p
     agree = ((ins_k == ins_p) & (mat_k == mat_p) & (gid_k == gid_p)
@@ -264,7 +303,8 @@ def compare_primary(torch, k, p, what, name="primary_hit"):
     log(f"  {name} [{what}]: discrete mismatches {share:.2e} of "
         f"{t_k.numel()} rays, t/n out of tolerance {t_bad}/{n_bad}, "
         f"max |t|,|n| err {err:.3e}")
-    check(share <= DISCRETE_SHARE and t_bad == 0 and n_bad == 0,
+    check((share == 0.0 if exact else share <= DISCRETE_SHARE)
+          and t_bad == 0 and n_bad == 0,
           f"{name} kernel disagrees with its plain version ({what})")
     return share, err
 
@@ -319,9 +359,87 @@ def compare_shade_bwd(torch, k, p, what):
     return max_abs
 
 
-def _work_units(name, args, kwargs):
+def _roots(torch, d, c, rr, live, o=None):
+    """Sphere tests of rays d (B, P, 3) from origins o (B, P, 3) against
+    rows c (B or 1, K, 3), rr (B or 1, K) whose discriminant is >= 0, of
+    the tests live (B or 1, P or 1, K) and the rays with d.d > 0. Without
+    o the rows are shared-mode rows (c = o0 - centre, rr = qc)."""
+    n_b, n_p, n_k = d.shape[0], d.shape[1], c.shape[1]
+    step = max(1, PAIR_CHUNK // max(1, n_p * n_k))
+    total = 0
+    for b in range(0, n_b, step):
+        def cut(x):
+            return x if x.shape[0] == 1 else x[b:b + step]
+
+        db = d[b:b + step, :, None, :]
+        oc, q = cut(c)[:, None], cut(rr)[:, None]
+        if o is not None:
+            oc = o[b:b + step, :, None, :] - oc
+            q = (oc * oc).sum(-1) - q
+        qa = (db * db).sum(-1)
+        qb = 2.0 * (db * oc).sum(-1)
+        ok = (qb * qb - 4.0 * qa * q >= 0.0) & (qa > 1e-12)
+        total += int((ok & cut(live)).sum())
+    return total
+
+
+def _dense_units(torch, args, outs):
+    """Kernel 7's units of work on these inputs and its outputs (t and n
+    give each shadow segment's start)."""
+    from openglraytracer_tpu_torch.ops import dense
+
+    o, d, sph, box, pln, lights = args
+    t, n = outs[0], outs[1]
+    r, n_l = o.shape[0], lights.shape[0]
+    n_s, n_b, n_p = sph.shape[0], box.shape[0], pln.shape[0]
+    n_obj = n_s + n_b + n_p
+    u = dict(ray=r, sphere=r * n_s, box=r * n_b, plane=r * n_p,
+             light=r * n_l, sphere_root=0, s_sphere=0, s_sphere_root=0,
+             s_box=0, s_plane=0)
+    c, rr = sph[None, :, :3], (sph[:, 3] * sph[:, 3])[None]
+    every = torch.ones((1, 1, n_s), dtype=torch.bool, device=o.device)
+    j = torch.arange(n_s, device=o.device)
+    srow, brow, prow = sph.T[:, None, :], box.T[:, None, :], pln.T[:, None, :]
+    step = max(1, PAIR_CHUNK // max(1, n_obj))
+    for a in range(0, r, step):
+        ob, db = o[a:a + step], d[a:a + step]
+        u["sphere_root"] += _roots(torch, db[None], c, rr, every, ob[None])
+        ts = torch.where(t[a:a + step] < 1e4, t[a:a + step], 0.0)[:, None]
+        p = ob + ts * db
+        s = p + 0.01 * n[a:a + step]
+        sx, sy, sz = (s[:, k:k + 1] for k in range(3))
+        for li in range(n_l):
+            tl = lights[li] - p
+            vx, vy, vz = (tl[:, k:k + 1] for k in range(3))
+            qa = (tl * tl).sum(-1, keepdim=True)
+            inv = 0.5 / qa.clamp(min=1e-12)
+            t_s, ok_s, _, _ = dense._sphere_roots(srow, sx, sy, sz, vx, vy,
+                                                  vz, qa, inv)
+            blocked = [ok_s & (t_s < 1.0)]
+            if n_b:
+                t_b, ok_b, _, _, _ = dense._box_slab(brow, sx, sy, sz, vx,
+                                                     vy, vz)
+                blocked.append(ok_b & (t_b < 1.0))
+            if n_p:
+                t_p, nd = dense._plane_t(prow, sx, sy, sz, vx, vy, vz)
+                blocked.append((nd.abs() > 1e-9) & (t_p > 0.0) & (t_p < 1.0))
+            blk = torch.cat(blocked, dim=1)
+            # the tests up to and including the first blocker, else all
+            need = torch.where(blk.any(dim=1), blk.int().argmax(dim=1) + 1,
+                               n_obj)
+            u["s_sphere"] += int(need.clamp(max=n_s).sum())
+            u["s_box"] += int((need - n_s).clamp(0, n_b).sum())
+            u["s_plane"] += int((need - n_s - n_b).clamp(0, n_p).sum())
+            u["s_sphere_root"] += _roots(
+                torch, tl[None], c, rr, (j[None, :] < need[:, None])[None],
+                s[None])
+    return u
+
+
+def _work_units(torch, name, args, kwargs, outs):
     """Units of work of one kernel call on these inputs (see BOUND_OPS);
-    survivor-list kernels count the tests their trip counts ask for."""
+    survivor-list kernels count the tests their trip counts ask for, and
+    the sphere roots those tests' data need."""
     def total(cnt, cap):
         return int(cnt.clamp(max=cap).sum())
 
@@ -330,7 +448,16 @@ def _work_units(name, args, kwargs):
         dirs, sph, box, pln, cnt, tile_p = (
             (args[0],) + tuple(args[2:7]) if per_ray else args[:6])
         r = cnt.shape[0] * tile_p
+        d = dirs.reshape(-1, tile_p, 3)
+        o = args[1].reshape(-1, tile_p, 3) if per_ray else None
+        tile_ids = kwargs.get("tile_ids")
+        if tile_ids is not None:
+            d, o = d[tile_ids.long()], o[tile_ids.long()]
+        k = torch.arange(sph.shape[1], device=sph.device)
+        live = (k[None, :] < cnt[:, :1]) & (sph[..., 6] > 0.5)
         return dict(ray=r, sphere=total(cnt[:, 0], sph.shape[1]) * tile_p,
+                    sphere_root=_roots(torch, d, sph[..., :3], sph[..., 3],
+                                       live[:, None], o),
                     box=total(cnt[:, 1], box.shape[1]) * tile_p,
                     plane=r * pln.shape[0])
     if name == "shadow_occlusion":
@@ -349,12 +476,7 @@ def _work_units(name, args, kwargs):
     if name == "compact_mask":
         return dict(mask=args[0].numel())
     if name == "dense_hit":
-        o, _, sph, box, pln, lights = args
-        r, n_l = o.shape[0], lights.shape[0]
-        n_s, n_b, n_p = sph.shape[0], box.shape[0], pln.shape[0]
-        return dict(ray=r, sphere=r * n_s, box=r * n_b, plane=r * n_p,
-                    light=r * n_l, s_sphere=r * n_l * n_s,
-                    s_box=r * n_l * n_b, s_plane=r * n_l * n_p)
+        return _dense_units(torch, args, outs)
     raise KeyError(name)
 
 
@@ -406,10 +528,61 @@ def bound(torch, name, fn, args, kwargs=None):
     outs = fn(*args, **kwargs)
     nbytes = _bytes_moved(torch, name, args, kwargs, outs)
     ops = sum(BOUND_OPS[name][u] * n
-              for u, n in _work_units(name, args, kwargs).items())
+              for u, n in _work_units(torch, name, args, kwargs,
+                                      outs).items())
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
+
+
+def earlier_library(kernels):
+    """(library, nvcc's output) of the earlier kernels built from
+    EARLIER_CSRC, or (None, "") where that copy is absent."""
+    if not (EARLIER_CSRC / EARLIER_SOURCES[0]).exists():
+        return None, ""
+    path, build_log = kernels.build(EARLIER_CSRC, EARLIER_SOURCES)
+    return kernels.load(path, EARLIER_FUNCTIONS), build_log
+
+
+@contextlib.contextmanager
+def using_library(kernels, lib):
+    """Route the kernel wrappers' launches to library lib."""
+    saved = kernels.library
+    kernels.library = lambda: lib
+    try:
+        yield
+    finally:
+        kernels.library = saved
+
+
+def ptxas_lines(build_log: str) -> list:
+    """Each kernel's registers, shared memory and spills (nvcc -Xptxas -v)."""
+    return [line.strip() for line in build_log.splitlines()
+            if any(k in line for k in ("registers", "spill",
+                                       "Compiling entry"))]
+
+
+def log_ptxas(build_log: str, what: str) -> None:
+    for line in ptxas_lines(build_log):
+        log(f"  {what}: {line}")
+
+
+def time_turns(torch, kernels, fn, args, earlier, turns: int = 2):
+    """Device ms per call of fn(*args), the mean of 2 * turns timings, and
+    where earlier is a library, the same through it, timed in turns
+    (earlier, current, current, earlier, ...): (ms, earlier ms or None,
+    every timing)."""
+    cur, old = [], []
+    for _ in range(turns):
+        if earlier is not None:
+            with using_library(kernels, earlier):
+                old.append(device_ms(torch, fn, args))
+        cur += [device_ms(torch, fn, args), device_ms(torch, fn, args)]
+        if earlier is not None:
+            with using_library(kernels, earlier):
+                old.append(device_ms(torch, fn, args))
+    return (statistics.mean(cur), statistics.mean(old) if old else None,
+            dict(ms=cur, earlier_ms=old))
 
 
 def device_ms(torch, fn, args, reps: int = 10) -> float:
@@ -508,11 +681,14 @@ def train_scene(scene, trainable):
     return apply_params(scene, params), params
 
 
-def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
+def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
+             earlier):
     """Phases 9-13: the 4096-object paths c5_grid4096 and c4_mirror4096.
     Returns (per-path launch counts, per-kernel (ms, plain ms), per-kernel
     max abs error, per-kernel (args, kwargs) of the timed call, the
-    library call's ms) for kernels 2 and 6."""
+    library call's ms, the earlier hot launch's ms or None) for kernels 2
+    and 6."""
+    from openglraytracer_tpu_torch import kernel_cases
     from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
     from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
                                                          FitConfig,
@@ -618,6 +794,23 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
         torch, culled.primary_hit_ray(*cut_h, tile_ids=ids_cut),
         plain2(*cut_h, tile_ids=ids_cut), "c4_mirror4096 hot cut",
         "primary_hit_hot")[1]
+    # rays that split warps: tangent grazes (qd at 0 and an ulp either
+    # side), spheres behind the origin, invalid rows, a slack block; tables
+    # of four and five staged chunks
+    for n_sph in (4096, 5120):
+        g_args, g_kw = kernel_cases.graze_hot_inputs(dev, n_sph, CUT_HOT)
+        want = plain2(*g_args, **g_kw)
+        target, ahead = kernel_cases.graze_target(dev, n_sph,
+                                                  CUT_HOT * g_args[6])
+        own = want[4][:target.numel()] == target
+        log(f"  graze cut, {n_sph} spheres: {int(own.sum())} of "
+            f"{own.numel()} rays hit the sphere they graze")
+        check(0 < int(own.sum()) < own.numel() and not bool(own[~ahead].any()),
+              "the graze cut must split hits and misses, and miss behind")
+        err = compare_primary(torch, culled.primary_hit_ray(*g_args, **g_kw),
+                              want, f"graze, {n_sph} spheres",
+                              "primary_hit_hot", exact=True)[1]
+        errs["primary_hit_hot"] = max(errs["primary_hit_hot"], err)
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
     # ---- 11. the forward paths
@@ -706,6 +899,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
     mask, k = next(c for c in caps["c5_grid4096"].calls
                    if c[0].shape[-1] >= accel.MIN_N_FOR_KERNEL)
     full_h = (a_h, cap.kwargs["primary_hit_hot"])
+    earlier_ms = None
     for name, fn, plain, args, kw in (
             ("compact_mask", accel.compact_mask, accel.compact_mask_plain,
              (mask, k), {}),
@@ -713,15 +907,24 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
             ("primary_hit_hot", culled.primary_hit_ray, plain2, *full_h)):
         def call(f, kw=kw):
             return lambda *a: f(*a, **kw)
-        t_kern = [device_ms(torch, call(fn), args) for _ in range(2)]
+        # the earlier kernel 2 in turns with the current one: its hot
+        # launch is the redesigned one, the cold launch and kernel A share
+        # its template
+        ms, old_ms, every = time_turns(
+            torch, kernels, call(fn), args,
+            earlier if name != "compact_mask" else None)
         t_plain = [device_ms(torch, call(plain), args, reps=1)
                    for _ in range(2)]
-        kernel_ms[name] = (statistics.mean(t_kern), statistics.mean(t_plain))
+        kernel_ms[name] = (ms, statistics.mean(t_plain))
         timed[name] = (args, kw)
         cell = "c5_grid4096" if name == "compact_mask" else "c4_mirror4096"
-        log(f"  {name}: kernel {kernel_ms[name][0]:.4f} ms, plain version "
+        log(f"  {name}: kernel {ms:.4f} ms, plain version "
             f"{kernel_ms[name][1]:.4f} ms (device time per call on the "
-            f"full-size inputs of {cell})")
+            f"full-size inputs of {cell})"
+            + (f"; earlier kernel {old_ms:.4f} ms, in turns {every}"
+               if old_ms is not None else ""))
+        if name == "primary_hit_hot":
+            earlier_ms = old_ms
     # the library call: torch.topk, the core of compact_mask_plain, alone on
     # the same mask's keys (a yardstick; the port calls it only for masks
     # narrower than MIN_N_FOR_KERNEL)
@@ -782,14 +985,14 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi):
                   f"{cfg}: gradient of {k} disagrees with the plain "
                   "versions'")
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
-    return launches, kernel_ms, errs, timed, topk_ms
+    return launches, kernel_ms, errs, timed, topk_ms, earlier_ms
 
 
 def compare_dense(torch, k, p, what):
     """Kernel 7 outputs k vs plain p: (mismatch share, max abs err). A ray
     agrees when its hit flag, winner, inside flag and, where it hit, every
-    light's occlusion bit agree; t and n are held to T_RTOL/T_ATOL/N_ATOL
-    on the rays that agree and hit."""
+    light's occlusion bit agree. Both round every op alike, so every ray
+    must agree and t and n must be equal bit for bit."""
     t_k, n_k, ins_k, id_k, occ_k = k
     t_p, n_p, ins_p, id_p, occ_p = p
     hit_p = t_p < 1e4
@@ -808,15 +1011,17 @@ def compare_dense(torch, k, p, what):
         f"{t_k.numel()} rays ({float(hit_p.float().mean()):.4f} hit; "
         f"occluded share per light where hit {occ_share}), t/n out of "
         f"tolerance {t_bad}/{n_bad}, max |t|,|n| err {err:.3e}")
-    check(share <= DISCRETE_SHARE and t_bad == 0 and n_bad == 0,
+    check(share == 0.0 and err == 0.0,
           f"dense_hit kernel disagrees with its plain version ({what})")
     return share, err
 
 
-def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi):
+def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
+              earlier):
     """Phases 14-17: the dense engine 'pallas' (kernel 7) on c3_grid64 and
     the reference's animated OBB world. Returns (per-path launch counts,
     per-cell kernel 7 numbers, max abs error, the c3 inputs of kernel 7)."""
+    from openglraytracer_tpu_torch import kernel_cases
     from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
                                                            sphere_grid_scene)
@@ -885,13 +1090,33 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi):
     inputs["c5_grid4096 cut"] = (
         o5[::stride].contiguous(), d5[::stride].contiguous(),
         *dense._scene_tables(c5_scene))
+    # rays that split warps: tangent grazes (disc at 0 and an ulp either
+    # side) against a table of 4 staging chunks, and warps in which the
+    # first sphere blocks a light's segment on some lanes only
+    inputs["graze cut"] = kernel_cases.graze_dense_inputs(dev, 1000, C5_CUT)
+    inputs["partially blocked warps"] = kernel_cases.partial_block_inputs(
+        dev, C5_CUT)
     errs = {}
     for what, a in inputs.items():
         log(f"  {what}: {a[0].shape[0]} rays, tables sph "
             f"{tuple(a[2].shape)}, box {tuple(a[3].shape)}, plane "
             f"{tuple(a[4].shape)}, lights {tuple(a[5].shape)}")
-        errs[what] = compare_dense(torch, dense.dense_hit(*a),
-                                   dense.dense_hit_plain(*a), what)[1]
+        want = dense.dense_hit_plain(*a)
+        errs[what] = compare_dense(torch, dense.dense_hit(*a), want,
+                                   what)[1]
+        if what == "graze cut":
+            target, ahead = kernel_cases.graze_target(dev, 1000, C5_CUT)
+            own = want[3] == target
+            log(f"  graze cut: {int(own.sum())} of {C5_CUT} rays hit the "
+                f"sphere they graze")
+            check(0 < int(own.sum()) < C5_CUT
+                  and not bool(own[~ahead].any()),
+                  "the graze cut must split hits and misses, and miss behind")
+        if what == "partially blocked warps":
+            mixed = kernel_cases.mixed_warps(want[4], want[0] < 1e4)
+            log(f"  partially blocked warps: {mixed:.3f} of the warps have "
+                f"both blocked and lit lanes")
+            check(mixed > 0.0, "no warp is partially blocked")
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
 
     # ---- 15. the forward paths
@@ -972,22 +1197,23 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi):
                 f"ms; {n_rays} rays/frame -> "
                 f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
     cells = {}
-    for what, a in inputs.items():
-        if what in ("c5_grid4096 cut", "obb zero-direction rays"):
-            continue
-        t_kern = [device_ms(torch, dense.dense_hit, a) for _ in range(2)]
+    for what in ("c3 primary", "obb primary", "obb reflection children",
+                 "obb refraction children"):
+        a = inputs[what]
+        ms, old_ms, every = time_turns(torch, kernels, dense.dense_hit, a,
+                                       earlier)
         t_plain = [device_ms(torch, dense.dense_hit_plain, a, reps=1)
                    for _ in range(2)]
         b_ms, b_by, nbytes, ops = bound(torch, "dense_hit", dense.dense_hit,
                                         a)
-        cells[what] = dict(ms=statistics.mean(t_kern),
-                           plain_ms=statistics.mean(t_plain), bound_ms=b_ms,
-                           bound_by=b_by)
-        log(f"  dense_hit [{what}]: kernel {cells[what]['ms']:.4f} ms, "
-            f"plain version {cells[what]['plain_ms']:.4f} ms; bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} GFLOP), {100 * b_ms / cells[what]['ms']:.0f}% "
-            f"of it")
+        cells[what] = dict(ms=ms, plain_ms=statistics.mean(t_plain),
+                           bound_ms=b_ms, bound_by=b_by, earlier_ms=old_ms)
+        log(f"  dense_hit [{what}]: kernel {ms:.4f} ms, plain version "
+            f"{cells[what]['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by "
+            f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
+            f"{100 * b_ms / ms:.0f}% of it"
+            + (f"; earlier kernel {old_ms:.4f} ms, in turns {every}"
+               if old_ms is not None else ""))
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
 
     # ---- 17. the training paths
@@ -1077,9 +1303,16 @@ def main() -> int:
     lib_path, build_log = kernels.build()
     kernels.library()
     log(f"[2/17] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
-    for line in build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  {line.strip()}")
+    log_ptxas(build_log, "ptxas")
+    earlier, earlier_log = earlier_library(kernels)
+    if earlier is None:
+        log(f"  no earlier kernels at {EARLIER_CSRC}: the redesigned "
+            "kernels are timed alone")
+    else:
+        log(f"  earlier kernels built from {EARLIER_CSRC} "
+            f"({', '.join(EARLIER_SOURCES)}): "
+            f"{time.perf_counter() - t0:.1f} s")
+        log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
     log("[3/17] kernels vs plain versions")
@@ -1192,7 +1425,7 @@ def main() -> int:
     check(share >= 0.999, "image disagrees with the plain versions' image")
     # a small input against the CPU (the plain versions in PyTorch's CPU
     # kernels): rsqrt/exp/log round differently there, hence 1e-4
-    sc, cc = sphere_grid_scene(8)
+    sc, cc = sphere_grid_scene(8, device="cpu")
     small_spec = suggest_cull_config(sc, cc, 64, 64, (16, 16))
     with torch.no_grad():
         small_cpu = render(sc, cc, 64, 64, cull=small_spec)
@@ -1243,12 +1476,17 @@ def main() -> int:
     def time_kernel(k):
         args = c3_args[k]
         t_plain = [device_ms(torch, plain_fns[k], args)]
-        t_kern = [device_ms(torch, wrappers[k], args),
-                  device_ms(torch, wrappers[k], args)]
+        # kernel A shares its template with the redesigned hot launch: the
+        # earlier one in turns with it
+        ms, old_ms, every = time_turns(
+            torch, kernels, wrappers[k], args,
+            earlier if k == "primary_hit" else None, turns=1)
         t_plain.append(device_ms(torch, plain_fns[k], args))
-        kernel_ms[k] = (statistics.mean(t_kern), statistics.mean(t_plain))
+        kernel_ms[k] = (ms, statistics.mean(t_plain))
         log(f"  {k}: kernel {kernel_ms[k][0]:.4f} ms, plain version "
-            f"{kernel_ms[k][1]:.4f} ms (device time per call at c3)")
+            f"{kernel_ms[k][1]:.4f} ms (device time per call at c3)"
+            + (f"; earlier kernel {old_ms:.4f} ms, in turns {every}"
+               if old_ms is not None else ""))
 
     with torch.no_grad():
         for k in fwd_kernels:
@@ -1340,14 +1578,19 @@ def main() -> int:
     log(f"  losses {[(st, round(v, 6)) for st, v in flosses]}")
     check(flosses[-1][1] < flosses[0][1], "the fit's loss must fall")
 
-    launches_4096, kernel_ms_4096, errs_4096, timed, topk_ms = run_4096(
-        torch, dev, kernels, culled, shade, shading, accel, smi)
+    (launches_4096, kernel_ms_4096, errs_4096, timed, topk_ms,
+     hot_earlier_ms) = run_4096(torch, dev, kernels, culled, shade, shading,
+                                accel, smi, earlier)
     kernel_ms.update(kernel_ms_4096)
     errs.update(errs_4096)
     launches_dense, dense_cells, errs["dense_hit"], dense_c3 = run_dense(
-        torch, dev, kernels, culled, shade, shading, accel, smi)
+        torch, dev, kernels, culled, shade, shading, accel, smi, earlier)
     c3_dense = dense_cells["c3 primary"]
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
+    # the redesigned kernels' earlier time, from the same call (None
+    # without the earlier copy)
+    earlier_ms = {"primary_hit_hot": hot_earlier_ms,
+                  "dense_hit": c3_dense["earlier_ms"]}
 
     from openglraytracer_tpu_torch.ops import dense
     sources = {"primary_hit": ("csrc/primary_hit.cu",
@@ -1402,7 +1645,7 @@ def main() -> int:
                 if k == "dense_hit" else fwd_launches)
         fn, args, kw = timed_calls[k]
         with torch.no_grad():
-            b_ms, b_by, _, _ = bound(torch, k, fn, args, kw)
+            b_ms, b_by, nbytes, ops = bound(torch, k, fn, args, kw)
         row = {"name": k, "route": "cuda",
                "source": f"openglraytracer_tpu_torch/{src}",
                "replaces": replaces, "launches": main.get(k, 0),
@@ -1411,11 +1654,15 @@ def main() -> int:
                "max_abs_err": errs[k], "ms": kernel_ms[k][0],
                "plain_ms": kernel_ms[k][1], "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": library_ms.get(k)}
+        if k in earlier_ms:
+            row["earlier_ms"] = earlier_ms[k]
         if k == "dense_hit":
             row["cells"] = dense_cells
         rows.append(row)
         log(f"  {k}: {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-            f"({100 * b_ms / row['ms']:.0f}% of it)")
+            f"({100 * b_ms / row['ms']:.0f}% of it; {nbytes / 1e6:.1f} MB "
+            f"-> {nbytes / PEAK_BYTES * 1e3:.4f} ms, {ops / 1e9:.3f} GFLOP "
+            f"-> {ops / PEAK_FLOPS * 1e3:.4f} ms)")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -39,7 +39,25 @@
 // chunks, so any N, M, P fits and every table row is read once per block
 // and pass from L2, then broadcast to the block's 256 rays. A table that
 // fits in one chunk (every measured scene) is staged once per block; a
-// longer one once per pass, the closest hit's and each light's.
+// longer one once per pass, the closest hit's and each light's. Most tests
+// are misses, and most of their cost was work whose result is thrown away:
+//   (a) a sphere test whose discriminant is negative takes no root: the
+//       square root and both roots run under disc >= 0 only (a miss is not
+//       ok either way, so the result is the same);
+//   (b) a lane stops testing a light's segment once it is blocked (the OR
+//       cannot change). It asks before each box test (a slab test costs
+//       several sphere misses) and before each chunk of spheres and of
+//       planes, not before each sphere: a check per sphere cost the c3
+//       grid more than its blocked lanes saved. A warp leaves once all its
+//       lanes have. No barrier sits inside the loops over a staged chunk;
+//       where a table is staged in several chunks every thread still
+//       reaches every stage() barrier and only skips the tests;
+//   (c) the sphere rows are staged as [c r^2], r^2 = r * r rounded once
+//       per row where the reference kernel rounds the same product per
+//       test;
+//   (e) the staged sphere rows are read through a shared-memory address
+//       held in a register (staged_row in common.cuh).
+// The measurements of each step are in PERF.md.
 #include "common.cuh"
 
 namespace oglrt {
@@ -59,33 +77,47 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
   return fmaf(az, bz, fmaf(ax, bx, ay * by));
 }
 
+struct SphereQuad {
+  float ocx, ocy, ocz, qb, disc;
+};
+
+// The quadratic of p + t v against staged sphere row [c r^2].
+__device__ __forceinline__ SphereQuad sphere_quad(const float4 row, float px,
+                                                  float py, float pz,
+                                                  float vx, float vy,
+                                                  float vz, float qa) {
+  SphereQuad q;
+  q.ocx = px - row.x;
+  q.ocy = py - row.y;
+  q.ocz = pz - row.z;
+  q.qb = 2.0f * dot3(vx, vy, vz, q.ocx, q.ocy, q.ocz);
+  const float qc = dot3(q.ocx, q.ocy, q.ocz, q.ocx, q.ocy, q.ocz) - row.w;
+  q.disc = fmaf(q.qb, q.qb, -(4.0f * qa * qc));
+  return q;
+}
+
+// Whether the test can skip its root: a negative discriminant is no hit.
+__device__ __forceinline__ bool sphere_miss(const SphereQuad& q) {
+  return !(q.disc >= 0.0f);
+}
+
 struct SphereRoot {
-  float t, ocx, ocy, ocz;
+  float t;
   bool ok, is_in;
 };
 
-// The quadratic of p + t v against sphere row [c r].
-__device__ __forceinline__ SphereRoot sphere_root(const float* row, float px,
-                                                  float py, float pz,
-                                                  float vx, float vy,
-                                                  float vz, float qa,
+// Its roots: t, whether it hits (t > 0), and whether p is inside.
+__device__ __forceinline__ SphereRoot sphere_root(const SphereQuad& q,
                                                   float inv_2qa) {
   SphereRoot s;
-  s.ocx = px - row[0];
-  s.ocy = py - row[1];
-  s.ocz = pz - row[2];
-  const float qb = 2.0f * dot3(vx, vy, vz, s.ocx, s.ocy, s.ocz);
-  const float qc = dot3(s.ocx, s.ocy, s.ocz, s.ocx, s.ocy, s.ocz) -
-                   row[3] * row[3];
-  const float disc = fmaf(qb, qb, -(4.0f * qa * qc));
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t1 = (sq - qb) * inv_2qa;
-  const float t2 = (-sq - qb) * inv_2qa;
+  const float sq = sqrtf(fmaxf(q.disc, 0.0f));
+  const float t1 = (sq - q.qb) * inv_2qa;
+  const float t2 = (-sq - q.qb) * inv_2qa;
   const float t_near = fminf(t1, t2);
   const float t_far = fmaxf(t1, t2);
   s.is_in = t_near < 0.0f;
   s.t = s.is_in ? t_far : t_near;
-  s.ok = (disc >= 0.0f) && (t_far >= 0.0f) && (s.t > 0.0f);
+  s.ok = (q.disc >= 0.0f) && (t_far >= 0.0f) && (s.t > 0.0f);
   return s;
 }
 
@@ -158,6 +190,19 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int base,
   __syncthreads();
 }
 
+// stage() for the sphere table: rows [c r] staged as [c r^2], see (c).
+__device__ __forceinline__ void stage_spheres(float4* dst, const float* src,
+                                              int base, int m,
+                                              bool resident = false) {
+  if (resident) return;   // uniform over the block
+  __syncthreads();   // the previous chunk is consumed
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float* row = src + (base + i) * kSphCols;
+    dst[i] = make_float4(row[0], row[1], row[2], row[3] * row[3]);
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ sph, const float* __restrict__ box,
@@ -166,7 +211,7 @@ __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
     float* __restrict__ t_out, float* __restrict__ n_out,
     bool* __restrict__ ins_out, int* __restrict__ idx_out,
     bool* __restrict__ occ_out) {
-  __shared__ float s_sph[kSphChunk * kSphCols];
+  __shared__ float4 s_sph[kSphChunk];
   __shared__ float s_box[kBoxChunk * kBoxCols];
   __shared__ float s_pln[kPlnChunk * kPlnCols];
 
@@ -183,6 +228,7 @@ __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
   }
   const float qa = dot3(dx, dy, dz, dx, dy, dz);
   const float inv_2qa = 0.5f / fmaxf(qa, kDivEps);
+  const unsigned sph_rows = smem_addr(s_sph);
 
   float tb = kInfT, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   bool ins = false, flp = false;
@@ -191,16 +237,18 @@ __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
   // 1. closest hit; sphere normals kept as p - c, flipped at the finalize
   for (int base = 0; base < n_sph; base += kSphChunk) {
     const int m = min(kSphChunk, n_sph - base);
-    stage(s_sph, sph, base, m, kSphCols);
+    stage_spheres(s_sph, sph, base, m);
     for (int j = 0; j < m; ++j) {
-      const SphereRoot s = sphere_root(&s_sph[j * kSphCols], ox, oy, oz, dx,
-                                       dy, dz, qa, inv_2qa);
+      const SphereQuad q = sphere_quad(staged_row(sph_rows, j), ox, oy, oz,
+                                       dx, dy, dz, qa);
+      if (sphere_miss(q)) continue;
+      const SphereRoot s = sphere_root(q, inv_2qa);
       const float t = s.ok ? s.t : kInfT;
       if (t < tb) {
         tb = t;
-        nx = fmaf(t, dx, s.ocx);
-        ny = fmaf(t, dy, s.ocy);
-        nz = fmaf(t, dz, s.ocz);
+        nx = fmaf(t, dx, q.ocx);
+        ny = fmaf(t, dy, q.ocy);
+        nz = fmaf(t, dz, q.ocz);
         ins = s.is_in;
         flp = s.is_in;
         idx = base + j;
@@ -288,20 +336,24 @@ __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
     const float tlz = lights[3 * l + 2] - pz;
     const float sqa = dot3(tlx, tly, tlz, tlx, tly, tlz);
     const float sinv_2qa = 0.5f / fmaxf(sqa, kDivEps);
-    bool blocked = false;
+    // a lane past the last ray has nothing to test, see (b)
+    bool blocked = !live;
     for (int base = 0; base < n_sph; base += kSphChunk) {
       const int m = min(kSphChunk, n_sph - base);
-      stage(s_sph, sph, base, m, kSphCols, n_sph <= kSphChunk);
+      stage_spheres(s_sph, sph, base, m, n_sph <= kSphChunk);
+      if (blocked) continue;   // to the next stage()
       for (int j = 0; j < m; ++j) {
-        const SphereRoot s = sphere_root(&s_sph[j * kSphCols], sx, sy, sz,
-                                         tlx, tly, tlz, sqa, sinv_2qa);
+        const SphereQuad q = sphere_quad(staged_row(sph_rows, j), sx, sy,
+                                         sz, tlx, tly, tlz, sqa);
+        if (sphere_miss(q)) continue;
+        const SphereRoot s = sphere_root(q, sinv_2qa);
         blocked |= s.ok && (s.t < 1.0f);
       }
     }
     for (int base = 0; base < n_box; base += kBoxChunk) {
       const int m = min(kBoxChunk, n_box - base);
       stage(s_box, box, base, m, kBoxCols, n_box <= kBoxChunk);
-      for (int j = 0; j < m; ++j) {
+      for (int j = 0; j < m && !blocked; ++j) {
         const Slab s = box_slab(&s_box[j * kBoxCols], sx, sy, sz, tlx, tly,
                                 tlz);
         blocked |= s.ok && (s.t < 1.0f);
@@ -310,6 +362,7 @@ __global__ void __launch_bounds__(kBlock) dense_hit_kernel(
     for (int base = 0; base < n_pln; base += kPlnChunk) {
       const int m = min(kPlnChunk, n_pln - base);
       stage(s_pln, pln, base, m, kPlnCols, n_pln <= kPlnChunk);
+      if (blocked) continue;   // to the next stage()
       for (int k = 0; k < m; ++k) {
         float nd;
         const float t = plane_t(&s_pln[k * kPlnCols], sx, sy, sz, tlx, tly,

@@ -26,10 +26,10 @@
 //   plane  (P, 16):     as shared mode with o0 = 0 (slot 7 holds off)
 //   counts (T, 2) int32: [min(p_count, Kp), min(b_count, Kb)]
 //
-// The hot-primary launch is the per-ray kernel over a grid of M hot tiles:
-// tile_ids maps block row b to the ray tile it reads, the (1, N, 8) and
-// (1, Nb, 24) global tables have a tile stride of 0, counts (M, 2) are N
-// and Nb on the truly hot tiles and 0 on the slack, and the outputs are
+// The hot-primary launch runs per-ray mode over a grid of M hot tiles:
+// tile_ids maps block row b to the ray tile it reads, every block reads the
+// one (1, N, 8) and (1, Nb, 24) global tables, counts (M, 2) are N and Nb
+// on the truly hot tiles and 0 on the slack, and the outputs are
 // (M * tile_p) rays in block order; the slot is then the global row id.
 //
 // What bounds it on the H100: memory traffic in shared and cold per-ray
@@ -38,9 +38,30 @@
 // ops (35 per ray in per-ray mode). The design keeps each row read once per
 // block: one thread per ray, blocks of 256 rays inside one tile, and the
 // tile's rows staged in shared memory in chunks, so every tile loops to its
-// own survivor count with no padding to a static K. The hot launch is
-// bound by its sphere tests instead (tile_p * N per hot tile); its global
-// table is staged through shared memory in the same chunks from L2.
+// own survivor count with no padding to a static K.
+//
+// The hot launch has a kernel of its own (primary_hit_hot_kernel): it is
+// bound by its sphere tests (tile_p * N per truly hot tile, 6.8e8 at
+// c4_mirror4096), nearly all of them misses of reflected rays. So:
+//   (a) a miss (qd < 0) takes no root: the square root, both roots and the
+//       winner update run under qd >= 0 only. A miss gives kInfT either
+//       way, so the result is the same.
+//   (b) only the table's [c r^2] columns are staged, 16 bytes a row, in
+//       chunks of kHotRows rows (16 KB, two barriers a chunk: 8 a block at
+//       N = 4096, where 64-row chunks of 32-byte rows took 128). The valid
+//       flag is folded into r^2 (NaN for an invalid row: its qd is NaN and
+//       fails qd >= 0, so it never wins). The winner's normal, mat and gid
+//       are read from the global table after the loop, by its slot (the
+//       global row id). The chunk size keeps five blocks of 256 rays on an
+//       SM, as registers allow: the whole table resident (64 KB at
+//       N = 4096) leaves three, and measured slower.
+//   (c) one ray a thread: two or four, each row read from shared memory
+//       feeding that many tests, raised the registers a thread and
+//       measured slower.
+//   (e) the staged rows are read through a shared-memory address held in a
+//       register (staged_row in common.cuh), not rebuilt after every
+//       divergent branch.
+// The measurements of each step are in PERF.md.
 #include "common.cuh"
 
 namespace oglrt {
@@ -51,6 +72,7 @@ constexpr int kBoxCols = 24;
 constexpr int kPlnCols = 16;
 constexpr int kSphChunk = 64;   // sphere rows staged per pass
 constexpr int kBoxChunk = 32;   // box rows staged per pass
+constexpr int kHotRows = 1024;  // hot launch: sphere rows a chunk, 16 B each
 
 struct Best {
   float t, nx, ny, nz;
@@ -63,6 +85,29 @@ struct Ray {
   float qa, inv_2qa;
   bool qa_ok;
 };
+
+// Ray p of the launch (zero when !live: such a ray never hits).
+template <bool kPerRay>
+__device__ __forceinline__ Ray make_ray(const float* dirs,
+                                        const float* origins, long long r,
+                                        bool live) {
+  Ray ray = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
+  if (live) {
+    ray.dx = dirs[3 * r];
+    ray.dy = dirs[3 * r + 1];
+    ray.dz = dirs[3 * r + 2];
+    if (kPerRay) {
+      ray.ox = origins[3 * r];
+      ray.oy = origins[3 * r + 1];
+      ray.oz = origins[3 * r + 2];
+    }
+  }
+  // see fold_sphere
+  ray.qa = fmaf(ray.dz, ray.dz, fmaf(ray.dx, ray.dx, ray.dy * ray.dy));
+  ray.qa_ok = ray.qa > kDivEps;
+  ray.inv_2qa = 0.5f / (ray.qa < kDivEps ? kDivEps : ray.qa);
+  return ray;
+}
 
 // The sphere quadratic cancels at nearly every hit (qd < 1e-3 qb^2 for the
 // c3 grid), so the rounding of qb and qd sets t to about 1e-5 relative.
@@ -202,77 +247,14 @@ __device__ __forceinline__ void fold_plane(const float* row, const Ray& ray,
   }
 }
 
-// grid (B, ceil(tile_p / kBlock)); block kBlock rays of one tile. Block row
-// b reads ray tile tile_ids[b] (b itself when tile_ids is null), the counts
-// of row b, and the rows of tile b (of tile 0 when global_rows: the hot
-// launch's one table); it writes rays b * tile_p + p.
+// The planes (after every sphere and box), the finalize and the record of
+// ray r.
 template <bool kPerRay>
-__global__ void __launch_bounds__(kBlock) primary_hit_kernel(
-    const float* __restrict__ dirs, const float* __restrict__ origins,
-    const float* __restrict__ sph, const float* __restrict__ box,
-    const float* __restrict__ pln, const int* __restrict__ cnt,
-    const int* __restrict__ tile_ids, bool global_rows, int tile_p, int kp,
-    int kb, int n_pln, float* __restrict__ t_out, float* __restrict__ n_out,
+__device__ __forceinline__ void finish(
+    const float* __restrict__ pln, int n_pln, const Ray& ray, Best& b,
+    long long r, float* __restrict__ t_out, float* __restrict__ n_out,
     bool* __restrict__ ins_out, int* __restrict__ mat_out,
     int* __restrict__ gid_out, int* __restrict__ slot_out) {
-  __shared__ float s_sph[kSphChunk * kSphCols];
-  __shared__ float s_box[kBoxChunk * kBoxCols];
-
-  const int blk = blockIdx.x;
-  const int tile = tile_ids ? tile_ids[blk] : blk;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = p < tile_p;
-  const long long r_in = static_cast<long long>(tile) * tile_p + p;
-  const long long r = static_cast<long long>(blk) * tile_p + p;
-
-  Ray ray = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
-  if (live) {
-    ray.dx = dirs[3 * r_in];
-    ray.dy = dirs[3 * r_in + 1];
-    ray.dz = dirs[3 * r_in + 2];
-    if (kPerRay) {
-      ray.ox = origins[3 * r_in];
-      ray.oy = origins[3 * r_in + 1];
-      ray.oz = origins[3 * r_in + 2];
-    }
-  }
-  // see fold_sphere
-  ray.qa = fmaf(ray.dz, ray.dz, fmaf(ray.dx, ray.dx, ray.dy * ray.dy));
-  ray.qa_ok = ray.qa > kDivEps;
-  ray.inv_2qa = 0.5f / (ray.qa < kDivEps ? kDivEps : ray.qa);
-
-  Best b = {kInfT, 0.0f, 0.0f, 0.0f, 0, 0, 0, -1, 0};
-  const long long row_tile = global_rows ? 0 : blk;
-
-  // the trip counts are uniform over the block, so every thread reaches
-  // every barrier
-  const int np = min(cnt[2 * blk], kp);
-  const float* tile_sph = sph + row_tile * kp * kSphCols;
-  for (int base = 0; base < np; base += kSphChunk) {
-    const int m = min(kSphChunk, np - base);
-    __syncthreads();   // the previous chunk is consumed
-    for (int i = threadIdx.x; i < m * kSphCols; i += blockDim.x)
-      s_sph[i] = tile_sph[base * kSphCols + i];
-    __syncthreads();
-    if (live)
-      for (int jj = 0; jj < m; ++jj)
-        fold_sphere<kPerRay>(&s_sph[jj * kSphCols], base + jj, ray, b);
-  }
-
-  const int nb = min(cnt[2 * blk + 1], kb);
-  const float* tile_box = box + row_tile * kb * kBoxCols;
-  for (int base = 0; base < nb; base += kBoxChunk) {
-    const int m = min(kBoxChunk, nb - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < m * kBoxCols; i += blockDim.x)
-      s_box[i] = tile_box[base * kBoxCols + i];
-    __syncthreads();
-    if (live)
-      for (int jj = 0; jj < m; ++jj)
-        fold_box<kPerRay>(&s_box[jj * kBoxCols], base + jj, ray, b);
-  }
-
-  if (!live) return;
   for (int k = 0; k < n_pln; ++k)
     fold_plane<kPerRay>(pln + k * kPlnCols, ray, b);
 
@@ -290,18 +272,190 @@ __global__ void __launch_bounds__(kBlock) primary_hit_kernel(
   slot_out[r] = b.slot;
 }
 
+// grid (T, ceil(tile_p / kBlock)); block kBlock rays of tile b, its counts
+// and its rows; it writes rays b * tile_p + p.
+template <bool kPerRay>
+__global__ void __launch_bounds__(kBlock) primary_hit_kernel(
+    const float* __restrict__ dirs, const float* __restrict__ origins,
+    const float* __restrict__ sph, const float* __restrict__ box,
+    const float* __restrict__ pln, const int* __restrict__ cnt, int tile_p,
+    int kp, int kb, int n_pln, float* __restrict__ t_out,
+    float* __restrict__ n_out, bool* __restrict__ ins_out,
+    int* __restrict__ mat_out, int* __restrict__ gid_out,
+    int* __restrict__ slot_out) {
+  __shared__ float s_sph[kSphChunk * kSphCols];
+  __shared__ float s_box[kBoxChunk * kBoxCols];
+
+  const int blk = blockIdx.x;
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = p < tile_p;
+  const long long r = static_cast<long long>(blk) * tile_p + p;
+  const Ray ray = make_ray<kPerRay>(dirs, origins, r, live);
+  Best b = {kInfT, 0.0f, 0.0f, 0.0f, 0, 0, 0, -1, 0};
+
+  // the trip counts are uniform over the block, so every thread reaches
+  // every barrier
+  const int np = min(cnt[2 * blk], kp);
+  const float* tile_sph = sph + static_cast<long long>(blk) * kp * kSphCols;
+  for (int base = 0; base < np; base += kSphChunk) {
+    const int m = min(kSphChunk, np - base);
+    __syncthreads();   // the previous chunk is consumed
+    for (int i = threadIdx.x; i < m * kSphCols; i += blockDim.x)
+      s_sph[i] = tile_sph[base * kSphCols + i];
+    __syncthreads();
+    if (live)
+      for (int jj = 0; jj < m; ++jj)
+        fold_sphere<kPerRay>(&s_sph[jj * kSphCols], base + jj, ray, b);
+  }
+
+  const int nb = min(cnt[2 * blk + 1], kb);
+  const float* tile_box = box + static_cast<long long>(blk) * kb * kBoxCols;
+  for (int base = 0; base < nb; base += kBoxChunk) {
+    const int m = min(kBoxChunk, nb - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < m * kBoxCols; i += blockDim.x)
+      s_box[i] = tile_box[base * kBoxCols + i];
+    __syncthreads();
+    if (live)
+      for (int jj = 0; jj < m; ++jj)
+        fold_box<kPerRay>(&s_box[jj * kBoxCols], base + jj, ray, b);
+  }
+
+  if (!live) return;
+  finish<kPerRay>(pln, n_pln, ray, b, r, t_out, n_out, ins_out, mat_out,
+                  gid_out, slot_out);
+}
+
+// One sphere test of the hot launch against staged row c = [c r^2] (r^2
+// NaN for an invalid row), global row j; the running winner is (bt, win,
+// ins). The arithmetic is fold_sphere's per-ray mode; see (a) above.
+__device__ __forceinline__ void hot_sphere(const float4 c, int j,
+                                           const Ray& ray, float& bt,
+                                           int& win, bool& ins) {
+  const float ocx = ray.ox - c.x;
+  const float ocy = ray.oy - c.y;
+  const float ocz = ray.oz - c.z;
+  const float qc = fmaf(ocz, ocz, fmaf(ocx, ocx, ocy * ocy)) - c.w;
+  const float qb = 2.0f * fmaf(ray.dz, ocz, fmaf(ray.dx, ocx, ray.dy * ocy));
+  const float qd = fmaf(qb, qb, -(4.0f * ray.qa * qc));
+  if (!(qd >= 0.0f)) return;   // a miss: kInfT, no update
+  bool ok = ray.qa_ok;
+  const float sq = ok ? sqrtf(fmaxf(qd, kSqrtEps)) : 0.0f;
+  const float t1 = (-qb + sq) * ray.inv_2qa;
+  const float t2 = (-qb - sq) * ray.inv_2qa;
+  const float t_near = fminf(t1, t2);
+  const float t_far = fmaxf(t1, t2);
+  ok = ok && (t_far >= 0.0f);
+  const bool is_in = ok && (t_near < 0.0f);
+  float t = is_in ? t_far : t_near;
+  ok = ok && (t > 0.0f);
+  t = ok ? t : kInfT;
+  if (t < bt) {
+    bt = t;
+    win = j;
+    ins = is_in;
+  }
+}
+
+// The hot launch: grid (M, ceil(tile_p / kBlock)). Block row b reads ray
+// tile tile_ids[b], its counts cnt[b] (N and Nb on a truly hot tile, 0 on
+// the slack) and the one global table (N, 8) / (Nb, 24); it writes rays
+// b * tile_p + p. Dynamic shared memory: min(N, kHotRows) float4 rows.
+__global__ void __launch_bounds__(kBlock) primary_hit_hot_kernel(
+    const float* __restrict__ dirs, const float* __restrict__ origins,
+    const float* __restrict__ sph, const float* __restrict__ box,
+    const float* __restrict__ pln, const int* __restrict__ cnt,
+    const int* __restrict__ tile_ids, int tile_p, int kp, int kb, int n_pln,
+    float* __restrict__ t_out, float* __restrict__ n_out,
+    bool* __restrict__ ins_out, int* __restrict__ mat_out,
+    int* __restrict__ gid_out, int* __restrict__ slot_out) {
+  extern __shared__ float4 s_row[];
+  __shared__ float s_box[kBoxChunk * kBoxCols];
+
+  const int blk = blockIdx.x;
+  const int p = blockIdx.y * kBlock + threadIdx.x;
+  const bool live = p < tile_p;
+  const Ray ray = make_ray<true>(
+      dirs, origins, static_cast<long long>(tile_ids[blk]) * tile_p + p,
+      live);
+  float bt = kInfT;
+  int win = -1;
+  bool ins = false;
+
+  // the trip counts are uniform over the block, so every thread reaches
+  // every barrier
+  const int np = min(cnt[2 * blk], kp);
+  const unsigned rows = smem_addr(s_row);
+  for (int base = 0; base < np; base += kHotRows) {
+    const int m = min(kHotRows, np - base);
+    if (base > 0) __syncthreads();   // the previous chunk is consumed
+    for (int i = threadIdx.x; i < m; i += kBlock) {
+      const float* row = sph + static_cast<long long>(base + i) * kSphCols;
+      s_row[i] = make_float4(row[0], row[1], row[2],
+                             row[6] > 0.5f ? row[3] : __int_as_float(
+                                                          0x7fffffff));
+    }
+    __syncthreads();
+    for (int jj = 0; jj < m; ++jj)
+      hot_sphere(staged_row(rows, jj), base + jj, ray, bt, win, ins);
+  }
+
+  // the sphere winner's record, as fold_sphere would have kept it
+  Best b = {bt, 0.0f, 0.0f, 0.0f, ins, ins, 0, -1, 0};
+  if (win >= 0) {
+    const float* row = sph + static_cast<long long>(win) * kSphCols;
+    b.nx = fmaf(bt, ray.dx, ray.ox - row[0]);
+    b.ny = fmaf(bt, ray.dy, ray.oy - row[1]);
+    b.nz = fmaf(bt, ray.dz, ray.oz - row[2]);
+    b.mat = static_cast<int>(row[4]);
+    b.gid = static_cast<int>(row[5]);
+    b.slot = win;
+  }
+
+  const int nb = min(cnt[2 * blk + 1], kb);
+  for (int base = 0; base < nb; base += kBoxChunk) {
+    const int m = min(kBoxChunk, nb - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < m * kBoxCols; i += kBlock)
+      s_box[i] = box[base * kBoxCols + i];
+    __syncthreads();
+    if (live)
+      for (int jj = 0; jj < m; ++jj)
+        fold_box<true>(&s_box[jj * kBoxCols], base + jj, ray, b);
+  }
+
+  if (!live) return;
+  finish<true>(pln, n_pln, ray, b, static_cast<long long>(blk) * tile_p + p,
+               t_out, n_out, ins_out, mat_out, gid_out, slot_out);
+}
+
 template <bool kPerRay>
 int launch(const float* dirs, const float* origins, const float* sph,
-           const float* box, const float* pln, const int* cnt,
-           const int* tile_ids, bool global_rows, int n_blocks, int tile_p,
-           int kp, int kb, int n_pln, float* t, float* n, bool* inside,
-           int* mat, int* gid, int* slot, void* stream) {
+           const float* box, const float* pln, const int* cnt, int n_blocks,
+           int tile_p, int kp, int kb, int n_pln, float* t, float* n,
+           bool* inside, int* mat, int* gid, int* slot, void* stream) {
   if (n_blocks == 0 || tile_p == 0) return 0;
   const dim3 grid(n_blocks, (tile_p + kBlock - 1) / kBlock);
   primary_hit_kernel<kPerRay><<<grid, kBlock, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      dirs, origins, sph, box, pln, cnt, tile_ids, global_rows, tile_p, kp,
-      kb, n_pln, t, n, inside, mat, gid, slot);
+      dirs, origins, sph, box, pln, cnt, tile_p, kp, kb, n_pln, t, n, inside,
+      mat, gid, slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_hot(const float* dirs, const float* origins, const float* sph,
+               const float* box, const float* pln, const int* cnt,
+               const int* tile_ids, int n_blocks, int tile_p, int kp, int kb,
+               int n_pln, float* t, float* n, bool* inside, int* mat,
+               int* gid, int* slot, void* stream) {
+  if (n_blocks == 0 || tile_p == 0) return 0;
+  const int smem =
+      (kp < kHotRows ? kp : kHotRows) * static_cast<int>(sizeof(float4));
+  const dim3 grid(n_blocks, (tile_p + kBlock - 1) / kBlock);
+  primary_hit_hot_kernel<<<grid, kBlock, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      dirs, origins, sph, box, pln, cnt, tile_ids, tile_p, kp, kb, n_pln, t,
+      n, inside, mat, gid, slot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,14 +469,14 @@ extern "C" int oglrt_primary_hit(const float* dirs, const float* sph,
                                  int kp, int kb, int n_pln, float* t,
                                  float* n, bool* inside, int* mat, int* gid,
                                  int* slot, void* stream) {
-  return oglrt::launch<false>(dirs, nullptr, sph, box, pln, cnt, nullptr,
-                              false, n_tiles, tile_p, kp, kb, n_pln, t, n,
-                              inside, mat, gid, slot, stream);
+  return oglrt::launch<false>(dirs, nullptr, sph, box, pln, cnt, n_tiles,
+                              tile_p, kp, kb, n_pln, t, n, inside, mat, gid,
+                              slot, stream);
 }
 
 // Kernel 2, per-ray mode. tile_ids null: the cold launch over T tiles with
-// per-tile rows. tile_ids (M,): the hot launch over the M listed tiles with
-// the global (1, kp, 8) / (1, kb, 24) tables.
+// per-tile rows. tile_ids (M,): the hot launch (primary_hit_hot_kernel)
+// over the M listed tiles with the global (1, kp, 8) / (1, kb, 24) tables.
 extern "C" int oglrt_primary_hit_ray(const float* dirs, const float* origins,
                                      const float* sph, const float* box,
                                      const float* pln, const int* cnt,
@@ -331,9 +485,13 @@ extern "C" int oglrt_primary_hit_ray(const float* dirs, const float* origins,
                                      float* t, float* n, bool* inside,
                                      int* mat, int* gid, int* slot,
                                      void* stream) {
-  return oglrt::launch<true>(dirs, origins, sph, box, pln, cnt, tile_ids,
-                             tile_ids != nullptr, n_blocks, tile_p, kp, kb,
-                             n_pln, t, n, inside, mat, gid, slot, stream);
+  if (tile_ids != nullptr)
+    return oglrt::launch_hot(dirs, origins, sph, box, pln, cnt, tile_ids,
+                             n_blocks, tile_p, kp, kb, n_pln, t, n, inside,
+                             mat, gid, slot, stream);
+  return oglrt::launch<true>(dirs, origins, sph, box, pln, cnt, n_blocks,
+                             tile_p, kp, kb, n_pln, t, n, inside, mat, gid,
+                             slot, stream);
 }
 
 extern "C" const char* oglrt_error_string(int err) {

@@ -82,31 +82,35 @@ def find_nvcc() -> str:
         "csrc/ with the CUDA toolkit's nvcc on the machine with the GPU")
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC, sources: tuple = SOURCES) -> Path:
     """_build/<digest of the sources and flags>."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in sources + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, str]:
+def build(csrc: Path = CSRC, sources: tuple = SOURCES) -> tuple[Path, str]:
     """Compile the kernels unless this digest is built already: one nvcc
     per source, run in parallel, then one link. Returns the library's path
-    and nvcc's output (ptxas register and shared-memory use per kernel;
-    empty when the library was already built)."""
-    out = build_dir() / LIB_NAME
+    and nvcc's output (ptxas register, shared-memory and spill figures per
+    kernel; empty when the library was already built).
+
+    The arguments select another build for measurement: some of the
+    sources, from another directory (an earlier version of a kernel, to
+    time beside the current one)."""
+    out = build_dir(csrc, sources) / LIB_NAME
     if out.exists():
         return out, ""
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
-    objs = [out.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES]
+    objs = [out.with_name(f"{Path(s).stem}.{tag}.o") for s in sources]
     jobs = []
-    for src, obj in zip(SOURCES, objs):
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
-               str(CSRC / src)]
+    for src, obj in zip(sources, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(csrc), "-o", str(obj),
+               str(csrc / src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True)))
@@ -134,18 +138,25 @@ def build() -> tuple[Path, str]:
     return out, "".join(logs) + proc.stdout + proc.stderr
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    path, _ = build()
+def load(path: Path, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Load a kernel library built by ``build`` and declare the C
+    signatures of its functions ``names`` (all of them by default; a build
+    of some of the sources names what those hold). A missing function
+    raises here, not at its first launch."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     lib.oglrt_error_string.argtypes = [ctypes.c_int]
     lib.oglrt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    return load(build()[0])
 
 
 def launch(name: str, device: torch.device, *args) -> None:

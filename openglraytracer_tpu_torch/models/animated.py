@@ -28,12 +28,12 @@ from openglraytracer_tpu_torch.models.scene import (REF_LIGHTS, REF_MATERIALS,
 _MAT_ORDER = ["red_glass", "wall", "mirror", "green_glass", "blue_glass"]
 
 
-def reference_materials(dtype=torch.float32, device="cpu"):
+def reference_materials(dtype=torch.float32, device="cuda"):
     return make_materials([REF_MATERIALS[k] for k in _MAT_ORDER], dtype,
                           device)
 
 
-def reference_scene(time, dtype=torch.float32, device="cpu") -> Scene:
+def reference_scene(time, dtype=torch.float32, device="cuda") -> Scene:
     """The 5-object animated scene at a given time (seconds)."""
     def v(*xs):
         return torch.tensor(xs, dtype=dtype, device=device)
@@ -71,7 +71,7 @@ def reference_scene(time, dtype=torch.float32, device="cpu") -> Scene:
                       lights=make_lights(REF_LIGHTS, dtype, device))
 
 
-def reference_camera(time, dtype=torch.float32, device="cpu") -> Camera:
+def reference_camera(time, dtype=torch.float32, device="cuda") -> Camera:
     """The orbiting camera."""
     def s(x):
         return torch.tensor(x, dtype=dtype, device=device)
@@ -89,7 +89,7 @@ def reference_camera(time, dtype=torch.float32, device="cpu") -> Camera:
                   far=s(1000.0))
 
 
-def reference_frame(time, dtype=torch.float32, device="cpu"):
+def reference_frame(time, dtype=torch.float32, device="cuda"):
     """(Scene, Camera) of the reference demo at `time` seconds."""
     return (reference_scene(time, dtype, device),
             reference_camera(time, dtype, device))

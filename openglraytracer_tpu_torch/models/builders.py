@@ -35,7 +35,7 @@ def _matte(diffuse, ambient=0.15, specular=0.4, shininess=16.0,
 
 
 def _ground_plane(material_id, z=-1.0, dtype=torch.float32,
-                  device="cpu") -> Planes:
+                  device="cuda") -> Planes:
     return Planes(
         normal=_t([[0.0, 0.0, 1.0]], dtype, device),
         offset=_t([z], dtype, device),
@@ -44,7 +44,7 @@ def _ground_plane(material_id, z=-1.0, dtype=torch.float32,
 
 
 def single_sphere_scene(dtype=torch.float32,
-                        device="cpu") -> tuple[Scene, Camera]:
+                        device="cuda") -> tuple[Scene, Camera]:
     """Config 1: single sphere + ground plane, 1 point light, 256x256."""
     mats = make_materials([
         _matte((0.9, 0.25, 0.2), shininess=32.0),   # sphere
@@ -68,7 +68,7 @@ def single_sphere_scene(dtype=torch.float32,
 
 
 def eight_sphere_scene(dtype=torch.float32,
-                       device="cpu") -> tuple[Scene, Camera]:
+                       device="cuda") -> tuple[Scene, Camera]:
     """Config 2: 8 spheres + plane, 2 lights with hard shadows, 512x512."""
     rng = np.random.default_rng(8)
     n = 8
@@ -104,7 +104,7 @@ def eight_sphere_scene(dtype=torch.float32,
 def sphere_grid_scene(side: int = 8, spacing: float = 2.5,
                       reflectivity: float = 0.0, seed: int = 64,
                       dtype=torch.float32,
-                      device="cpu") -> tuple[Scene, Camera]:
+                      device="cuda") -> tuple[Scene, Camera]:
     """Config 3 (side=8 -> 64 spheres @1024^2) and config 5 (side=64 -> 4096
     spheres @2048^2): a side x side grid of spheres over a ground plane,
     per-sphere materials. reflectivity > 0 turns it into the config-4 mirror
@@ -149,14 +149,14 @@ def sphere_grid_scene(side: int = 8, spacing: float = 2.5,
     return scene, cam
 
 
-def mirror_scene(dtype=torch.float32, device="cpu") -> tuple[Scene, Camera]:
+def mirror_scene(dtype=torch.float32, device="cuda") -> tuple[Scene, Camera]:
     """Config 4: 1-bounce mirror reflection, 1024x1024."""
     return sphere_grid_scene(side=8, reflectivity=0.6, seed=4, dtype=dtype,
                              device=device)
 
 
 def mirror_grid4096_scene(dtype=torch.float32,
-                          device="cpu") -> tuple[Scene, Camera]:
+                          device="cuda") -> tuple[Scene, Camera]:
     """4096 mirror spheres at depth 1 (the c4 x c5 composition)."""
     return sphere_grid_scene(side=64, reflectivity=0.6, seed=1, dtype=dtype,
                              device=device)
@@ -166,11 +166,11 @@ BENCH_CONFIGS = {
     # name -> (builder, height, width, depth); builder(dtype=, device=)
     "c1_sphere_plane": (single_sphere_scene, 256, 256, 0),
     "c2_eight_spheres": (eight_sphere_scene, 512, 512, 0),
-    "c3_grid64": (lambda dtype=torch.float32, device="cpu":
+    "c3_grid64": (lambda dtype=torch.float32, device="cuda":
                   sphere_grid_scene(8, dtype=dtype, device=device),
                   1024, 1024, 0),
     "c4_mirror": (mirror_scene, 1024, 1024, 1),
-    "c5_grid4096": (lambda dtype=torch.float32, device="cpu":
+    "c5_grid4096": (lambda dtype=torch.float32, device="cuda":
                     sphere_grid_scene(64, dtype=dtype, device=device),
                     2048, 2048, 0),
     "c4_mirror4096": (mirror_grid4096_scene, 1024, 1024, 1),

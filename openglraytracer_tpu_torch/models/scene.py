@@ -11,10 +11,13 @@ holding torch tensors instead of JAX arrays.
   * ``Materials``: one row per material, referenced by id
   * ``Lights``:   point lights with vec4 ambient/diffuse/specular colors
 
-Every builder takes an explicit ``device``. ``scene_from_numpy`` and
-``camera_from_numpy`` take the nested dict of numpy arrays that a JAX scene
-converts to (the ``scene_to_dict`` schema), so both packages can compute on
-identical inputs.
+Every builder and loader puts its tensors on ``device``, the GPU
+(``"cuda"``) unless the caller asks for another: without a card that
+raises, and a CPU scene (``device="cpu"``) runs the plain PyTorch versions
+of the kernels. ``scene_from_numpy`` and ``camera_from_numpy`` take the
+nested dict of numpy arrays that a JAX scene converts to (the
+``scene_to_dict`` schema), so both packages can compute on identical
+inputs.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ class Camera(NamedTuple):
     far: torch.Tensor       # scalar
 
 
-def _t(x, dtype=torch.float32, device="cpu"):
+def _t(x, dtype=torch.float32, device="cuda"):
     """Host data -> tensor, rounding float64 to float32 the way jnp.asarray
     does (round to nearest), so builders match the JAX package bit for bit."""
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -128,7 +131,7 @@ def _t(x, dtype=torch.float32, device="cpu"):
 
 def make_camera(position, angles=(0.0, 0.0, 0.0), v_fov=90.0,
                 aspect=16.0 / 9.0, near=0.1, far=1000.0,
-                dtype=torch.float32, device="cpu") -> Camera:
+                dtype=torch.float32, device="cuda") -> Camera:
     return Camera(
         position=_t(position, dtype, device),
         angles=_t(angles, dtype, device),
@@ -151,7 +154,7 @@ def _stack_vec4(rows, dtype, device):
     return _t(out, dtype, device)
 
 
-def make_materials(rows, dtype=torch.float32, device="cpu") -> Materials:
+def make_materials(rows, dtype=torch.float32, device="cuda") -> Materials:
     """rows: list of dicts with keys ambient, diffuse, specular, shininess,
     emissive, reflectivity, transparency, refraction_index. Scalar color
     values broadcast to all 4 channels (GLSL vec4(x) semantics)."""
@@ -173,7 +176,7 @@ def make_materials(rows, dtype=torch.float32, device="cpu") -> Materials:
     )
 
 
-def make_lights(rows, dtype=torch.float32, device="cpu") -> Lights:
+def make_lights(rows, dtype=torch.float32, device="cuda") -> Lights:
     return Lights(
         position=_t([r["position"] for r in rows], dtype, device),
         ambient=_stack_vec4([r.get("ambient", 0.0) for r in rows], dtype,
@@ -185,19 +188,19 @@ def make_lights(rows, dtype=torch.float32, device="cpu") -> Lights:
     )
 
 
-def empty_spheres(dtype=torch.float32, device="cpu") -> Spheres:
+def empty_spheres(dtype=torch.float32, device="cuda") -> Spheres:
     return Spheres(torch.zeros((0, 3), dtype=dtype, device=device),
                    torch.zeros((0,), dtype=dtype, device=device),
                    torch.zeros((0,), dtype=torch.int32, device=device))
 
 
-def empty_boxes(dtype=torch.float32, device="cpu") -> Boxes:
+def empty_boxes(dtype=torch.float32, device="cuda") -> Boxes:
     z3 = torch.zeros((0, 3), dtype=dtype, device=device)
     return Boxes(z3, z3, z3, z3,
                  torch.zeros((0,), dtype=torch.int32, device=device))
 
 
-def empty_planes(dtype=torch.float32, device="cpu") -> Planes:
+def empty_planes(dtype=torch.float32, device="cuda") -> Planes:
     return Planes(torch.zeros((0, 3), dtype=dtype, device=device),
                   torch.zeros((0,), dtype=dtype, device=device),
                   torch.zeros((0,), dtype=torch.int32, device=device))
@@ -271,7 +274,7 @@ _SUBTREES = (("spheres", Spheres), ("boxes", Boxes), ("planes", Planes),
              ("materials", Materials), ("lights", Lights))
 
 
-def scene_from_numpy(tree: dict, device="cpu") -> Scene:
+def scene_from_numpy(tree: dict, device="cuda") -> Scene:
     """Scene from a nested dict of numpy arrays ``{"spheres": {"center":
     ..., ...}, ...}`` (the ``scene_to_dict`` schema), keeping each array's
     dtype and values exactly."""
@@ -280,7 +283,7 @@ def scene_from_numpy(tree: dict, device="cpu") -> Scene:
                    for key, cls in _SUBTREES))
 
 
-def camera_from_numpy(tree: dict, device="cpu") -> Camera:
+def camera_from_numpy(tree: dict, device="cuda") -> Camera:
     """Camera from a dict of numpy arrays keyed by Camera's fields."""
     return Camera(**{f: torch.from_numpy(np.array(tree[f])).to(device)
                      for f in Camera._fields})
@@ -293,7 +296,7 @@ def scene_to_dict(scene: Scene) -> dict:
             for key, _ in _SUBTREES}
 
 
-def scene_from_dict(d: dict, dtype=torch.float32, device="cpu") -> Scene:
+def scene_from_dict(d: dict, dtype=torch.float32, device="cuda") -> Scene:
     # trailing dims of each 2-D column (everything else is 1-D)
     vec_cols = {"center": 3, "mins": 3, "maxs": 3, "position": 3, "angles": 3,
                 "normal": 3, "ambient": 4, "diffuse": 4, "specular": 4,
@@ -334,7 +337,7 @@ def camera_to_dict(camera: Camera) -> dict:
             for k, v in camera._asdict().items()}
 
 
-def camera_from_dict(d: dict, dtype=torch.float32, device="cpu") -> Camera:
+def camera_from_dict(d: dict, dtype=torch.float32, device="cuda") -> Camera:
     missing = set(Camera._fields) - set(d)
     if missing:
         raise ValueError(f"scene JSON: 'camera' is missing {sorted(missing)}")
@@ -350,7 +353,7 @@ def save_scene(scene: Scene, path: str, camera: Camera | None = None) -> None:
         json.dump(d, f, indent=1)
 
 
-def load_scene_camera(path: str, dtype=torch.float32, device="cpu"):
+def load_scene_camera(path: str, dtype=torch.float32, device="cuda"):
     """(Scene, Camera | None) from a scene JSON; None when the file has no
     'camera' entry."""
     with open(path) as f:

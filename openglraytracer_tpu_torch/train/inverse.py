@@ -179,6 +179,7 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
     fired, the loop recounts the survivors for the current parameters and
     logs the resize suggestion."""
     from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
+    from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
     from openglraytracer_tpu_torch.utils.metrics import (MetricsLogger,
                                                          rays_per_frame)
 
@@ -191,7 +192,9 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
     logger = MetricsLogger("fit", path=cfg.log_path)
     losses = []
     rays = rays_per_frame(cfg.height, cfg.width, scene_init.lights.count,
-                          cfg.depth, bounce_mask=(True, True))
+                          cfg.depth,
+                          bounce_mask=(static_bounce_mask(scene_init)
+                                       if cfg.depth > 0 else (True, True)))
     t_last, rays_logged = time.perf_counter(), 0
     ovf_running = torch.zeros((), dtype=torch.int32, device=device)
     for step in range(cfg.steps):

@@ -26,11 +26,12 @@ def to_torch_scene(scene):
     """JAX Scene -> port Scene with identical arrays."""
     return scene_from_numpy({k: {f: np_(v) for f, v in
                                  getattr(scene, k)._asdict().items()}
-                             for k in scene._fields})
+                             for k in scene._fields}, device="cpu")
 
 
 def to_torch_camera(cam):
-    return camera_from_numpy({f: np_(v) for f, v in cam._asdict().items()})
+    return camera_from_numpy({f: np_(v) for f, v in cam._asdict().items()},
+                             device="cpu")
 
 
 def to_torch(*xs):

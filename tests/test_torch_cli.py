@@ -78,7 +78,7 @@ def test_kernel_argument_checks():
 
 
 def test_render_rejects_unported_paths():
-    scene, cam = sphere_grid_scene(2)
+    scene, cam = sphere_grid_scene(2, device="cpu")
     spec = ((8, 8), 8, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, cam, 16, 16, engine="xla", cull=spec)
@@ -102,7 +102,7 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "cull: tile=16 kp=48 ks=64 hot_m=0" in printed
     png = np.asarray(Image.open(out).convert("RGB"))
-    scene, cam = sphere_grid_scene(8)
+    scene, cam = sphere_grid_scene(8, device="cpu")
     spec = suggest_cull_config(scene, cam, 64, 64, (16, 16))
     img = render(scene, cam, 64, 64, cull=spec)
     np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
@@ -172,7 +172,7 @@ def test_cli_render_pallas_cpu(tmp_path, capsys):
               str(out)])
     assert "cull:" not in capsys.readouterr().out
     png = np.asarray(Image.open(out).convert("RGB"))
-    scene, cam = sphere_grid_scene(8)
+    scene, cam = sphere_grid_scene(8, device="cpu")
     img = render(scene, cam, 32, 48, engine="pallas")
     np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from openglraytracer_tpu_torch import kernels
+from openglraytracer_tpu_torch import kernel_cases, kernels
 from openglraytracer_tpu_torch.models.builders import (mirror_grid4096_scene,
                                                        sphere_grid_scene)
 from openglraytracer_tpu_torch.models.scene import (Boxes, Planes, Spheres,
@@ -120,7 +120,7 @@ def test_launch_counts_and_cpu_agreement(dev):
                                       "shadow_occlusion": 1,
                                       "phong_fused": 1}
     assert int(ovf) == 0
-    cpu_scene, cpu_cam = sphere_grid_scene(8)
+    cpu_scene, cpu_cam = sphere_grid_scene(8, device="cpu")
     kernels.LAUNCHES.clear()
     ref = render(cpu_scene, cpu_cam, 64, 64, cull=spec)
     assert sum(kernels.LAUNCHES.values()) == 0
@@ -228,7 +228,7 @@ def test_gradients_match_cpu(dev):
                                                      tile_image)
     from openglraytracer_tpu_torch.ops.raygen import generate_rays
     from openglraytracer_tpu_torch.ops.render import trace_rays_fast
-    scene, cam = sphere_grid_scene(8)
+    scene, cam = sphere_grid_scene(8, device="cpu")
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(suggest_cull_config(
         scene, cam, 64, 64, (16, 16)))
     o, d = (tile_image(x, th, tw).reshape(-1, 3)
@@ -328,6 +328,31 @@ def test_kernel2_matches_plain(dev, monkeypatch):
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_sph", [1000, 4200])
+def test_kernel2_hot_on_grazing_rays(dev, n_sph):
+    """Kernel 2's hot launch against its plain version on rays that split
+    warps (kernel_cases.graze_hot_inputs): tangent grazes with qd at 0 and
+    an ulp either side, spheres behind the origin, invalid rows that must
+    never win and a slack block row, against a table of one staged chunk
+    (1000 rows) and one of five (4200 rows, with winners past row 4096).
+    Discrete outputs equal, t and n as in test_kernel2_matches_plain."""
+    a, kw = kernel_cases.graze_hot_inputs(dev, n_sph, 2)
+    kernels.LAUNCHES.clear()
+    got = culled.primary_hit_ray(*a, **kw)
+    assert kernels.LAUNCHES["primary_hit_hot"] == 1
+    want = culled.primary_hit_plain(a[0], *a[2:], origins=a[1], **kw)
+    n_rays = a[0].shape[0]
+    target, ahead = kernel_cases.graze_target(dev, n_sph, n_rays)
+    own = want[4][:n_rays] == target
+    assert 0 < int(own.sum()) < n_rays and not bool(own[~ahead].any())
+    if n_sph > 4096:     # winners from the second chunk
+        assert int(target[own].max()) >= 4096
+    for x, y in zip(got[2:], want[2:]):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+
+
 def test_depth1_frame_launches_and_is_sync_free(dev, monkeypatch):
     """A depth-1 c4_mirror4096 frame at 128x128 launches kernel A, kernel 2
     (cold and hot), kernel B, the shade and the compaction, never waits for
@@ -420,6 +445,31 @@ def test_dense_kernel_matches_plain(dev, monkeypatch, which):
         for x, y in zip(got[:4], want[:4]):
             assert torch.equal(x, y)
         assert torch.equal(got[4] & hit, want[4] & hit)
+
+
+@pytest.mark.parametrize("which", ["graze", "partially_blocked"])
+def test_dense_kernel_on_split_warps(dev, which):
+    """Kernel 7 against dense_hit_plain on rays that split warps
+    (kernel_cases): tangent grazes with disc at 0 and an ulp either side
+    against a table of 300 spheres, two staging chunks; and warps in which
+    the first sphere blocks a light's segment on some lanes only, so that
+    those lanes stop testing early.
+    Equal bit for bit, occlusion where the ray hit."""
+    from openglraytracer_tpu_torch.ops import dense
+    a = (kernel_cases.graze_dense_inputs(dev, 300, 4096) if which == "graze"
+         else kernel_cases.partial_block_inputs(dev, 4096))
+    got = dense.dense_hit(*a)
+    want = dense.dense_hit_plain(*a)
+    hit = want[0] < 1e4
+    if which == "graze":
+        target, ahead = kernel_cases.graze_target(dev, 300, 4096)
+        own = want[3] == target
+        assert 0 < int(own.sum()) < 4096 and not bool(own[~ahead].any())
+    else:
+        assert kernel_cases.mixed_warps(want[4], hit) > 0.0
+    for x, y in zip(got[:4], want[:4]):
+        assert torch.equal(x, y)
+    assert torch.equal(got[4] & hit, want[4] & hit)
 
 
 def test_dense_frame_and_step_launch_and_are_sync_free(dev):

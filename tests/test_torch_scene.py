@@ -29,7 +29,7 @@ def test_builders_bit_equal(name):
     """Same seeded numpy draws, same float64 -> float32 rounding: every
     builder's arrays equal the JAX builder's bit for bit, dtypes included."""
     jscene, jcam = jb.BENCH_CONFIGS[name][0]()
-    tscene, tcam = tb.BENCH_CONFIGS[name][0]()
+    tscene, tcam = tb.BENCH_CONFIGS[name][0](device="cpu")
     assert jb.BENCH_CONFIGS[name][1:] == tb.BENCH_CONFIGS[name][1:]
     jl = jax.tree_util.tree_leaves((jscene, jcam))
     tl = _leaves(tscene, tcam)
@@ -37,6 +37,40 @@ def test_builders_bit_equal(name):
     for a, b in zip(jl, tl):
         assert np_(a).dtype == np_(b).dtype
         np.testing.assert_array_equal(np_(b), np_(a))
+
+
+def test_builders_and_loaders_default_to_cuda():
+    """Every public function of the port that builds or loads a scene, a
+    camera or part of a scene puts it on the GPU unless asked otherwise,
+    as the JAX package's builders put theirs on its default device. Found
+    by inspecting each signature. Without a card a default call raises:
+    it never falls back to the CPU."""
+    import inspect
+
+    from openglraytracer_tpu_torch.models import animated as ta
+    found = {}
+    for mod in (tb, ts, ta):
+        for name, fn in vars(mod).items():
+            if (name.startswith("_") or not inspect.isfunction(fn)
+                    or fn.__module__ != mod.__name__):
+                continue
+            params = inspect.signature(fn).parameters
+            if "device" in params:
+                found[f"{mod.__name__}.{name}"] = params["device"].default
+    for name, (builder, *_) in tb.BENCH_CONFIGS.items():
+        found[f"BENCH_CONFIGS[{name!r}]"] = inspect.signature(
+            builder).parameters["device"].default
+    short = {k.rsplit(".", 1)[-1] for k in found}
+    assert {"single_sphere_scene", "eight_sphere_scene", "sphere_grid_scene",
+            "mirror_scene", "mirror_grid4096_scene", "reference_materials",
+            "reference_scene", "reference_camera", "reference_frame",
+            "scene_from_numpy", "camera_from_numpy", "scene_from_dict",
+            "camera_from_dict", "load_scene_camera", "make_camera",
+            "make_materials", "make_lights"} <= short, sorted(short)
+    assert {k: v for k, v in found.items() if v != "cuda"} == {}
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tb.sphere_grid_scene(2)
 
 
 def test_scene_from_numpy_is_exact():
@@ -57,27 +91,29 @@ def test_scene_json_interchange(tmp_path):
     d["camera"] = {k: np_(v).tolist() for k, v in jcam._asdict().items()}
     path = tmp_path / "scene.json"
     path.write_text(json.dumps(d))
-    tscene, tcam = ts.load_scene_camera(str(path))
+    tscene, tcam = ts.load_scene_camera(str(path), device="cpu")
     for a, b in zip(jax.tree_util.tree_leaves((jscene, jcam)),
                     _leaves(tscene, tcam)):
         np.testing.assert_array_equal(np_(b), np_(a))
     path2 = tmp_path / "again.json"
     ts.save_scene(tscene, str(path2), camera=tcam)
-    s2, c2 = ts.load_scene_camera(str(path2))
+    s2, c2 = ts.load_scene_camera(str(path2), device="cpu")
     for a, b in zip(_leaves(tscene, tcam), _leaves(s2, c2)):
         assert torch.equal(a, b)
 
 
 def test_scene_from_dict_rejects_bad_schema():
     with pytest.raises(ValueError, match="missing columns"):
-        ts.scene_from_dict({"spheres": {"center": [[0.0, 0.0, 0.0]]}})
+        ts.scene_from_dict({"spheres": {"center": [[0.0, 0.0, 0.0]]}},
+                           device="cpu")
     with pytest.raises(ValueError, match="dict of column arrays"):
-        ts.scene_from_dict({"spheres": [[0.0, 0.0, 0.0]]})
+        ts.scene_from_dict({"spheres": [[0.0, 0.0, 0.0]]}, device="cpu")
 
 
 def test_make_scene_fills_empty_sets():
-    mats = ts.make_materials([dict(diffuse=0.5)])
-    lights = ts.make_lights([dict(position=(0.0, 0.0, 5.0), diffuse=1.0)])
+    mats = ts.make_materials([dict(diffuse=0.5)], device="cpu")
+    lights = ts.make_lights([dict(position=(0.0, 0.0, 5.0), diffuse=1.0)],
+                            device="cpu")
     scene = ts.make_scene(materials=mats, lights=lights)
     assert scene.spheres.count == scene.boxes.count == scene.planes.count == 0
     assert scene.spheres.material_id.dtype == torch.int32
@@ -147,7 +183,7 @@ def test_reference_frame_matches_jax(time):
     from openglraytracer_tpu_torch.models.animated import (
         reference_frame as tf)
     jscene, jcam = jf(time)
-    tscene, tcam = tf(time)
+    tscene, tcam = tf(time, device="cpu")
     assert tscene.spheres.count == 1 and tscene.boxes.count == 4
     assert tscene.planes.count == 0 and tscene.lights.count == 3
     jl = jax.tree_util.tree_leaves((jscene, jcam))

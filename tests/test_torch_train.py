@@ -27,7 +27,7 @@ GEOMETRY_TOL = 2e-3
 
 
 def test_extract_apply_round_trip():
-    scene, _ = tb.sphere_grid_scene(2)
+    scene, _ = tb.sphere_grid_scene(2, device="cpu")
     params = tinv.extract_params(scene, tinv.DEFAULT_TRAINABLE)
     assert list(params) == list(tinv.DEFAULT_TRAINABLE)
     assert params["spheres.center"] is scene.spheres.center
@@ -104,7 +104,7 @@ def test_fit_reduces_loss():
     loss in 100 Adam steps, as the JAX package's own fit test asks of it
     (tests/test_train.py)."""
     h = w = 48
-    scene, cam = tb.sphere_grid_scene(2, seed=7)
+    scene, cam = tb.sphere_grid_scene(2, seed=7, device="cpu")
     spec = suggest_cull_config(scene, cam, h, w, (16, 16), headroom=2.0)
     with torch.no_grad():
         target = t_render_mod.render(scene, cam, h, w, cull=spec)
@@ -129,7 +129,7 @@ def test_trainable_lights_cast_every_shadow(monkeypatch):
     """A light with zero diffuse and specular casts no shadow rays when the
     lights are frozen (static_shadow_mask), and does when a light leaf is
     trainable: training could make it matter."""
-    scene, cam = tb.sphere_grid_scene(2)
+    scene, cam = tb.sphere_grid_scene(2, device="cpu")
     lights = scene.lights
     scene = scene._replace(lights=lights._replace(
         diffuse=torch.cat([lights.diffuse[:1], 0 * lights.diffuse[1:]]),
@@ -148,11 +148,31 @@ def test_trainable_lights_cast_every_shadow(monkeypatch):
     assert masks == [(True, False), (True, True)]
 
 
+@pytest.mark.parametrize("depth", [0, 1])
+def test_fit_charges_rays_with_the_static_bounce_mask(monkeypatch, depth):
+    """fit logs mrays_per_s from rays_per_frame. At depth > 0 it charges
+    the branches that can contribute, static_bounce_mask(scene), as the
+    JAX package's fit does: a mirror-only scene casts a reflection child
+    and no refraction child. At depth 0 the mask is (True, True)."""
+    from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
+    from openglraytracer_tpu_torch.utils import metrics
+    scene, cam = tb.sphere_grid_scene(2, reflectivity=0.6, device="cpu")
+    assert static_bounce_mask(scene) == (True, False)
+    masks = []
+    real = metrics.rays_per_frame
+    monkeypatch.setattr(metrics, "rays_per_frame", lambda *a, **k: (
+        masks.append(k["bounce_mask"]), real(*a, **k))[1])
+    cfg = tinv.FitConfig(height=8, width=8, depth=depth, steps=1,
+                         engine="pallas", trainable=("spheres.center",))
+    tinv.fit(scene, torch.zeros((8, 8, 3)), cam, cfg)
+    assert masks == [(True, False) if depth else (True, True)]
+
+
 @pytest.mark.parametrize("change", [
     dict(soft=(0.3, 0.3)), dict(checkpoint_dir="ckpt"), dict(row_block=8),
     dict(remat=True), dict(cull=None), dict(mesh=object())])
 def test_make_train_step_rejects_unported(change):
-    scene, cam = tb.sphere_grid_scene(2)
+    scene, cam = tb.sphere_grid_scene(2, device="cpu")
     mesh = change.pop("mesh", None)
     kw = dict(height=H, width=W, cull=((16, 16), 8, 8, 0))
     kw.update(change)
