@@ -22,8 +22,9 @@ angles. It exits non-zero on any failure. Phases:
      copy is present (EARLIER_CSRC)
   3. each c3 kernel against its plain PyTorch version on the card, on the
      inputs the c3 paths give it, and on a small hand-built scene with
-     rotated boxes (the box paths of kernels A and B, and the box winner
-     replay of the backward against kernel A's own hits)
+     rotated boxes (the box paths of kernels A and B, kernel B with and
+     without hot shadow tiles, and the box winner replay of the backward
+     against kernel A's own hits)
   4. the c3 forward path for 3 frames: every kernel launched on every
      frame, no cull overflow, a finite image within 1/255 of the plain
      versions' image on >= 99.9% of pixels, and a small render equal to
@@ -40,23 +41,36 @@ angles. It exits non-zero on any failure. Phases:
      the loss falls
   9. the compaction kernel against its plain version on every mask of at
      least 1024 objects that a c5_grid4096 and a c4_mirror4096 frame
-     compact: ids, valid flags and counts exactly equal
- 10. kernel 2 (per-ray primary hit), its cold launch and its hot launch
-     over the global table, against its plain version on the inputs a
-     c4_mirror4096 frame hands them, cut to the 8 hottest and 24 cold
-     tiles; fails unless the child spec has a hot budget and a tile of the
-     frame is truly hot. Then the hot launch on rays that split warps
+     compact, and on ragged masks (kernel_cases.ragged_masks: widths 1025,
+     4095, 4097; rows of 0, K - 1, K, K + 1 and N survivors): ids, valid
+     flags and counts exactly equal
+ 10. kernel 3 (B, shadow occlusion: its first launch and its hot launch)
+     against its plain version, bit for bit, on the inputs a c5_grid4096
+     frame and both levels of a c4_mirror4096 frame hand it, hot (tile,
+     light) pairs included (fails unless a hot tile's survivors exceed
+     Ks), and on shadow_graze_inputs (tangent segments with the
+     discriminant at 0 and an ulp either side, cast origins inside a
+     sphere, qa at _DIV_EPS, tiles hot for one light only) against 4096,
+     5000 and 5120 spheres; then kernel 2 (per-ray primary hit), its cold
+     launch and its hot launch over the global table, against its plain
+     version on the inputs a c4_mirror4096 frame hands them, cut to the 8
+     hottest and 24 cold tiles; fails unless the child spec has a hot
+     budget and a tile of the frame is truly hot. Then the hot launch on
+     rays that split warps
      (graze_hot_inputs: tangent grazes with qd at 0 and an ulp either side,
      spheres behind the origin, invalid rows, a slack block) against 4096
      and 5120 spheres (four and five staged chunks): no discrete mismatch
      at all
  11. the c5_grid4096 and c4_mirror4096 forward paths for 3 frames each:
      every kernel of the path launched on every frame, no overflow, a
-     finite image within 1/255 of the plain versions' on >= 99.9% of pixels
- 12. their frame and training step timed as in phases 5 and 7, and
-     kernels 6 and 2 beside their plain versions at full size (kernel 2
-     and, in phase 5, kernel A in turns with the earlier build where it is
-     present)
+     finite image within 1/255 of the plain versions' on >= 99.9% of pixels,
+     and no call of the dense hot-shadow pass accel._segment_occluded
+ 12. their frame and training step timed as in phases 5 and 7 (and their
+     peak device memory), and kernels 6, 2 and 3 (each of its launches and
+     the two together, on every shadow call of the frames) beside their
+     plain versions at full size, in turns with the earlier build where it
+     is present (as kernels A and 3 at c3 in phase 5; the earlier kernel 3
+     with the dense pass over its hot tiles, earlier_shadow)
  13. their training paths for 3 steps each: every kernel launched on every
      step, no overflow, gradients as in phase 6
  14. kernel 7 (dense_hit) against its plain version on the inputs the
@@ -95,6 +109,7 @@ copy). The last line is {"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -135,11 +150,13 @@ BWD_NAMES = ("g_mat", "g_lpos", "g_lamb", "g_ldiff", "g_lspec", "g_dirs",
 # the 4096-object paths: builtin config -> (cull tile side, the kernels
 # each of its frames launches)
 PATHS_4096 = {
-    "c5_grid4096": (32, ("primary_hit", "shadow_occlusion", "phong_fused",
+    "c5_grid4096": (32, ("primary_hit", "shadow_occlusion",
+                         "shadow_occlusion_hot", "phong_fused",
                          "compact_mask")),
     "c4_mirror4096": (32, ("primary_hit", "primary_hit_ray",
                            "primary_hit_hot", "shadow_occlusion",
-                           "phong_fused", "compact_mask")),
+                           "shadow_occlusion_hot", "phong_fused",
+                           "compact_mask")),
 }
 # kernel 2 against its plain version: the hottest and some cold tiles
 CUT_HOT, CUT_COLD = 8, 24
@@ -153,14 +170,19 @@ OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
                  "boxes.position", "boxes.angles")
 # kernel 7 at 4096 spheres: a cut of this many c5_grid4096 rays
 C5_CUT = 65536
-# an earlier version of the redesigned kernels' sources (primary_hit.cu,
-# dense_hit.cu and common.cuh), put there by hand (the directory is
-# git-ignored): where it is present, phases 5, 12 and 16 time it beside
-# the current kernels, in turns
+# an earlier version of the redesigned kernels' sources (EARLIER_SOURCES
+# and common.cuh), put there by hand (the directory is git-ignored): where
+# it is present, phases 5, 12 and 16 time it beside the current kernels, in
+# turns
 EARLIER_CSRC = Path(__file__).resolve().parent / "earlier_csrc"
-EARLIER_SOURCES = ("primary_hit.cu", "dense_hit.cu")
+EARLIER_SOURCES = ("primary_hit.cu", "dense_hit.cu", "shadow_occlusion.cu",
+                   "compact_mask.cu")
 EARLIER_FUNCTIONS = ("oglrt_primary_hit", "oglrt_primary_hit_ray",
-                     "oglrt_dense_hit")
+                     "oglrt_dense_hit", "oglrt_compact_mask")
+# the earlier kernel 3 (before the hot pairs): 8-column sphere rows, sphere
+# occlusion and box-or-plane occlusion in two (T, L, P) outputs
+EARLIER_SHADOW_SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_uint] + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
@@ -173,19 +195,22 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # quadratic up to the discriminant ("sphere", "s_sphere"), and its square
 # root, both roots and their min and max only where this run's data gives
 # a discriminant >= 0 ("sphere_root", "s_sphere_root"): a miss needs no
-# root. Kernel 7's occlusion is charged the tests a segment needs, in table
-# order (spheres, boxes, planes) up to its first blocker, where the OR is
-# decided. Kernel B, which also stops at a segment's first blocker, is
-# charged every survivor test: an upper count of its operations, below its
-# bytes on every measured input (both are logged), so that its bound, as
-# every other, is a floor.
+# root. The occlusion of kernels 7 and B is charged the tests a segment
+# needs, in table order (kernel B: the pair's survivor spheres, or on a hot
+# pair every sphere of the scene, "s_hot_sphere"; its boxes; the planes) up
+# to its first blocker, where the OR is decided. Kernel B's first launch
+# takes the survivor spheres, boxes and planes, its hot launch the hot
+# pairs' spheres; its sphere test takes r * r on a survivor row and finds
+# it staged on a hot pair, and its loop-invariant 4 qa and 2 qa are not
+# charged.
 BOUND_OPS = {
     "primary_hit": dict(ray=19, sphere=10, sphere_root=8, box=40, plane=7),
     "primary_hit_ray": dict(ray=19, sphere=19, sphere_root=8, box=58,
                             plane=13),
     "primary_hit_hot": dict(ray=19, sphere=19, sphere_root=8, box=58,
                             plane=13),
-    "shadow_occlusion": dict(light=8, s_sphere=23, s_box=58, s_plane=13),
+    "shadow_occlusion": dict(light=8, s_sphere=20, s_box=58, s_plane=13),
+    "shadow_occlusion_hot": dict(light=8, s_hot_sphere=19),
     "phong_fused": dict(ray=25, light=90),
     "phong_shade_bwd": dict(ray=60, light=270),
     "compact_mask": dict(mask=1),
@@ -219,15 +244,18 @@ class Capture:
     from autograd), so that a kernel and its plain version can be compared
     on the main paths' own inputs: ``args`` keeps the last call of each
     wrapper (kernel 2's hot launch under ``primary_hit_hot``), ``calls``
-    every call of ``compact_mask``."""
+    every call of ``compact_mask``, ``log`` every call of every wrapper and
+    of ``culled._top_tiles`` (which picks the hot tiles) in order, as
+    (name, args, kwargs)."""
 
     def __init__(self, culled, shade, accel):
         self.targets = [(culled, "primary_hit"), (culled, "primary_hit_ray"),
                         (culled, "shadow_occlusion"),
                         (shade, "phong_fused"), (shade, "phong_shade_bwd"),
-                        (accel, "compact_mask"), (culled, "compact_mask")]
+                        (accel, "compact_mask"), (culled, "compact_mask"),
+                        (culled, "_top_tiles")]
         self.args, self.kwargs = {}, {}
-        self.calls = []
+        self.calls, self.log = [], []
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.targets]
@@ -235,6 +263,7 @@ class Capture:
             def spy(*a, _fn=fn, _name=name, **kw):
                 a_ = tuple(x.detach() if hasattr(x, "detach") else x
                            for x in a)
+                self.log.append((_name, a_, kw))
                 if _name == "compact_mask":
                     self.calls.append(a_)
                 else:
@@ -310,16 +339,15 @@ def compare_primary(torch, k, p, what, name="primary_hit", exact=False):
 
 
 def compare_shadow(torch, k, p, what):
-    share_s = float((k[0] != p[0]).float().mean())
-    share_o = float((k[1] != p[1]).float().mean())
-    err = float(((k[0] ^ p[0]).any() | (k[1] ^ p[1]).any()).item())
-    log(f"  shadow_occlusion [{what}]: occlusion mismatches sphere "
-        f"{share_s:.2e}, box/plane {share_o:.2e} of {k[0].numel()} "
-        f"(ray, light) pairs; occluded share {float(p[0].float().mean()):.4f}"
-        f" / {float(p[1].float().mean()):.4f}")
-    check(share_s <= DISCRETE_SHARE and share_o <= DISCRETE_SHARE,
+    """Kernel B's (R, L) occlusion k vs plain p: both round every op alike,
+    so every bit must agree. Returns (mismatch share, max abs err)."""
+    share = float((k != p).float().mean())
+    log(f"  shadow_occlusion [{what}]: occlusion mismatches {share:.2e} of "
+        f"{k.numel()} (ray, light) pairs; occluded share per light "
+        f"{[round(float(x), 4) for x in p.float().mean(dim=0)]}")
+    check(share == 0.0,
           f"shadow_occlusion kernel disagrees with its plain version ({what})")
-    return max(share_s, share_o), err
+    return share, float(share > 0.0)
 
 
 def compare_shade(torch, k, p, what):
@@ -436,6 +464,107 @@ def _dense_units(torch, args, outs):
     return u
 
 
+def _first_needed(torch, blk, count):
+    """Tests up to and including the first blocker of blk (..., K) in row
+    order, else all count of them."""
+    if blk.shape[-1] == 0:
+        return torch.zeros(blk.shape[:-1], dtype=torch.long,
+                           device=blk.device)
+    return torch.where(blk.any(dim=-1), blk.int().argmax(dim=-1) + 1, count)
+
+
+def _shadow_units(torch, args, kwargs, launch):
+    """Units of work of kernel B's launch ("shadow_occlusion", the first, or
+    "shadow_occlusion_hot") on these inputs: per ray and lit light, the
+    tests in table order up to and including the first blocker: the pair's
+    survivor spheres (none where qa <= 1e-12), or every sphere of the scene
+    on a hot pair (the hot launch's); then the pair's boxes; then the
+    planes (the first launch's)."""
+    so, hp, lights, light_on, ssph, sbox, pln, cnt, tile_p = args[:9]
+    hot_ids = args[9] if len(args) > 9 else kwargs.get("hot_ids")
+    spheres = args[10] if len(args) > 10 else kwargs.get("spheres")
+    n_t = cnt.shape[0]
+    so_t, hp_t = so.reshape(n_t, tile_p, 3), hp.reshape(n_t, tile_p, 3)
+    u = dict(light=0, s_sphere=0, s_hot_sphere=0, s_box=0, s_plane=0)
+    hot_launch = launch == "shadow_occlusion_hot"
+    for li in (j for j, on in enumerate(light_on) if on):
+        n_hot = hot_ids.shape[1] if hot_ids is not None else 0
+        u["light"] += (n_hot if hot_launch else n_t) * tile_p
+        is_hot = torch.zeros(n_t, dtype=torch.bool, device=so.device)
+        groups = []
+        if hot_ids is not None:
+            ids = hot_ids[li].long()
+            is_hot[ids] = True
+            groups.append(("s_hot_sphere", ids, spheres[None],
+                           torch.full_like(ids, spheres.shape[0])))
+        cold = torch.nonzero(~is_hot).flatten()
+        groups.append(("s_sphere", cold, ssph[:, li],
+                       cnt[cold, li, 0].clamp(min=0)))
+        for unit, tiles, rows, counts in groups:
+            if hot_launch and unit == "s_sphere":
+                continue
+            k_rows = rows.shape[1]
+            step = max(1, PAIR_CHUNK // max(1, tile_p * max(k_rows, 1)))
+            j = torch.arange(k_rows, device=so.device)
+            for a in range(0, tiles.numel(), step):
+                t = tiles[a:a + step]
+                s = so_t[t][..., None]                    # (B, P, 3, 1)
+                tl = lights[li][None, None, :, None] - hp_t[t][..., None]
+                qa = (tl * tl).sum(2)                     # (B, P, 1)
+                qa_ok = qa[..., 0] > 1e-12
+                c = rows if rows.shape[0] == 1 else rows[t]
+                soc = s - c.transpose(1, 2)[:, None, :3]  # (B, P, 3, K)
+                qb = 2.0 * (tl * soc).sum(2)
+                qcs = (soc * soc).sum(2) - c[:, None, :, 3] ** 2
+                f_end = qa + qb + qcs
+                blk = torch.where(qcs < 0.0, f_end > 0.0,
+                                  (f_end < 0.0) | ((qb * qb >= 4.0 * qa * qcs)
+                                                   & (qb < 0.0)
+                                                   & (-qb < 2.0 * qa)))
+                n_ok = counts[a:a + step][:, None]
+                blk = blk & (j < n_ok[..., None])
+                need = torch.where(qa_ok, _first_needed(torch, blk, n_ok), 0)
+                u[unit] += int(need.sum())
+                if hot_launch:
+                    continue
+                open_ = ~(blk.any(dim=-1) & qa_ok)        # (B, P)
+                # the pair's boxes, then the planes, where no sphere blocked
+                bx = sbox[t, li]                          # (B, Kb, 24)
+                nb = cnt[t, li, 1].clamp(max=bx.shape[1])[:, None]
+                blk_b = _box_blocks(torch, bx, s[..., 0], tl[..., 0]) \
+                    & (torch.arange(bx.shape[1], device=so.device)
+                       < nb[..., None])
+                u["s_box"] += int(torch.where(
+                    open_, _first_needed(torch, blk_b, nb), 0).sum())
+                open_ = open_ & ~blk_b.any(dim=-1)
+                nd = tl[..., 0] @ pln[:, :3].T           # (B, P, n_pln)
+                no = s[..., 0] @ pln[:, :3].T
+                tp = (pln[:, 3] - no) / torch.where(
+                    nd.abs() < 1e-12, torch.where(nd < 0, -1e-12, 1e-12), nd)
+                blk_p = (nd.abs() > 1e-9) & (tp > 0.0) & (tp < 1.0)
+                u["s_plane"] += int(torch.where(
+                    open_, _first_needed(torch, blk_p, pln.shape[0]), 0).sum())
+    return u
+
+
+def _box_blocks(torch, bx, s, tl):
+    """(B, P, Kb) box blocks of segments s + u tl (B, P, 3) against box rows
+    (B, Kb, 24) [mins maxs pos rot(9) valid]."""
+    rows = bx[:, None]                                   # (B, 1, Kb, 24)
+    rot = rows[..., 9:18].unflatten(-1, (3, 3))          # (B, 1, Kb, 3, 3)
+    w = s[:, :, None, :] - rows[..., 6:9]                # (B, P, Kb, 3)
+    ro = (rot * w[..., :, None]).sum(-2)                 # R^T w
+    rd = (rot * tl[:, :, None, :, None]).sum(-2)
+    inv = 1.0 / torch.where(rd.abs() < 1e-12,
+                            torch.where(rd < 0, -1e-12, 1e-12), rd)
+    ta, tb = (rows[..., 0:3] - ro) * inv, (rows[..., 3:6] - ro) * inv
+    t1 = torch.minimum(ta, tb).amax(-1)
+    t2 = torch.maximum(ta, tb).amin(-1)
+    ok = (t1 < t2) & (t2 > 0.0) & (rows[..., 18] > 0.5)
+    t = torch.where(ok & (t1 < 0.0), t2, t1)
+    return ok & (t > 0.0) & (t < 1.0)
+
+
 def _work_units(torch, name, args, kwargs, outs):
     """Units of work of one kernel call on these inputs (see BOUND_OPS);
     survivor-list kernels count the tests their trip counts ask for, and
@@ -460,16 +589,9 @@ def _work_units(torch, name, args, kwargs, outs):
                                        live[:, None], o),
                     box=total(cnt[:, 1], box.shape[1]) * tile_p,
                     plane=r * pln.shape[0])
-    if name == "shadow_occlusion":
-        so, _, _, light_on, ssph, sbox, pln, cnt, tile_p = args
-        lit = [j for j, on in enumerate(light_on) if on]
-        r = so.shape[0]
-        return dict(
-            light=r * len(lit), s_plane=r * len(lit) * pln.shape[0],
-            s_sphere=sum(total(cnt[:, j, 0], ssph.shape[2]) for j in lit)
-            * tile_p,
-            s_box=sum(total(cnt[:, j, 1], sbox.shape[2]) for j in lit)
-            * tile_p)
+    if name in ("shadow_occlusion", "shadow_occlusion_hot"):
+        units = _shadow_units(torch, args, kwargs, name)
+        return {k: v for k, v in units.items() if k in BOUND_OPS[name]}
     if name in ("phong_fused", "phong_shade_bwd"):
         r, n_lights = args[0].shape[0], args[1].shape[0]
         return dict(ray=r, light=r * n_lights)
@@ -509,11 +631,22 @@ def _bytes_moved(torch, name, args, kwargs, outs):
         return out_bytes + hot_rays + rows(sph, cnt[:, 0].max()) + rows(
             box, cnt[:, 1].max()) + nb(pln) + nb(cnt) + nb(tile_ids)
     if name == "shadow_occlusion":
-        so, hp, lights, light_on, ssph, sbox, pln, cnt, _ = args
+        so, hp, lights, light_on, ssph, sbox, pln, cnt, _ = args[:9]
         lit = [j for j, on in enumerate(light_on) if on]
         return out_bytes + nb(so) + nb(hp) + nb(lights) + sum(
-            rows(ssph[:, j], cnt[:, j, 0]) + rows(sbox[:, j], cnt[:, j, 1])
-            for j in lit) + nb(pln) + nb(cnt)
+            rows(ssph[:, j], cnt[:, j, 0].clamp(min=0))
+            + rows(sbox[:, j], cnt[:, j, 1]) for j in lit) + nb(pln) + nb(
+                cnt)
+    if name == "shadow_occlusion_hot":
+        # the rays of the hot tiles, the global sphere table and the hot ids
+        # once; the bits it sets are not counted
+        so, hp, lights, light_on, _, _, _, _, tile_p = args[:9]
+        hot_ids = args[9] if len(args) > 9 else kwargs["hot_ids"]
+        spheres = args[10] if len(args) > 10 else kwargs["spheres"]
+        lit = [j for j, on in enumerate(light_on) if on]
+        tiles = int(torch.unique(hot_ids[lit]).numel())
+        return (2 * tiles * tile_p * 3 * so.element_size() + nb(lights)
+                + nb(spheres) + nb(hot_ids))
     # the other kernels read every element of every tensor argument
     return out_bytes + sum(nb(x) for x in list(args) + list(kwargs.values())
                            if isinstance(x, torch.Tensor))
@@ -541,7 +674,110 @@ def earlier_library(kernels):
     if not (EARLIER_CSRC / EARLIER_SOURCES[0]).exists():
         return None, ""
     path, build_log = kernels.build(EARLIER_CSRC, EARLIER_SOURCES)
-    return kernels.load(path, EARLIER_FUNCTIONS), build_log
+    lib = kernels.load(path, EARLIER_FUNCTIONS)
+    lib.oglrt_shadow_occlusion.argtypes = EARLIER_SHADOW_SIGNATURE
+    lib.oglrt_shadow_occlusion.restype = ctypes.c_int
+    return lib, build_log
+
+
+def earlier_shadow(torch, accel, lib, args, kwargs=None):
+    """Kernel B's function as the earlier build computed it, on the current
+    wrapper's arguments: the earlier kernel over 8-column survivor rows into
+    (T, L, P) sphere and box-or-plane occlusion ("cold"), the dense pass
+    accel._segment_occluded over each light's hot tiles with the override
+    masks ("hot"), and both with the per-light merge and the stack, as
+    ops/culled.py ran them ("both", giving the (R, L) occlusion). The rows
+    are converted here, once; returns a dict of callables of no
+    arguments."""
+    so, hp, lights, light_on, ssph, sbox, pln, cnt, tile_p = args[:9]
+    kwargs = kwargs or {}
+    hot_ids, spheres = (list(args[9:11]) + [None, None])[:2]
+    hot_ids = kwargs.get("hot_ids", hot_ids)
+    spheres = kwargs.get("spheres", spheres)
+    dev = so.device
+    n_t, n_l, ks = ssph.shape[:3]
+    r = ssph[..., 3:4]
+    rows8 = torch.cat([ssph[..., :3], torch.nan_to_num(r, nan=0.0),
+                       (~r.isnan()).to(r.dtype), torch.zeros_like(
+                           ssph[..., :3])], dim=-1).contiguous()
+    cnt0 = cnt.clamp(min=0).contiguous()
+    mask = sum(1 << li for li, on in enumerate(light_on) if on)
+    occ_s = torch.empty((n_t, n_l, tile_p), dtype=torch.bool, device=dev)
+    occ_o = torch.empty_like(occ_s)
+
+    def cold():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.oglrt_shadow_occlusion(
+            so.data_ptr(), hp.data_ptr(), lights.data_ptr(), mask,
+            rows8.data_ptr(), sbox.data_ptr(), pln.data_ptr(),
+            cnt0.data_ptr(), n_t, tile_p, n_l, ks, sbox.shape[2],
+            pln.shape[0], occ_s.data_ptr(), occ_o.data_ptr(), stream)
+        check(err == 0, f"the earlier shadow kernel failed: CUDA error {err}")
+
+    dense = dense_hot_pass(torch, accel, args, kwargs)
+
+    def hot():
+        out = {}
+        for li, occ_h in dense().items():
+            ids = hot_ids[li].long()
+            is_hot = torch.zeros((n_t,), dtype=torch.bool,
+                                 device=dev).index_fill(0, ids, True)
+            out[li] = (is_hot, torch.zeros(
+                (n_t, tile_p), dtype=torch.bool,
+                device=dev).index_copy(0, ids, occ_h))
+        return out
+
+    def both():
+        over = hot()
+        cold()
+        cols = []
+        for li in range(n_l):
+            col_s = occ_s[:, li]
+            if li in over:
+                is_hot, occ_full = over[li]
+                col_s = torch.where(is_hot[:, None], occ_full, col_s)
+            cols.append((col_s | occ_o[:, li]).reshape(-1))
+        return torch.stack(cols, dim=-1)
+    return dict(cold=cold, hot=hot, both=both)
+
+
+def dense_hot_pass(torch, accel, args, kwargs=None):
+    """A callable of no arguments giving, per lit light with hot tiles, the
+    (M, P) occlusion of its hot tiles by every sphere of the scene through
+    accel._segment_occluded: the plain version of kernel B's hot launch
+    (the JAX package's dense pass), on the wrapper's arguments args."""
+    so, hp, lights, light_on, _, _, _, cnt, tile_p = args[:9]
+    kwargs = kwargs or {}
+    hot_ids, spheres = (list(args[9:11]) + [None, None])[:2]
+    hot_ids = kwargs.get("hot_ids", hot_ids)
+    spheres = kwargs.get("spheres", spheres)
+    n_t = cnt.shape[0]
+    so_t, p_t = so.reshape(n_t, tile_p, 3), hp.reshape(n_t, tile_p, 3)
+    lit = ([li for li, on in enumerate(light_on) if on]
+           if hot_ids is not None else [])
+    every = torch.ones((1, 0 if spheres is None else spheres.shape[0]),
+                       dtype=torch.bool, device=so.device)
+
+    def run():
+        out = {}
+        for li in lit:
+            ids = hot_ids[li].long()
+            c = spheres
+            out[li] = accel._segment_occluded(
+                so_t[ids], p_t[ids], lights[li], c[None, :, 0],
+                c[None, :, 1], c[None, :, 2], c[None, :, 3], every)
+        return out
+    return run
+
+
+def shadow_hot_only(kernels, culled, args):
+    """A callable of no arguments that launches kernel B's hot launch alone
+    on the wrapper's arguments args (into a fresh output), to time it."""
+    def run():
+        c_args = culled._shadow_c_args(*args)
+        kernels.launch("oglrt_shadow_hot", args[0].device, *c_args)
+        return c_args[-1]
+    return run
 
 
 @contextlib.contextmanager
@@ -567,22 +803,29 @@ def log_ptxas(build_log: str, what: str) -> None:
         log(f"  {what}: {line}")
 
 
-def time_turns(torch, kernels, fn, args, earlier, turns: int = 2):
-    """Device ms per call of fn(*args), the mean of 2 * turns timings, and
-    where earlier is a library, the same through it, timed in turns
-    (earlier, current, current, earlier, ...): (ms, earlier ms or None,
-    every timing)."""
-    cur, old = [], []
+def in_turns(torch, cur, old, turns: int = 2):
+    """Device ms per call of cur(), the mean of 2 * turns timings, and
+    where old is not None, of old() timed in turns with it (old, cur, cur,
+    old, ...): (ms, old's ms or None, every timing)."""
+    c, o = [], []
     for _ in range(turns):
-        if earlier is not None:
-            with using_library(kernels, earlier):
-                old.append(device_ms(torch, fn, args))
-        cur += [device_ms(torch, fn, args), device_ms(torch, fn, args)]
-        if earlier is not None:
-            with using_library(kernels, earlier):
-                old.append(device_ms(torch, fn, args))
-    return (statistics.mean(cur), statistics.mean(old) if old else None,
-            dict(ms=cur, earlier_ms=old))
+        if old is not None:
+            o.append(device_ms(torch, old, ()))
+        c += [device_ms(torch, cur, ()), device_ms(torch, cur, ())]
+        if old is not None:
+            o.append(device_ms(torch, old, ()))
+    return (statistics.mean(c), statistics.mean(o) if o else None,
+            dict(ms=c, earlier_ms=o))
+
+
+def time_turns(torch, kernels, fn, args, earlier, turns: int = 2):
+    """in_turns of fn(*args) and, where earlier is a library, the same
+    call with the wrappers' launches routed to it."""
+    def old():
+        with using_library(kernels, earlier):
+            return fn(*args)
+    return in_turns(torch, lambda: fn(*args),
+                    old if earlier is not None else None, turns)
 
 
 def device_ms(torch, fn, args, reps: int = 10) -> float:
@@ -686,8 +929,8 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
     """Phases 9-13: the 4096-object paths c5_grid4096 and c4_mirror4096.
     Returns (per-path launch counts, per-kernel (ms, plain ms), per-kernel
     max abs error, per-kernel (args, kwargs) of the timed call, the
-    library call's ms, the earlier hot launch's ms or None) for kernels 2
-    and 6."""
+    library call's ms, per-kernel earlier ms or None) for kernels 2 and 6,
+    and kernel 3's numbers per shadow call of the paths' frames."""
     from openglraytracer_tpu_torch import kernel_cases
     from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
     from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
@@ -745,12 +988,68 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
             check(same, f"compact_mask kernel disagrees with its plain "
                   f"version ({cfg}, {tuple(mask.shape)})")
     check(n_masks >= 6, f"expected the paths' wide masks, got {n_masks}")
+    for mask, k in kernel_cases.ragged_masks(dev):
+        kernels.LAUNCHES.clear()
+        ki, kv, kc = accel.compact_mask(mask, k)
+        check(kernels.LAUNCHES["compact_mask"] == 1, "kernel 6 not launched")
+        pi, pv, pc = accel.compact_mask_plain(mask, k)
+        same = (torch.equal(kv, pv) and torch.equal(kc, pc)
+                and torch.equal(ki * kv, pi * pv)
+                and not bool(ki[~kv].any()))
+        log(f"  compact_mask [ragged] mask {tuple(mask.shape)}, K {k}, row "
+            f"counts {pc.tolist()[:8]}: {'equal' if same else 'DIFFERENT'}")
+        check(same, f"compact_mask kernel disagrees with its plain version "
+              f"(ragged, {tuple(mask.shape)})")
     errs["compact_mask"] = 0.0
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 10. kernel 2 (cold and hot) against its plain version on a cut
+    # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log(f"[10/17] kernel 2 vs plain version on c4_mirror4096's inputs: the "
+    log("[10/17] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+        "included, bit for bit")
+    shadow_in = {}
+    for cfg, cap_ in caps.items():
+        tops = []
+        for name, a, kw in cap_.log:
+            if name == "_top_tiles":
+                tops.append(a)
+            if name != "shadow_occlusion":
+                continue
+            level = f"{cfg} level {sum(1 for w in shadow_in if cfg in w)}"
+            shadow_in[level] = a
+            hot_ids, ks_cap = a[9], a[4].shape[2]
+            check(hot_ids is not None, f"{level}: no hot shadow pairs")
+            lit = [j for j, on in enumerate(a[3]) if on]
+            # the counts each lit light's hot tiles were picked by
+            counts = [c for c, _ in tops[-len(lit):]]
+            truly = sum(int((c[hot_ids[j].long()] > ks_cap).sum())
+                        for c, j in zip(counts, lit))
+            log(f"  {level}: {a[0].shape[0]} rays, {len(lit)} lit lights, "
+                f"hot ids {tuple(hot_ids.shape)} over {a[10].shape[0]} "
+                f"spheres, Ks {ks_cap}; hot tiles whose survivors exceed Ks: "
+                f"{truly}")
+            check(truly >= 1, f"{level}: no truly hot shadow tile")
+            errs.setdefault("shadow_occlusion", 0.0)
+            errs["shadow_occlusion"] = max(errs["shadow_occlusion"],
+                                           compare_shadow(
+                torch, culled.shadow_occlusion(*a),
+                culled.shadow_occlusion_plain(*a), level)[1])
+            tops = []
+    check(len(shadow_in) == 3,
+          f"expected 3 shadow calls, got {len(shadow_in)}")
+    for n_sph in (4096, 5000, 5120):
+        g_args, g_kw = kernel_cases.shadow_graze_inputs(dev, n_sph)
+        want = culled.shadow_occlusion_plain(*g_args, **g_kw)
+        compare_shadow(torch, culled.shadow_occlusion(*g_args, **g_kw), want,
+                       f"graze, {n_sph} spheres")
+        w0 = want[:, 0].reshape(-1, 32)
+        mixed = float((w0.any(dim=1) & ~w0.all(dim=1)).float().mean())
+        log(f"  graze, {n_sph} spheres: {mixed:.3f} of the warps have both "
+            f"blocked and open lanes for light 0")
+        check(mixed > 0.0, "no warp is partially blocked")
+
+    # ---- kernel 2 (cold and hot) against its plain version on a cut
+    log(f"  kernel 2 vs plain version on c4_mirror4096's inputs: the "
         f"{CUT_HOT} hottest and {CUT_COLD} evenly spaced cold tiles")
     cap = caps["c4_mirror4096"]
     check(hot_p > 0, f"the c4_mirror4096 child spec has no hot budget: "
@@ -817,17 +1116,29 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
     t0 = time.perf_counter()
     log(f"[11/17] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
+    dense_pass = []     # calls of the dense hot-shadow pass: must be none
+    seg = accel._segment_occluded
+
+    def counted(*a):
+        dense_pass.append(1)
+        return seg(*a)
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
         kernels.LAUNCHES.clear()
-        with torch.no_grad():
-            frames = [render(pth["scene"], pth["cam"], h, w,
-                             with_cull_stats=True, **pth["kw"])
-                      for _ in range(FRAMES)]
+        accel._segment_occluded = culled._segment_occluded = counted
+        try:
+            with torch.no_grad():
+                frames = [render(pth["scene"], pth["cam"], h, w,
+                                 with_cull_stats=True, **pth["kw"])
+                          for _ in range(FRAMES)]
+        finally:
+            accel._segment_occluded = culled._segment_occluded = seg
         torch.cuda.synchronize()
         got = dict(kernels.LAUNCHES)
         launches[f"render_{cfg}"] = got
-        log(f"  {cfg}: launches over {FRAMES} frames: {got}")
+        log(f"  {cfg}: launches over {FRAMES} frames: {got}; calls of the "
+            f"dense hot-shadow pass: {len(dense_pass)}")
+        check(not dense_pass, f"{cfg}: a frame ran accel._segment_occluded")
         check(all(got.get(k, 0) >= FRAMES for k in pth["kernels"]),
               f"{cfg}: every kernel of the path must launch on every frame")
         check(got.get("phong_shade_bwd", 0) == 0,
@@ -888,18 +1199,23 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
             med = statistics.median(windows)
             dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
                                        for _ in range(5))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"  {cfg} {what}: median {med:.4f} ms, min "
                 f"{min(windows):.4f} ms over {WINDOWS} windows of "
                 f"{WINDOW_FRAMES} ({[round(x, 4) for x in windows]}), "
                 f"sync-free under set_sync_debug_mode('error'); device time "
                 f"(one call behind a spin kernel, median of 5) {dev_ms:.4f} "
-                f"ms; {n_rays} rays/frame -> "
-                f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
-    kernel_ms, timed = {}, {}
+                f"ms; peak device memory {peak:.3f} GiB; {n_rays} "
+                f"rays/frame -> {n_rays / (med / 1e3) / 1e6:.1f} Mrays/s "
+                f"median")
+    kernel_ms, timed, earlier_ms = {}, {}, {}
     mask, k = next(c for c in caps["c5_grid4096"].calls
                    if c[0].shape[-1] >= accel.MIN_N_FOR_KERNEL)
     full_h = (a_h, cap.kwargs["primary_hit_hot"])
-    earlier_ms = None
     for name, fn, plain, args, kw in (
             ("compact_mask", accel.compact_mask, accel.compact_mask_plain,
              (mask, k), {}),
@@ -907,12 +1223,10 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
             ("primary_hit_hot", culled.primary_hit_ray, plain2, *full_h)):
         def call(f, kw=kw):
             return lambda *a: f(*a, **kw)
-        # the earlier kernel 2 in turns with the current one: its hot
-        # launch is the redesigned one, the cold launch and kernel A share
-        # its template
-        ms, old_ms, every = time_turns(
-            torch, kernels, call(fn), args,
-            earlier if name != "compact_mask" else None)
+        # the earlier kernels 6 and 2 in turns with the current ones (kernel
+        # 2's cold launch and kernel A share the hot launch's template)
+        ms, old_ms, every = time_turns(torch, kernels, call(fn), args,
+                                       earlier)
         t_plain = [device_ms(torch, call(plain), args, reps=1)
                    for _ in range(2)]
         kernel_ms[name] = (ms, statistics.mean(t_plain))
@@ -923,8 +1237,55 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
             f"full-size inputs of {cell})"
             + (f"; earlier kernel {old_ms:.4f} ms, in turns {every}"
                if old_ms is not None else ""))
-        if name == "primary_hit_hot":
-            earlier_ms = old_ms
+        earlier_ms[name] = old_ms
+    # kernel B on the paths' own inputs, hot pairs included: the function
+    # (both launches), its first launch and its hot launch, each in turns
+    # with the earlier build's part of the same work (the earlier kernel,
+    # the dense pass it left the hot tiles to, both with the merge)
+    shadow_cells = {}
+    for level, a in shadow_in.items():
+        old = (earlier_shadow(torch, accel, earlier, a)
+               if earlier is not None else {})
+
+        def whole(a=a):
+            return culled.shadow_occlusion(*a)
+
+        def first(a=a):
+            return culled.shadow_occlusion(*a[:9])
+        if old:
+            check(torch.equal(old["both"](), whole()),
+                  f"{level}: the earlier build's occlusion differs")
+        cell = {}
+        for part, fn, plain in (
+                ("function", whole, lambda a=a: culled.shadow_occlusion_plain(
+                    *a)),
+                ("shadow_occlusion", first,
+                 lambda a=a: culled.shadow_occlusion_plain(*a[:9])),
+                ("shadow_occlusion_hot", shadow_hot_only(kernels, culled, a),
+                 dense_hot_pass(torch, accel, a))):
+            ms, old_ms, every = in_turns(
+                torch, fn, old.get({"function": "both",
+                                    "shadow_occlusion": "cold",
+                                    "shadow_occlusion_hot": "hot"}[part]))
+            cell[part] = dict(ms=ms, earlier_ms=old_ms, plain_ms=device_ms(
+                torch, plain, (), reps=1))
+            if part != "function":
+                b_ms, b_by, nbytes, ops = bound(torch, part,
+                                                culled.shadow_occlusion, a)
+                cell[part].update(bound_ms=b_ms, bound_by=b_by)
+            log(f"  {part} [{level}]: kernel {ms:.4f} ms, plain version "
+                f"{cell[part]['plain_ms']:.4f} ms"
+                + (f"; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+                   f"{ops / 1e9:.3f} GFLOP), {100 * b_ms / ms:.0f}% of it"
+                   if part != "function" else "")
+                + (f"; earlier {old_ms:.4f} ms, in turns {every}"
+                   if old_ms is not None else ""))
+        shadow_cells[level] = cell
+    c5_level = "c5_grid4096 level 0"
+    hot_c5 = shadow_cells[c5_level]["shadow_occlusion_hot"]
+    kernel_ms["shadow_occlusion_hot"] = (hot_c5["ms"], hot_c5["plain_ms"])
+    earlier_ms["shadow_occlusion_hot"] = hot_c5["earlier_ms"]
+    timed["shadow_occlusion_hot"] = (shadow_in[c5_level], {})
     # the library call: torch.topk, the core of compact_mask_plain, alone on
     # the same mask's keys (a yardstick; the port calls it only for masks
     # narrower than MIN_N_FOR_KERNEL)
@@ -985,7 +1346,8 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
                   f"{cfg}: gradient of {k} disagrees with the plain "
                   "versions'")
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
-    return launches, kernel_ms, errs, timed, topk_ms, earlier_ms
+    return (launches, kernel_ms, errs, timed, topk_ms, earlier_ms,
+            shadow_cells)
 
 
 def compare_dense(torch, k, p, what):
@@ -1391,6 +1753,15 @@ def main() -> int:
         f"rel |t| err {dt:.3e}, max |n| err {dn:.3e}")
     check(dt <= 1e-5 and dn <= 1e-5,
           "the backward's box replay disagrees with kernel A")
+    # kernel B with hot shadow tiles beside the boxes' survivor rows
+    with Capture(culled, shade, accel) as cap, torch.no_grad():
+        culled.culled_geometry(bscene, bo, bd, th * tw, kp, ks, None, 2, kb,
+                               ksb)
+    b = cap.args["shadow_occlusion"]
+    check(b[9] is not None and b[5].shape[2] > 0,
+          "the box scene with hot_m 2 must have hot pairs and box rows")
+    compare_shadow(torch, culled.shadow_occlusion(*b),
+                   culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
     log(f"[4/17] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
@@ -1471,16 +1842,23 @@ def main() -> int:
                 "shadow_occlusion": culled.shadow_occlusion,
                 "phong_fused": shade.phong_fused,
                 "phong_shade_bwd": shade.phong_shade_bwd}
-    kernel_ms = {}
+    kernel_ms, c3_earlier_ms = {}, {}
 
     def time_kernel(k):
         args = c3_args[k]
         t_plain = [device_ms(torch, plain_fns[k], args)]
-        # kernel A shares its template with the redesigned hot launch: the
-        # earlier one in turns with it
-        ms, old_ms, every = time_turns(
-            torch, kernels, wrappers[k], args,
-            earlier if k == "primary_hit" else None, turns=1)
+        # kernel A shares its template with the redesigned hot launch, and
+        # kernel B is redesigned: the earlier ones in turns with them
+        if k == "shadow_occlusion" and earlier is not None:
+            ms, old_ms, every = in_turns(
+                torch, lambda: wrappers[k](*args),
+                earlier_shadow(torch, accel, earlier, args)["both"],
+                turns=1)
+        else:
+            ms, old_ms, every = time_turns(
+                torch, kernels, wrappers[k], args,
+                earlier if k == "primary_hit" else None, turns=1)
+        c3_earlier_ms[k] = old_ms
         t_plain.append(device_ms(torch, plain_fns[k], args))
         kernel_ms[k] = (ms, statistics.mean(t_plain))
         log(f"  {k}: kernel {kernel_ms[k][0]:.4f} ms, plain version "
@@ -1579,9 +1957,13 @@ def main() -> int:
     check(flosses[-1][1] < flosses[0][1], "the fit's loss must fall")
 
     (launches_4096, kernel_ms_4096, errs_4096, timed, topk_ms,
-     hot_earlier_ms) = run_4096(torch, dev, kernels, culled, shade, shading,
-                                accel, smi, earlier)
+     earlier_4096, shadow_cells) = run_4096(torch, dev, kernels, culled,
+                                            shade, shading, accel, smi,
+                                            earlier)
     kernel_ms.update(kernel_ms_4096)
+    errs["shadow_occlusion"] = max(errs["shadow_occlusion"],
+                                   errs_4096.pop("shadow_occlusion"))
+    errs["shadow_occlusion_hot"] = errs["shadow_occlusion"]
     errs.update(errs_4096)
     launches_dense, dense_cells, errs["dense_hit"], dense_c3 = run_dense(
         torch, dev, kernels, culled, shade, shading, accel, smi, earlier)
@@ -1589,13 +1971,20 @@ def main() -> int:
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
     # the redesigned kernels' earlier time, from the same call (None
     # without the earlier copy)
-    earlier_ms = {"primary_hit_hot": hot_earlier_ms,
+    earlier_ms = {"primary_hit_hot": earlier_4096["primary_hit_hot"],
+                  "compact_mask": earlier_4096["compact_mask"],
+                  "shadow_occlusion": c3_earlier_ms["shadow_occlusion"],
+                  "shadow_occlusion_hot":
+                      earlier_4096["shadow_occlusion_hot"],
                   "dense_hit": c3_dense["earlier_ms"]}
 
     from openglraytracer_tpu_torch.ops import dense
     sources = {"primary_hit": ("csrc/primary_hit.cu",
                                "openglraytracer_tpu/ops/pallas_culled.py:150"),
                "shadow_occlusion": (
+                   "csrc/shadow_occlusion.cu",
+                   "openglraytracer_tpu/ops/pallas_culled.py:351"),
+               "shadow_occlusion_hot": (
                    "csrc/shadow_occlusion.cu",
                    "openglraytracer_tpu/ops/pallas_culled.py:351"),
                "phong_fused": ("csrc/phong_shade.cu",
@@ -1623,6 +2012,8 @@ def main() -> int:
                                       *timed["primary_hit_hot"])
     timed_calls["compact_mask"] = (accel.compact_mask,
                                    *timed["compact_mask"])
+    timed_calls["shadow_occlusion_hot"] = (culled.shadow_occlusion,
+                                           *timed["shadow_occlusion_hot"])
     timed_calls["dense_hit"] = (dense.dense_hit, dense_c3, {})
     library_ms = {"compact_mask": topk_ms}
     path_launches = {"render_c3_grid64": fwd_launches,
@@ -1631,16 +2022,19 @@ def main() -> int:
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
-                            "compact_mask", "dense_hit"):
+                            "shadow_occlusion_hot", "compact_mask",
+                            "dense_hit"):
         src, replaces = sources[k]
         # launches: the count from the path the kernel was ported for (the
         # c3 forward frames for the forward kernels, the c3 training steps
         # for the backward, the c4_mirror4096 frames for kernels 2 and 6,
-        # the c3 pallas frames for kernel 7); every path's count under
-        # "paths"
+        # the c5_grid4096 frames for kernel B's hot launch, the c3 pallas
+        # frames for kernel 7); every path's count under "paths"
         main = (train_launches if k == "phong_shade_bwd" else
                 launches_4096["render_c4_mirror4096"] if k in (
                     "primary_hit_ray", "primary_hit_hot", "compact_mask")
+                else launches_4096["render_c5_grid4096"]
+                if k == "shadow_occlusion_hot"
                 else launches_dense["render_c3_grid64_pallas"]
                 if k == "dense_hit" else fwd_launches)
         fn, args, kw = timed_calls[k]
@@ -1658,6 +2052,12 @@ def main() -> int:
             row["earlier_ms"] = earlier_ms[k]
         if k == "dense_hit":
             row["cells"] = dense_cells
+        if k == "shadow_occlusion":
+            row["cells"] = {lv: {**c["shadow_occlusion"],
+                                 "function": c["function"]}
+                            for lv, c in shadow_cells.items()}
+        if k == "shadow_occlusion_hot":
+            row["cells"] = {lv: c[k] for lv, c in shadow_cells.items()}
         rows.append(row)
         log(f"  {k}: {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
             f"({100 * b_ms / row['ms']:.0f}% of it; {nbytes / 1e6:.1f} MB "

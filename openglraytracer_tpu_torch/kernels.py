@@ -59,7 +59,10 @@ _SIGNATURES = {
     "oglrt_dense_hit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P, _P, _P, _P],
     "oglrt_shadow_occlusion": [_P, _P, _P, ctypes.c_uint, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _P, _P, _P],
+                               _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P,
+                               _P],
+    "oglrt_shadow_hot": [_P, _P, _P, ctypes.c_uint, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _P, _I, _P, _I, _P, _P],
     "oglrt_phong_shade": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P,
                           _P],
     "oglrt_phong_shade_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,

@@ -271,8 +271,9 @@ def shadow_cull_mask(scene: Scene, shadow_org, hit_mask, tile_p: int, lpos,
 
 
 def _segment_occluded(so_t, p_t, lpos, scx, scy, scz, sr, valid):
-    """Sqrt-free shadow-segment occlusion for batched tiles — the dense
-    pass over hot shadow tiles. so_t, p_t: (B, P, 3) cast origins / hit
+    """Sqrt-free shadow-segment occlusion for batched tiles — what kernel
+    B computes on a hot (tile, light) pair over the scene's spheres, and
+    the plain version of that. so_t, p_t: (B, P, 3) cast origins / hit
     points; sphere params (B, K) or (1, K); valid likewise. Returns (B, P)
     bool. The segment is light - p while the cast origin is the offset
     so_t; candidates are laid out (B, K, P)."""
@@ -374,8 +375,8 @@ def cull_hot_p(cull) -> int:
 def cull_overflow_count(aux: CullAux) -> torch.Tensor:
     """Device int32 scalar: number of (tile, list) slots whose true survivor
     count exceeded the static K actually used — renders where objects were
-    DROPPED. s_overflow/sb_overflow already exclude hot tiles (they get
-    dense passes)."""
+    DROPPED. s_overflow/sb_overflow already exclude hot tiles (they scan
+    every sphere)."""
     kp_eff = aux.p_idx.shape[-1]
     kb_eff = aux.b_idx.shape[-1]
     ovf = torch.sum(aux.p_count > kp_eff, dtype=torch.int32)
@@ -629,7 +630,7 @@ def check_cull_overflow(scene: Scene, camera, height: int, width: int,
     max_p = int(np.max(p_count))
     if s_count.size:
         counts = np.sort(s_count, axis=-1)[:, ::-1]         # (L, T) desc
-        # hot tiles get the dense pass: only the (hot_m+1)-th largest count
+        # hot tiles scan every sphere: only the (hot_m+1)-th largest count
         # onward must fit in ks
         cold_max = int(counts[:, min(hot_m, counts.shape[-1] - 1)].max()) \
             if hot_m < counts.shape[-1] else 0

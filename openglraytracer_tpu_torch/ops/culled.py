@@ -17,11 +17,14 @@ hand-written Hopper kernels that scan only each tile's survivors:
           origin-relative terms per ray; and its hot launch over the global
           object table for the tiles whose bounce cone kept too many
           objects, followed by the rebuild of their winner lists
-  torch   shadow cones from the hit points -> per-light survivor lists
+  torch   shadow cones from the hit points -> per-light survivor lists;
+          the hot_m tiles with the most sphere survivors per light
   kernel B (``shadow_occlusion``, csrc/shadow_occlusion.cu): per-light
-          occlusion of the unnormalized surface->light segment, sphere
-          occlusion kept apart so the hot-tile dense pass can replace it
-  torch   hot-tile shadow override and CullAux assembly
+          occlusion of the unnormalized surface->light segment into the
+          (R, L) occlusion, over each tile's survivor rows, then, in a
+          second launch (``shadow_occlusion_hot``), on the hot (tile,
+          light) pairs over every sphere of the scene
+  torch   CullAux assembly
 
 Each kernel wrapper runs its plain PyTorch version (``*_plain``, same
 arguments, vectorized over rays, looping over survivor slots in the
@@ -302,26 +305,31 @@ def primary_hit_ray(dirs, origins, sph, box, pln, cnt, tile_p: int,
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: per-light shadow occlusion over survivor rows
+# Kernel B (kernel 3): per-light shadow occlusion over survivor rows, and
+# over the global sphere table on the hot (tile, light) pairs
 # ---------------------------------------------------------------------------
 
 def shadow_occlusion_plain(shadow_org, hit_p, lights, light_on: tuple, ssph,
-                           sbox, pln, cnt, tile_p: int):
+                           sbox, pln, cnt, tile_p: int, hot_ids=None,
+                           spheres=None):
     """Plain version of kernel B. shadow_org, hit_p (R, 3); lights (L, 3)
-    positions; light_on static per-light bools; ssph (T, L, Ks, 8); sbox
-    (T, L, Ksb, 24); pln (P, 16); cnt (T, L, 2) int32 per-(tile, light)
-    trip counts. Returns (occ_s, occ_o), each (T, L, P) bool: occlusion by
-    survivor spheres, and by survivor boxes or planes."""
+    positions; light_on static per-light bools; ssph (T, L, Ks, 4) [c r]
+    survivor rows (r NaN in an invalid slot); sbox (T, L, Ksb, 24); pln
+    (P, 16); cnt (T, L, 2) int32 per-(tile, light) trip counts, whose sphere
+    count is -1 on a hot pair. hot_ids (L, M) int32, the hot tiles of each
+    lit light (None: none): a hot pair's sphere occlusion is
+    accel._segment_occluded over the global table spheres (N, 4) [c r].
+    Returns occluded (R, L) bool: the segment is blocked by a sphere, a box
+    or a plane."""
     t_tiles = cnt.shape[0]
     so = shadow_org.reshape(t_tiles, tile_p, 3)
     hp = hit_p.reshape(t_tiles, tile_p, 3)
     sx, sy, sz = so[..., 0], so[..., 1], so[..., 2]
     none = torch.zeros_like(sx, dtype=torch.bool)
-    cols_s, cols_o = [], []
+    cols = []
     for li in range(lights.shape[0]):
         if not light_on[li]:
-            cols_s.append(none)
-            cols_o.append(none)
+            cols.append(none.reshape(-1))
             continue
         tlx = lights[li, 0] - hp[..., 0]
         tly = lights[li, 1] - hp[..., 1]
@@ -329,9 +337,9 @@ def shadow_occlusion_plain(shadow_org, hit_p, lights, light_on: tuple, ssph,
         qa = tlx * tlx + tly * tly + tlz * tlz
         qa_ok = qa > _DIV_EPS
 
-        occ_s = none
+        occ = none
         for j in range(ssph.shape[2]):
-            row = ssph[:, li, j, :, None]           # (T, 8, 1)
+            row = ssph[:, li, j, :, None]           # (T, 4, 1)
             socx = sx - row[:, 0]
             socy = sy - row[:, 1]
             socz = sz - row[:, 2]
@@ -343,11 +351,8 @@ def shadow_occlusion_plain(shadow_org, hit_p, lights, light_on: tuple, ssph,
             vertex_in = (qb < 0.0) & (-qb < 2.0 * qa)
             blocked = torch.where(qcs < 0.0, f_end > 0.0,
                                   (f_end < 0.0) | (disc_ok & vertex_in))
-            blocked = blocked & qa_ok & (row[:, 4] > 0.5) \
-                & (j < cnt[:, li, 0:1])
-            occ_s = occ_s | blocked
+            occ = occ | (blocked & qa_ok & (j < cnt[:, li, 0:1]))
 
-        occ_o = none
         for j in range(sbox.shape[2]):
             row = sbox[:, li, j, :, None]           # (T, 24, 1)
             r00, r01, r02 = row[:, 9], row[:, 10], row[:, 11]
@@ -375,29 +380,33 @@ def shadow_occlusion_plain(shadow_org, hit_p, lights, light_on: tuple, ssph,
             ok = (t1 < t2) & (t2 > 0.0) & (row[:, 18] > 0.5) \
                 & (j < cnt[:, li, 1:2])
             t = torch.where(ok & (t1 < 0.0), t2, t1)
-            occ_o = occ_o | (ok & (t > 0.0) & (t < 1.0))
+            occ = occ | (ok & (t > 0.0) & (t < 1.0))
 
         for k in range(pln.shape[0]):
             row = pln[k]
             nd = row[0] * tlx + row[1] * tly + row[2] * tlz
             no = row[0] * sx + row[1] * sy + row[2] * sz
             t = (row[3] - no) * _inv_safe(nd)
-            occ_o = occ_o | ((torch.abs(nd) > 1.0e-9) & (t > 0.0)
-                             & (t < 1.0))
-        cols_s.append(occ_s)
-        cols_o.append(occ_o)
-    return torch.stack(cols_s, dim=1), torch.stack(cols_o, dim=1)
+            occ = occ | ((torch.abs(nd) > 1.0e-9) & (t > 0.0) & (t < 1.0))
+
+        if hot_ids is not None:
+            ids = hot_ids[li].long()
+            occ_h = _segment_occluded(
+                so[ids], hp[ids], lights[li], spheres[None, :, 0],
+                spheres[None, :, 1], spheres[None, :, 2],
+                spheres[None, :, 3],
+                torch.ones((1, spheres.shape[0]), dtype=torch.bool,
+                           device=spheres.device))       # (M, P)
+            occ = occ.index_copy(0, ids, occ[ids] | occ_h)
+        cols.append(occ.reshape(-1))
+    return torch.stack(cols, dim=-1)
 
 
-@torch.no_grad()
-def shadow_occlusion(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
-                     pln, cnt, tile_p: int):
-    """Kernel B (csrc/shadow_occlusion.cu) on CUDA tensors, its plain
-    version on CPU tensors; arguments and results as
-    shadow_occlusion_plain."""
-    if kernels.on_cpu(shadow_org):
-        return shadow_occlusion_plain(shadow_org, hit_p, lights, light_on,
-                                      ssph, sbox, pln, cnt, tile_p)
+def _shadow_c_args(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
+                   pln, cnt, tile_p: int, hot_ids=None, spheres=None):
+    """The checked arguments of kernel B's two C functions, arguments as
+    shadow_occlusion_plain, ending with the output occ (R, L), allocated
+    here."""
     dev = shadow_org.device
     t_tiles, n_lights = cnt.shape[0], lights.shape[0]
     ks, ksb, n_pln = ssph.shape[2], sbox.shape[2], pln.shape[0]
@@ -409,19 +418,50 @@ def shadow_occlusion(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
     kernels.check("shadow_org", shadow_org, dev, f32, (r_total, 3))
     kernels.check("hit_p", hit_p, dev, f32, (r_total, 3))
     kernels.check("lights", lights, dev, f32, (n_lights, 3))
-    kernels.check("ssph", ssph, dev, f32, (t_tiles, n_lights, ks, SPH_COLS))
+    kernels.check("ssph", ssph, dev, f32, (t_tiles, n_lights, ks, 4))
     kernels.check("sbox", sbox, dev, f32, (t_tiles, n_lights, ksb, BOX_COLS))
     kernels.check("pln", pln, dev, f32, (n_pln, PLN_COLS))
     kernels.check("cnt", cnt, dev, torch.int32, (t_tiles, n_lights, 2))
+    n_sph = n_hot = 0
+    if hot_ids is not None:
+        n_sph, n_hot = spheres.shape[0], hot_ids.shape[1]
+        kernels.check("hot_ids", hot_ids, dev, torch.int32,
+                      (n_lights, n_hot))
+        kernels.check("spheres", spheres, dev, f32, (n_sph, 4))
+    for name, x in (("ssph", ssph), ("spheres", spheres)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads rows as float4 and "
+                             "needs a 16-byte aligned tensor")
     mask = sum(1 << li for li, on in enumerate(light_on) if on)
-    occ_s = torch.empty((t_tiles, n_lights, tile_p), dtype=torch.bool,
-                        device=dev)
-    occ_o = torch.empty_like(occ_s)
-    kernels.launch("oglrt_shadow_occlusion", dev, shadow_org, hit_p, lights,
-                   mask, ssph, sbox, pln, cnt, t_tiles, tile_p, n_lights, ks,
-                   ksb, n_pln, occ_s, occ_o)
+    occ = torch.empty((r_total, n_lights), dtype=torch.bool, device=dev)
+    return (shadow_org, hit_p, lights, mask, ssph, sbox, pln, cnt, t_tiles,
+            tile_p, n_lights, ks, ksb, n_pln, spheres, n_sph, hot_ids, n_hot,
+            occ)
+
+
+@torch.no_grad()
+def shadow_occlusion(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
+                     pln, cnt, tile_p: int, hot_ids=None, spheres=None):
+    """Kernel B (csrc/shadow_occlusion.cu) on CUDA tensors, its plain
+    version on CPU tensors; arguments and results as
+    shadow_occlusion_plain. Two launches: every (ray, light) but the hot
+    pairs' spheres (``shadow_occlusion``), then, where hot_ids is given,
+    the hot pairs' spheres (``shadow_occlusion_hot``). The sphere count of
+    cnt must be -1 on the pairs that hot_ids lists: the first launch leaves
+    their spheres to the second."""
+    if kernels.on_cpu(shadow_org):
+        return shadow_occlusion_plain(shadow_org, hit_p, lights, light_on,
+                                      ssph, sbox, pln, cnt, tile_p, hot_ids,
+                                      spheres)
+    c_args = _shadow_c_args(shadow_org, hit_p, lights, light_on, ssph, sbox,
+                            pln, cnt, tile_p, hot_ids, spheres)
+    dev = shadow_org.device
+    kernels.launch("oglrt_shadow_occlusion", dev, *c_args)
     kernels.LAUNCHES["shadow_occlusion"] += 1
-    return occ_s, occ_o
+    if hot_ids is not None:
+        kernels.launch("oglrt_shadow_hot", dev, *c_args)
+        kernels.LAUNCHES["shadow_occlusion_hot"] += 1
+    return c_args[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -491,13 +531,17 @@ def _plane_table(scene: Scene, o0, n_sph: int, n_box: int):
     return _pad_cols(tab, PLN_COLS)
 
 
+def _shadow_spheres(scene: Scene):
+    """(N, 4) [c(3) r]: kernel B's global sphere table."""
+    return torch.cat([scene.spheres.center, scene.spheres.radius[:, None]],
+                     dim=-1)
+
+
 def _shadow_sphere_rows(scene: Scene, s_idx, s_valid):
-    """(T, Ks, 8) [c(3) r valid ...]."""
-    tab = torch.cat([scene.spheres.center, scene.spheres.radius[:, None]],
-                    dim=-1)
-    rows = _gather_tile_rows(tab, s_idx)                    # (T, Ks, 4)
-    out = torch.cat([rows, s_valid.to(rows.dtype)[..., None]], dim=-1)
-    return _pad_cols(out, SPH_COLS)
+    """(T, Ks, 4) [c(3) r], r NaN in an invalid slot."""
+    rows = _gather_tile_rows(_shadow_spheres(scene), s_idx)  # (T, Ks, 4)
+    r = torch.where(s_valid, rows[..., 3], torch.nan)
+    return torch.cat([rows[..., :3], r[..., None]], dim=-1)
 
 
 def _shadow_box_rows(scene: Scene, sb_idx, sb_valid):
@@ -530,8 +574,9 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
 
     origins/dirs (R, 3) in tile-major order (accel.tile_image); tile_p rays
     per tile; kp/ks sphere survivor caps; kb/ksb box caps (0 = all boxes);
-    hot_m hottest shadow tiles per light get the dense pass; shadow_lights
-    static per-light bools (None = all cast).
+    the hot_m tiles with the most shadow survivors per light test every
+    sphere of the scene in kernel B; shadow_lights static per-light bools
+    (None = all cast).
 
     active None: shared-pinhole mode (primary rays, one origin; kernel A).
     active (R,) bool: secondary mode for bounce children (kernel 2): per-ray
@@ -735,25 +780,27 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     hit = Hit(t=t_flat, p=p, n=n, inside=in_flat,
               material_id=mat_flat, obj_id=gid_flat, hit=hit_mask)
 
-    # ---- shadow broad phase per light + kernel B
+    # ---- shadow broad phase per light + kernel B; the hot_m tiles with the
+    # most sphere survivors per light scan the global sphere table in kernel
+    # B instead of their lists (sphere count -1), which is exact
     shadow_org = hit.p + hit.n * SHADOW_EPS
-    so_t = shadow_org.reshape(t_tiles, tile_p, 3)
-    p_t = hit.p.reshape(t_tiles, tile_p, 3)
     light_on = tuple((shadow_lights is None or bool(shadow_lights[li]))
                      for li in range(n_lights))
     ks_eff = min(ks, n_sph) if n_sph else 0
     ksb_eff = ksb if n_box else 0
+    hot_on = hot_m > 0 and n_sph > 0
     zero_o = torch.zeros((), dtype=torch.int32, device=device)
     s_counts, s_overflow, sb_counts, sb_overflow = [], [], [], []
-    ssph_rows, sbox_rows, cnt_cols = [], [], []
-    hot_infos = []   # per light (is_hot (T,), occ_full (T, P)) or None
+    ssph_rows, sbox_rows, cnt_cols, hot_rows = [], [], [], []
     for li in range(n_lights):
         s_cnt, s_ovf, sb_cnt, sb_ovf = zero_c, zero_o, zero_c, zero_o
-        s_rows = torch.zeros((t_tiles, ks_eff, SPH_COLS), dtype=dtype,
+        s_rows = torch.zeros((t_tiles, ks_eff, 4), dtype=dtype,
                              device=device)
         b_rows = torch.zeros((t_tiles, ksb_eff, BOX_COLS), dtype=dtype,
                              device=device)
-        hot = None
+        sc = zero_c
+        hot_ids = torch.zeros((hot_m if hot_on else 0,), dtype=torch.int32,
+                              device=device)
         if light_on[li]:
             lpos = scene.lights.position[li]
             axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
@@ -764,25 +811,15 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                     scene.spheres.radius, ks, max_dist=max_d,
                     tile_valid=~empty_s)
                 s_rows = _shadow_sphere_rows(scene, s_idx, s_valid)
-                if hot_m > 0:
+                sc = torch.clamp(s_cnt, max=ks_eff)
+                if hot_on:
                     hot_ids = _top_tiles(s_cnt, hot_m)
-                    c = scene.spheres.center
-                    occ_h = _segment_occluded(
-                        so_t[hot_ids], p_t[hot_ids], lpos,
-                        c[None, :, 0], c[None, :, 1], c[None, :, 2],
-                        scene.spheres.radius[None, :],
-                        torch.ones((1, n_sph), dtype=torch.bool,
-                                   device=device))            # (M, P)
                     is_hot = torch.zeros((t_tiles,), dtype=torch.bool,
                                          device=device).index_fill(
                                              0, hot_ids, True)
-                    occ_full = torch.zeros((t_tiles, tile_p),
-                                           dtype=torch.bool,
-                                           device=device).index_copy(
-                                               0, hot_ids, occ_h)
-                    hot = (is_hot, occ_full)
                     s_ovf = torch.sum((s_cnt > ks) & ~is_hot,
                                       dtype=torch.int32)
+                    sc = torch.where(is_hot, -1, sc)
                 else:
                     s_ovf = torch.sum(s_cnt > ks, dtype=torch.int32)
             if n_box:
@@ -797,29 +834,18 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
         sb_overflow.append(sb_ovf)
         ssph_rows.append(s_rows)
         sbox_rows.append(b_rows)
-        hot_infos.append(hot)
-        sc = torch.clamp(s_cnt, max=ks_eff)
-        if hot is not None:
-            # hot tiles' sphere occlusion is replaced by the dense pass:
-            # kernel B skips their sphere scan
-            sc = torch.where(hot[0], 0, sc)
+        hot_rows.append(hot_ids.to(torch.int32))
         cnt_cols.append(torch.stack([sc, torch.clamp(sb_cnt, max=ksb_eff)],
                                     dim=-1))
 
     if n_lights and any(light_on):
-        occ_s, occ_o = shadow_occlusion(
+        hot = ((torch.stack(hot_rows), _shadow_spheres(scene).contiguous())
+               if hot_on else (None, None))
+        occluded = shadow_occlusion(
             shadow_org, hit.p, scene.lights.position.contiguous(), light_on,
             torch.stack(ssph_rows, dim=1), torch.stack(sbox_rows, dim=1),
             pln_tab.contiguous(),
-            torch.stack(cnt_cols, dim=1).to(torch.int32), tile_p)
-        occ_cols = []
-        for li in range(n_lights):
-            col_s = occ_s[:, li]
-            if hot_infos[li] is not None:
-                is_hot, occ_full = hot_infos[li]
-                col_s = torch.where(is_hot[:, None], occ_full, col_s)
-            occ_cols.append((col_s | occ_o[:, li]).reshape(-1))
-        occluded = torch.stack(occ_cols, dim=-1)
+            torch.stack(cnt_cols, dim=1).to(torch.int32), tile_p, *hot)
     else:
         occluded = torch.zeros((r_total, n_lights), dtype=torch.bool,
                                device=device)

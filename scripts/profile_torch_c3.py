@@ -17,7 +17,11 @@ respect to spheres.center, spheres.radius and materials.diffuse, and for
 animated_obb also boxes.position and boxes.angles) — and prints the device
 time by kernel name, the wall time per frame or step between CUDA events,
 and the device's busy share of it (the rest is the device waiting on the
-host's launches). With --out-dir it also writes the Chrome trace there.
+host's launches), then, with the profiler off, the device time of one
+frame or step (enqueued behind a spin kernel, as chip_smoke.py measures
+it; median of 5) and its peak device memory
+(torch.cuda.max_memory_allocated). With --out-dir it also writes the
+Chrome trace there.
 animated_obb takes only --engine pallas (its children need the dense
 engine), c5_grid4096 and c4_mirror4096 only culled_pallas.
 """
@@ -156,6 +160,19 @@ def main(argv=None):
         for e in ops[:15]:
             print(f"{e.self_device_time_total / 1e3 / args.frames:10.4f} "
                   f"{e.count // args.frames:6d}  {e.key} {e.input_shapes}")
+    import statistics
+
+    import chip_smoke
+
+    dev_ms = statistics.median(chip_smoke.device_ms(torch, run, (), reps=1)
+                               for _ in range(5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{what} device time {dev_ms:.4f} ms (one {what} behind a spin "
+          f"kernel, median of 5); peak device memory {peak:.3f} GiB")
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
         path = os.path.join(

@@ -100,9 +100,8 @@ def test_kernels_match_plain_versions(dev, monkeypatch, which):
     torch.testing.assert_close(k[0], p[0], rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(k[1], p[1], rtol=0, atol=1e-5)
     b = args["shadow_occlusion"]
-    for x, y in zip(culled.shadow_occlusion(*b),
-                    culled.shadow_occlusion_plain(*b)):
-        assert torch.equal(x, y)
+    assert torch.equal(culled.shadow_occlusion(*b),
+                       culled.shadow_occlusion_plain(*b))
     s = args["phong_fused"]
     torch.testing.assert_close(shade.phong_fused(*s), shading.phong_core(*s),
                                rtol=0, atol=2e-5)
@@ -287,6 +286,64 @@ def test_compact_kernel_matches_plain(dev):
     kernels.LAUNCHES.clear()
     accel.compact_mask(mask[:, :1000], 8)
     assert kernels.LAUNCHES["compact_mask"] == 0
+
+
+def test_compact_kernel_on_ragged_masks(dev):
+    """Kernel 6 on masks whose rows start off a 16-byte boundary (widths
+    1025, 4095, 4097) with rows of 0, K - 1, K, K + 1 and N survivors
+    (kernel_cases.ragged_masks): idx where valid, valid and count exactly,
+    idx 0 elsewhere."""
+    for mask, k in kernel_cases.ragged_masks(dev):
+        kernels.LAUNCHES.clear()
+        idx, valid, count = accel.compact_mask(mask, k)
+        assert kernels.LAUNCHES["compact_mask"] == 1
+        pi, pv, pc = accel.compact_mask_plain(mask, k)
+        assert torch.equal(valid, pv) and torch.equal(count, pc)
+        assert torch.equal(idx * valid, pi * pv)
+        assert not bool(idx[~valid].any())
+
+
+@pytest.mark.parametrize("n_sph", [1000, 5000])
+def test_shadow_kernel_on_graze_inputs(dev, n_sph):
+    """Kernel 3 against its plain version, bit for bit, on segments that
+    split warps (kernel_cases.shadow_graze_inputs): tangents with the
+    discriminant at 0 and an ulp either side, cast origins inside a sphere,
+    qa at _DIV_EPS, tiles hot for one light only, against a table of one
+    staged chunk and of five (the last partial)."""
+    a, kw = kernel_cases.shadow_graze_inputs(dev, n_sph)
+    kernels.LAUNCHES.clear()
+    got = culled.shadow_occlusion(*a, **kw)
+    assert kernels.LAUNCHES["shadow_occlusion"] == 1
+    assert kernels.LAUNCHES["shadow_occlusion_hot"] == 1
+    want = culled.shadow_occlusion_plain(*a, **kw)
+    assert torch.equal(got, want)
+    blocked = want[:, 0].reshape(-1, 32)
+    assert bool((blocked.any(dim=1) & ~blocked.all(dim=1)).any())
+
+
+def test_shadow_kernel_hot_pairs_match_plain(dev, monkeypatch):
+    """Kernel 3 with hot (tile, light) pairs against its plain version (the
+    dense _segment_occluded on the hot tiles), bit for bit, on the inputs
+    both levels of a c4_mirror4096 frame (128x128; its specs with hot_m 4,
+    as the full-size frame's have hot_m 32 and 128) hand it."""
+    scene, cam = mirror_grid4096_scene(device=dev)
+    spec = suggest_cull_config(scene, cam, 128, 128, (32, 32))
+    child = suggest_child_cull_config(scene, cam, 128, 128, spec)
+    spec, child = spec[:3] + (4,), child[:3] + (4,) + child[4:]
+    seen = []
+    fn = culled.shadow_occlusion
+
+    def spy(*a, **k):
+        seen.append(a)
+        return fn(*a, **k)
+    monkeypatch.setattr(culled, "shadow_occlusion", spy)
+    with torch.no_grad():
+        render(scene, cam, 128, 128, depth=1, cull=spec, child_cull=child)
+    monkeypatch.undo()
+    assert len(seen) == 2 and all(a[9] is not None for a in seen)
+    for a in seen:
+        assert torch.equal(culled.shadow_occlusion(*a),
+                           culled.shadow_occlusion_plain(*a))
 
 
 def _mirror_inputs(monkeypatch, dev, hw):
