@@ -13,7 +13,12 @@ spheres, 1024x1024, depth 0, 64x64 tiles), c5_grid4096 (4096 spheres,
 animated OBB world (reference_frame(1.2): a glass sphere, four rotated
 glass, mirror and wall boxes, no plane, 3 lights) at 1280x720, depth 0 and
 depth 1, its training step also with respect to the boxes' positions and
-angles. It exits non-zero on any failure. Phases:
+angles. Engine 'xla' (the plain dense engine, the default 'auto'; no
+kernel): c1_sphere_plane (256x256), c2_eight_spheres (512x512) and the OBB
+world (the reference's animated_obb_720p row), and the children of
+c4_mirror (64 mirror spheres and a plane, 1024x1024, depth 1, a
+culled_pallas parent with 64x64 tiles). Every call names its engine. It
+exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build: compile the CUDA kernels from csrc/ (one nvcc per source, in
@@ -93,6 +98,23 @@ angles. It exits non-zero on any failure. Phases:
      to the boxes' positions and angles): launches, finite non-zero
      gradients that agree with the plain versions'
 
+ 18. engine 'xla' against kernel 7's 'pallas' at full size (c1, c2, c3 and
+     the OBB world at depth 0 and 1): no kernel launched, 'auto' equal to
+     'xla' bit for bit, >= 99.9% of pixels within 1/255 of 'pallas', and
+     each engine's frame device time
+ 19. c4_mirror: 3 frames (kernels A, B and the shade once a frame, no
+     overflow, an image within 1/255 of the plain versions' on >= 99.9% of
+     pixels), frame timing, 3 training steps (kernels A, B, 4 and 5 once a
+     step, gradients within 1e-3 * max|g| of the plain versions'), step
+     timing, with peak device memory
+ 20. c1, c2 and the OBB world at depth 0 and 1 on engine 'auto': frame and
+     training step timed as in phases 5 and 7, with peak device memory; no
+     kernel launched
+ 21. engine 'autodiff' (autograd through the chunked object scan) against
+     the analytic backward of 'xla': per leaf within 1e-3 * max|g|, on the
+     OBB world at depth 0 and 1 and on c4_mirror at 1024x1024 (AUTODIFF_HW),
+     with each engine's peak device memory
+
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
 launch name: its time, its plain version's, its bound (the least time the
@@ -162,14 +184,18 @@ PATHS_4096 = {
 CUT_HOT, CUT_COLD = 8, 24
 # the dense engine's paths: name -> (scene, height, width, depth); the OBB
 # world at the time and size of the reference's animated_obb_720p row
-OBB_TIME = 1.2
+OBB_TIME, OBB_HW = 1.2, (720, 1280)
 DENSE_PATHS = {"c3_grid64": ("c3", 1024, 1024, 0),
-               "obb": ("obb", 720, 1280, 0),
-               "obb_depth1": ("obb", 720, 1280, 1)}
+               "obb": ("obb", *OBB_HW, 0),
+               "obb_depth1": ("obb", *OBB_HW, 1)}
 OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
                  "boxes.position", "boxes.angles")
 # kernel 7 at 4096 spheres: a cut of this many c5_grid4096 rays
 C5_CUT = 65536
+# phase 21: the side of the c4_mirror image whose 'autodiff' tape is held
+# (every chunk's (R, 64) temporaries stay alive for the backward): 4.17 GiB
+# at 512x512 on the H100, so about 17 GiB at the full 1024x1024, which fits
+AUTODIFF_HW = 1024
 # an earlier version of the redesigned kernels' sources (EARLIER_SOURCES
 # and common.cuh), put there by hand (the directory is git-ignored): where
 # it is present, phases 5, 12 and 16 time it beside the current kernels, in
@@ -951,7 +977,8 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
         child = (accel.suggest_child_cull_config(scene, cam, h, w, spec,
                                                  shadow_lights=lights)
                  if depth else None)
-        kw = dict(depth=depth, cull=spec, child_cull=child,
+        kw = dict(depth=depth, engine="culled_pallas", cull=spec,
+                  child_cull=child,
                   shadow_lights=lights, bounce_mask=bmask)
         paths[cfg] = dict(scene=scene, cam=cam, h=h, w=w, depth=depth, kw=kw,
                           kernels=path_kernels, lights=lights, bmask=bmask)
@@ -965,7 +992,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/17] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/21] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1005,7 +1032,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/17] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/21] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1114,7 +1141,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/17] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/21] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1163,7 +1190,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/17] timing, forward and training step ({smi})")
+    log(f"[12/21] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1175,7 +1202,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
                               with_cull_stats=True, **pth["kw"])
 
         fc = FitConfig(height=h, width=w, depth=pth["depth"],
-                       cull=pth["kw"]["cull"],
+                       engine="culled_pallas", cull=pth["kw"]["cull"],
                        child_cull=pth["kw"]["child_cull"],
                        trainable=DEFAULT_TRAINABLE)
         init_fn, step_fn = make_train_step(
@@ -1301,7 +1328,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/17] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/21] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1414,7 +1441,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/17] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/21] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1483,7 +1510,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/17] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/21] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1517,7 +1544,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/17] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/21] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1580,7 +1607,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/17] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/21] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1625,7 +1652,254 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
     return launches, cells, max(errs.values()), inputs["c3 primary"]
 
 
+def time_cell(torch, cell, what, fn, ovf_at, n_rays):
+    """Time fn (a frame or a training step whose output's ovf_at-th item is
+    the overflow count) as phases 5 and 7 do: WINDOWS windows of
+    WINDOW_FRAMES calls under set_sync_debug_mode('error'), its device time
+    (one call behind a spin kernel, median of 5) and its peak device
+    memory. Returns those numbers."""
+    windows, outs = timed_windows(torch, fn)
+    check(int(torch.stack([o[ovf_at] for o in outs]).sum()) == 0,
+          f"{cell}: overflow while timing the {what}")
+    del outs
+    med = statistics.median(windows)
+    dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
+                               for _ in range(5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {cell} {what}: median {med:.4f} ms, min {min(windows):.4f} ms "
+        f"over {WINDOWS} windows of {WINDOW_FRAMES} "
+        f"({[round(x, 4) for x in windows]}), sync-free under "
+        f"set_sync_debug_mode('error'); device time (one call behind a "
+        f"spin kernel, median of 5) {dev_ms:.4f} ms; peak device memory "
+        f"{peak:.3f} GiB; {n_rays} rays/frame -> "
+        f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
+    return dict(median_ms=med, min_ms=min(windows), device_ms=dev_ms,
+                peak_gib=peak)
+
+
+def compare_grads(torch, cell, grads, want, what, tol=GRAD_TOL):
+    """Per leaf: finite, non-zero, and within tol * max|g| of want."""
+    for k, gp in want.items():
+        gk = grads[k]
+        scale = float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        log(f"  {cell} grad {k}: max |g| {scale:.4e}, max |{what}| "
+            f"{err:.3e} ({err / max(scale, 1e-30):.2e} of max |g|)")
+        check(bool(torch.isfinite(gk).all()) and scale > 0.0,
+              f"{cell}: gradient of {k} must be finite and non-zero")
+        check(err <= tol * scale,
+              f"{cell}: gradient of {k} disagrees ({what})")
+
+
+def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phases 18-21: the plain dense engine 'xla' ('auto') on c1, c2, c3
+    and the OBB world against kernel 7's 'pallas'; c4_mirror (a culled
+    parent, kernels A, B, 4 and 5, with dense 'xla' children); the
+    reference's rows c1, c2 and animated_obb_720p on 'auto'; 'autodiff'
+    against the analytic backward. Returns the per-path launch counts."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig,
+                                                         make_train_step)
+    from openglraytracer_tpu_torch.utils.metrics import rays_per_frame
+
+    def path(scene, cam, h, w, depth, trainable=DEFAULT_TRAINABLE):
+        return dict(scene=scene, cam=cam, h=h, w=w, depth=depth,
+                    trainable=trainable,
+                    lights=shading.static_shadow_mask(scene),
+                    bmask=(shading.static_bounce_mask(scene) if depth
+                           else (True, True)))
+
+    paths = {}
+    for cfg in ("c1_sphere_plane", "c2_eight_spheres", "c3_grid64"):
+        builder, h, w, depth = BENCH_CONFIGS[cfg]
+        paths[cfg] = path(*builder(device=dev), h, w, depth)
+    obb = reference_frame(OBB_TIME, device=dev)
+    for depth in (0, 1):
+        paths[f"animated_obb_720p_depth{depth}"] = path(
+            *obb, *OBB_HW, depth, OBB_TRAINABLE)
+    launches = {}
+
+    def frame(pth, engine, **kw):
+        with torch.no_grad():
+            return render(pth["scene"], pth["cam"], pth["h"], pth["w"],
+                          depth=pth["depth"], engine=engine,
+                          shadow_lights=pth["lights"],
+                          bounce_mask=pth["bmask"], with_cull_stats=True,
+                          **kw)
+
+    # ---- 18. 'xla' against kernel 7
+    t0 = time.perf_counter()
+    log("[18/21] engine 'xla' (plain PyTorch) against engine 'pallas' "
+        "(kernel 7) and 'auto', full size")
+    for cfg, pth in paths.items():
+        kernels.LAUNCHES.clear()
+        img_x = frame(pth, "xla")[0]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        check(not got, f"{cfg}: an 'xla' frame launched kernels {got}")
+        img_a = frame(pth, "auto")[0]
+        img_p = frame(pth, "pallas")[0]
+        check(bool(torch.isfinite(img_x).all()), f"{cfg}: non-finite image")
+        check(torch.equal(img_a, img_x), f"{cfg}: 'auto' differs from 'xla'")
+        diff = (img_x - img_p).abs().amax(dim=-1)
+        share = float((diff <= 1.0 / 255.0).float().mean())
+        ms = {e: statistics.median(device_ms(
+            torch, lambda e=e: frame(pth, e), (), reps=1) for _ in range(3))
+            for e in ("xla", "pallas")}
+        log(f"  {cfg} ({pth['w']}x{pth['h']}, depth {pth['depth']}): 'xla' "
+            f"launches none, 'auto' equal bit for bit; 'xla' vs 'pallas': "
+            f"{share:.6f} of pixels within 1/255, max diff "
+            f"{float(diff.max()):.3e}; frame device time 'xla' "
+            f"{ms['xla']:.4f} ms, 'pallas' {ms['pallas']:.4f} ms")
+        check(share >= 0.999, f"{cfg}: 'xla' disagrees with 'pallas'")
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. c4_mirror: culled parent, dense 'xla' children
+    t0 = time.perf_counter()
+    builder, h, w, depth = BENCH_CONFIGS["c4_mirror"]
+    c4m = path(*builder(device=dev), h, w, depth)
+    spec = accel.suggest_cull_config(c4m["scene"], c4m["cam"], h, w,
+                                     (64, 64), shadow_lights=c4m["lights"])
+    c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
+        ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
+    log(f"[19/21] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+        f"spec {spec}, no child spec (children on 'xla'); shadow lights "
+        f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
+    kernels.LAUNCHES.clear()
+    frames = [frame(c4m, "culled_pallas", cull=spec) for _ in range(FRAMES)]
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    launches["render_c4_mirror"] = got
+    log(f"  launches over {FRAMES} frames: {got}; overflow per frame "
+        f"{[int(o) for _, o in frames]}")
+    check(all(got.get(k, 0) == FRAMES for k in c4_kernels)
+          and set(got) == set(c4_kernels),
+          "c4_mirror: kernels A, B and the shade must launch once a frame")
+    check(all(int(o) == 0 for _, o in frames), "c4_mirror: cull overflow")
+    img = frames[-1][0]
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all())
+          and all(torch.equal(f[0], img) for f in frames),
+          "c4_mirror: the frames must be finite and equal")
+    with PlainVersions(culled, shade, shading, accel):
+        img_plain = frame(c4m, "culled_pallas", cull=spec)[0]
+    diff = (img - img_plain).abs().amax(dim=-1)
+    share = float((diff <= 1.0 / 255.0).float().mean())
+    log(f"  image vs plain versions on the card: {share:.6f} of pixels "
+        f"within 1/255, max diff {float(diff.max()):.3e}; mean "
+        f"{float(img.mean()):.5f}")
+    check(share >= 0.999, "c4_mirror: image disagrees with the plain "
+          "versions'")
+    del frames, img_plain
+    n_rays = rays_per_frame(h, w, c4m["scene"].lights.count, depth,
+                            shadow_lights=c4m["lights"],
+                            bounce_mask=c4m["bmask"])
+    time_cell(torch, "c4_mirror", "frame",
+              lambda: frame(c4m, "culled_pallas", cull=spec), 1, n_rays)
+    init_fn, step_fn = make_train_step(
+        c4m["cam"], FitConfig(height=h, width=w, depth=depth,
+                              engine="culled_pallas", cull=spec,
+                              trainable=DEFAULT_TRAINABLE),
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+    target = torch.zeros((h, w, 3), device=dev)
+    params, opt = init_fn(c4m["scene"])
+    kernels.LAUNCHES.clear()
+    outs = [step_fn(params, opt, c4m["scene"], target)
+            for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    launches["train_step_c4_mirror"] = got
+    log(f"  launches over {STEPS} training steps: {got}; losses "
+        f"{[float(o[2]) for o in outs]}; overflow {[int(o[3]) for o in outs]}")
+    check(all(got.get(k, 0) == STEPS
+              for k in c4_kernels + ("phong_shade_bwd",)),
+          "c4_mirror: kernels A, B, 4 and 5 must launch once a step")
+    check(all(int(o[3]) == 0 for o in outs), "c4_mirror: overflow training")
+
+    def one_step_grads():
+        p, o = init_fn(c4m["scene"])
+        _, _, loss, _ = step_fn(p, o, c4m["scene"], target)
+        return float(loss), {k: v.grad for k, v in p.items()}
+
+    loss_k, grads_k = one_step_grads()
+    with PlainVersions(culled, shade, shading, accel):
+        loss_p, grads_p = one_step_grads()
+    log(f"  first step's loss: kernels {loss_k:.9g}, plain versions "
+        f"{loss_p:.9g}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+          "c4_mirror: training loss disagrees with the plain versions'")
+    compare_grads(torch, "c4_mirror", grads_k, grads_p, "kernel - plain")
+    time_cell(torch, "c4_mirror", "training step",
+              lambda: step_fn(params, opt, c4m["scene"], target), 3, n_rays)
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 20. the reference's rows on 'auto'
+    t0 = time.perf_counter()
+    log(f"[20/21] engine 'auto': frame and training step timing ({smi})")
+    for cfg in ("c1_sphere_plane", "c2_eight_spheres",
+                "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
+        pth = paths[cfg]
+        h, w = pth["h"], pth["w"]
+        n_rays = rays_per_frame(h, w, pth["scene"].lights.count,
+                                pth["depth"], shadow_lights=pth["lights"],
+                                bounce_mask=pth["bmask"])
+        kernels.LAUNCHES.clear()
+        time_cell(torch, cfg, "frame", lambda pth=pth: frame(pth, "auto"), 1,
+                  n_rays)
+        init_fn, step_fn = make_train_step(
+            pth["cam"], FitConfig(height=h, width=w, depth=pth["depth"],
+                                  trainable=pth["trainable"]),
+            optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+        params, opt = init_fn(pth["scene"])
+        target = torch.zeros((h, w, 3), device=dev)
+        time_cell(torch, cfg, "training step",
+                  lambda f=step_fn, p=params, o=opt, s=pth["scene"],
+                  t=target: f(p, o, s, t), 3, n_rays)
+        torch.cuda.synchronize()
+        launches[f"auto_{cfg}"] = dict(kernels.LAUNCHES)
+        check(not kernels.LAUNCHES, f"{cfg}: engine 'auto' launched kernels")
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 21. 'autodiff' against the analytic backward
+    t0 = time.perf_counter()
+    log("[21/21] engine 'autodiff' (autograd through the chunked scan) "
+        "against 'xla' (the analytic backward): gradients of mean(img^2)")
+    cells = {f"animated_obb_720p_depth{d}": paths[
+        f"animated_obb_720p_depth{d}"] for d in (0, 1)}
+    cells[f"c4_mirror_{AUTODIFF_HW}"] = path(c4m["scene"], c4m["cam"],
+                                             AUTODIFF_HW, AUTODIFF_HW, 1)
+    for cfg, pth in cells.items():
+        grads, peaks = {}, {}
+        for engine in ("autodiff", "xla"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s, params = train_scene(pth["scene"], pth["trainable"])
+            img = render(s, pth["cam"], pth["h"], pth["w"],
+                         depth=pth["depth"], engine=engine,
+                         shadow_lights=pth["lights"],
+                         bounce_mask=pth["bmask"])
+            torch.mean(torch.square(img)).backward()
+            torch.cuda.synchronize()
+            peaks[engine] = torch.cuda.max_memory_allocated() / 2 ** 30
+            grads[engine] = {k: v.grad for k, v in params.items()}
+            del img, s, params
+        log(f"  {cfg} ({pth['w']}x{pth['h']}, depth {pth['depth']}): peak "
+            f"device memory of forward and backward: 'autodiff' "
+            f"{peaks['autodiff']:.3f} GiB, 'xla' {peaks['xla']:.3f} GiB")
+        compare_grads(torch, cfg, grads["autodiff"], grads["xla"],
+                      "autodiff - analytic")
+    log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1656,7 +1930,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/17] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/21] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -1664,7 +1938,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/21] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -1677,7 +1951,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/17] kernels vs plain versions")
+    log("[3/21] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -1685,11 +1959,13 @@ def main() -> int:
     log(f"  c3 cull spec {spec}, shadow lights {shadow_lights}")
     zero_target = torch.zeros((H, W, 3), device=dev)
     with Capture(culled, shade, accel) as cap, torch.no_grad():
-        render(scene, cam, H, W, cull=spec, shadow_lights=shadow_lights)
+        render(scene, cam, H, W, engine="culled_pallas", cull=spec,
+               shadow_lights=shadow_lights)
     c3_args = dict(cap.args)
     with Capture(culled, shade, accel) as cap:
         s, _ = train_scene(scene, DEFAULT_TRAINABLE)
-        img = render(s, cam, H, W, cull=spec, shadow_lights=shadow_lights)
+        img = render(s, cam, H, W, engine="culled_pallas", cull=spec,
+                     shadow_lights=shadow_lights)
         torch.mean(torch.square(img - zero_target)).backward()
     c3_args["phong_shade_bwd"] = cap.args["phong_shade_bwd"]
     a = c3_args["primary_hit"]
@@ -1718,7 +1994,7 @@ def main() -> int:
     with Capture(culled, shade, accel) as cap:
         bs, _ = train_scene(bscene, ("boxes.position", "boxes.angles",
                                      "spheres.center", "materials.diffuse"))
-        bimg = render(bs, bcam, 256, 256, cull=bspec)
+        bimg = render(bs, bcam, 256, 256, engine="culled_pallas", cull=bspec)
         torch.mean(torch.square(bimg)).backward()
     a, b, s, g = (cap.args[k] for k in all_kernels)
     check(a[2].shape[1] > 0 and b[5].shape[2] > 0,
@@ -1764,7 +2040,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/17] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/21] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -1786,7 +2062,7 @@ def main() -> int:
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(all(torch.equal(f[0], img) for f in frames), "frames differ")
     with PlainVersions(culled, shade, shading, accel), torch.no_grad():
-        img_plain = render(scene, cam, H, W, cull=spec,
+        img_plain = render(scene, cam, H, W, engine="culled_pallas", cull=spec,
                            shadow_lights=shadow_lights)
     diff = (img - img_plain).abs().amax(dim=-1)
     share = float((diff <= 1.0 / 255.0).float().mean())
@@ -1799,8 +2075,10 @@ def main() -> int:
     sc, cc = sphere_grid_scene(8, device="cpu")
     small_spec = suggest_cull_config(sc, cc, 64, 64, (16, 16))
     with torch.no_grad():
-        small_cpu = render(sc, cc, 64, 64, cull=small_spec)
-        small_gpu = render(scene, cam, 64, 64, cull=small_spec).cpu()
+        small_cpu = render(sc, cc, 64, 64, engine="culled_pallas",
+                           cull=small_spec)
+        small_gpu = render(scene, cam, 64, 64, engine="culled_pallas",
+                           cull=small_spec).cpu()
     small_err = float((small_cpu - small_gpu).abs().max())
     log(f"  64x64 render, card vs CPU: max diff {small_err:.3e}")
     check(small_err <= 1e-4, "small render disagrees with the CPU's")
@@ -1809,11 +2087,11 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/17] forward timing ({name}; {smi})")
+    log(f"[5/21] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
-            return render(scene, cam, H, W, cull=spec,
+            return render(scene, cam, H, W, engine="culled_pallas", cull=spec,
                           shadow_lights=shadow_lights, with_cull_stats=True)
 
     windows, outs = timed_windows(torch, frame)
@@ -1871,9 +2149,9 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/17] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/21] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
-    cfg = FitConfig(height=H, width=W, cull=spec,
+    cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
     init_fn, step_fn = make_train_step(
         cam, cfg, optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
@@ -1915,7 +2193,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/17] training timing ({name}; {smi})")
+    log(f"[7/21] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -1937,14 +2215,15 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/17] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/21] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
     ftrue, fcam = sphere_grid_scene(FIT["side"], seed=1, device=dev)
     fspec = suggest_cull_config(ftrue, fcam, hw, hw, (t, t), headroom=2.0)
     with torch.no_grad():
-        ftarget = render(ftrue, fcam, hw, hw, cull=fspec)
+        ftarget = render(ftrue, fcam, hw, hw, engine="culled_pallas",
+                         cull=fspec)
     gen = torch.Generator().manual_seed(0)
     sph = ftrue.spheres
     finit = ftrue._replace(spheres=sph._replace(
@@ -1952,7 +2231,7 @@ def main() -> int:
                                               generator=gen).to(dev)))
     _, flosses = fit(finit, ftarget, fcam, FitConfig(
         height=hw, width=hw, steps=FIT["steps"], learning_rate=FIT["lr"],
-        log_every=5, cull=fspec))
+        log_every=5, engine="culled_pallas", cull=fspec))
     log(f"  losses {[(st, round(v, 6)) for st, v in flosses]}")
     check(flosses[-1][1] < flosses[0][1], "the fit's loss must fall")
 
@@ -1967,6 +2246,8 @@ def main() -> int:
     errs.update(errs_4096)
     launches_dense, dense_cells, errs["dense_hit"], dense_c3 = run_dense(
         torch, dev, kernels, culled, shade, shading, accel, smi, earlier)
+    launches_xla = run_xla(torch, dev, kernels, culled, shade, shading, accel,
+                           smi)
     c3_dense = dense_cells["c3 primary"]
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
     # the redesigned kernels' earlier time, from the same call (None
@@ -2018,7 +2299,7 @@ def main() -> int:
     library_ms = {"compact_mask": topk_ms}
     path_launches = {"render_c3_grid64": fwd_launches,
                      "train_step_c3_grid64": train_launches, **launches_4096,
-                     **launches_dense}
+                     **launches_dense, **launches_xla}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
@@ -2063,6 +2344,7 @@ def main() -> int:
             f"({100 * b_ms / row['ms']:.0f}% of it; {nbytes / 1e6:.1f} MB "
             f"-> {nbytes / PEAK_BYTES * 1e3:.4f} ms, {ops / 1e9:.3f} GFLOP "
             f"-> {ops / PEAK_FLOPS * 1e3:.4f} ms)")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -4,12 +4,14 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
 ``openglraytracer_tpu/cli.py``:
 
   python -m openglraytracer_tpu_torch.cli configs
+  python -m openglraytracer_tpu_torch.cli render --scene c4_mirror \\
+      --out c4.png --time               # engine 'auto' = 'xla'
   python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
-      --cull-tile 64 --out c3.png --time
+      --engine culled_pallas --cull-tile 64 --out c3.png
   python -m openglraytracer_tpu_torch.cli render --scene c3_grid64 \\
-      --engine pallas --out c3.png    # the dense engine, kernel 7
+      --engine pallas --out c3.png      # the dense kernel engine, kernel 7
   python -m openglraytracer_tpu_torch.cli render --scene c4_mirror4096 \\
-      --out c4m.png                   # depth 1, culled bounce children
+      --engine culled_pallas --child-cull --out c4m.png
   python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
       --width 1280 --height 720 --depth 1 --out-pattern frame_{:04d}.png
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
@@ -17,16 +19,15 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
 
 ``render``, ``animate`` and ``fit`` take the reference's flags where they
 apply, plus ``--device`` (default ``cuda``; there is no silent fall back to
-the CPU). Two engines are ported: ``culled_pallas`` (the default of
-``render`` and ``fit``) and the dense ``pallas`` (the default of
-``animate``), which runs at any depth. With ``culled_pallas``, bounces
-(depth > 0) run their children on the culled path with a child spec sized
-from a measured bounce pass: with ``--child-cull``, and by default for the
-builtin configs whose reference benchmark row culls its children
-(``c4_mirror4096``). Flags for what this package does not do yet (the
-engines ``xla``, ``auto`` and ``culled``, the stack bounce engine, culled
-bounces in ``fit`` and ``animate``, ``animate --gif``; PNG targets, soft,
-sharded and checkpointed fits) are rejected with a message.
+the CPU), and ``render`` and ``fit`` ``--row-block``. The engines are the
+reference's, with its default ``auto`` (= ``xla``, plain PyTorch):
+``xla``, ``pallas`` (kernel 7), ``culled_pallas`` and, in ``animate``,
+``autodiff``, each at any depth. With ``culled_pallas`` the bounce
+children are traced densely on ``xla``, and on the culled path with a
+child spec sized from a measured bounce pass with ``--child-cull``. Flags
+for what this package does not do yet (the engine ``culled``, the stack
+bounce engine, ``animate --gif``; PNG targets, soft, sharded and
+checkpointed fits) are rejected with a message.
 """
 
 from __future__ import annotations
@@ -39,10 +40,7 @@ import time
 import torch
 
 ENGINES = ["auto", "xla", "pallas", "culled", "culled_pallas"]
-PORTED = ("culled_pallas", "pallas")
-# builtin configs whose reference benchmark row culls the bounce children
-# (bench.py PLAN, use_child_cull)
-CHILD_CULL_CONFIGS = ("c4_mirror4096",)
+PORTED = ("auto", "xla", "autodiff", "pallas", "culled_pallas")
 
 
 def _device(name: str) -> torch.device:
@@ -111,7 +109,14 @@ def _reject_engine(engine: str, what: str):
     if engine not in PORTED:
         raise SystemExit(f"--engine {engine} is not yet ported to "
                          f"PyTorch/CUDA; this package {what} with --engine "
-                         "culled_pallas or pallas (see ROADMAP.md)")
+                         f"{', '.join(PORTED)} (see ROADMAP.md)")
+
+
+def _check_row_block(args):
+    if args.row_block is not None and args.engine == "culled_pallas":
+        raise SystemExit("--row-block is not supported with --engine "
+                         "culled_pallas (the culled path is already "
+                         "tile-blocked); drop it or use --engine xla")
 
 
 def _reject_unported(args, depth: int):
@@ -119,20 +124,14 @@ def _reject_unported(args, depth: int):
     if args.bounce != "tree":
         raise SystemExit(f"--bounce {args.bounce} is not yet ported "
                          "(see ROADMAP.md)")
-    if args.engine == "pallas":
-        if args.child_cull:
-            raise SystemExit("--child-cull sizes the culled engine's bounce "
-                             "children; --engine pallas traces every child "
-                             "densely")
-        return
+    _check_row_block(args)
+    if args.child_cull and args.engine != "culled_pallas":
+        raise SystemExit("--child-cull requires --engine culled_pallas (it "
+                         "sizes the culled bounce-child lists; --engine "
+                         f"{args.engine} traces children densely)")
     if args.child_cull and depth <= 0:
         raise SystemExit("--child-cull needs --depth >= 1 (it sizes the "
                          "bounce children's survivor lists)")
-    if depth > 0 and not (args.child_cull
-                          or args.scene in CHILD_CULL_CONFIGS):
-        raise SystemExit(f"depth {depth}: dense bounce children are not yet "
-                         "ported (see ROADMAP.md); pass --child-cull to "
-                         "trace them on the culled path")
 
 
 def _cull_spec(scene, cam, h: int, w: int, t: int, shadow_lights, **kw):
@@ -172,11 +171,11 @@ def cmd_render(args):
     shadow_lights = static_shadow_mask(scene)
     bounce_mask = static_bounce_mask(scene) if depth > 0 else (True, True)
     kwargs = dict(depth=depth, engine=args.engine, bounce_mask=bounce_mask,
-                  shadow_lights=shadow_lights)
+                  shadow_lights=shadow_lights, row_block=args.row_block)
     if args.engine == "culled_pallas":
         kwargs["cull"] = _cull_spec(scene, cam, h, w, args.cull_tile,
                                     shadow_lights)
-    if args.engine == "culled_pallas" and depth > 0:
+    if args.child_cull:
         spec = kwargs["cull"]
         cspec = suggest_child_cull_config(scene, cam, h, w, spec,
                                           shadow_lights=shadow_lights)
@@ -192,11 +191,11 @@ def cmd_render(args):
     if args.time:
         with torch.no_grad():
             dt = time_fn(lambda: render(scene, cam, h, w, **kwargs))
-        # the dense engine casts every light's shadow ray
+        # kernel 7 casts every light's shadow ray
         n_rays = rays_per_frame(
             h, w, scene.lights.count, depth,
-            shadow_lights=(shadow_lights if args.engine == "culled_pallas"
-                           else None),
+            shadow_lights=(None if args.engine == "pallas"
+                           else shadow_lights),
             bounce_mask=bounce_mask)
         MetricsLogger("render").log(
             h=h, w=w, depth=depth, sec=dt,
@@ -219,23 +218,21 @@ def _reject_unported_fit(args):
             ("--soft", args.soft, "the soft-coverage forward (slice 7)"),
             ("--sharded", args.sharded, "the tile-sharded fit (slice 8)"),
             ("--checkpoint-dir", args.checkpoint_dir,
-             "checkpoints (slice 7)"),
-            ("--row-block", args.row_block, "row blocks (slice 7)")):
+             "checkpoints (slice 7)")):
         if value:
             raise SystemExit(f"{flag}: {what} is not yet ported (see "
                              "ROADMAP.md)")
     _reject_engine(args.engine, "fits")
-    if args.engine == "culled_pallas" and args.depth > 0:
-        raise SystemExit(f"depth {args.depth}: the fit command does not size "
-                         "a bounce-child spec yet; fit with --depth 0 or "
-                         "--engine pallas, or call train/inverse.fit with "
-                         "FitConfig.child_cull (see ROADMAP.md)")
+    _check_row_block(args)
 
 
 def cmd_fit(args):
     """The synthetic fit: render sphere_grid_scene(--grid-side, seed=1) as
     the target, perturb the spheres' centers and radii with noise from a
-    torch.Generator seeded with 0, and fit back."""
+    torch.Generator seeded with 0, and fit back. The target and the fitted
+    scene's --out are rendered with the default engine, as the reference
+    does; the fit runs --engine (culled_pallas children densely on
+    'xla')."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
     from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
@@ -257,9 +254,8 @@ def cmd_fit(args):
         cull = suggest_cull_config(scene_true, cam, h, w, (t, t),
                                    headroom=2.0)
         print(f"cull: {cull}")
-    kw = dict(depth=args.depth, engine=args.engine, cull=cull)
     with torch.no_grad():
-        target = render(scene_true, cam, h, w, **kw)
+        target = render(scene_true, cam, h, w, depth=args.depth)
     gen = torch.Generator().manual_seed(0)
     sph = scene_true.spheres
     noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
@@ -270,7 +266,8 @@ def cmd_fit(args):
 
     cfg = FitConfig(height=h, width=w, depth=args.depth, steps=args.steps,
                     learning_rate=args.lr, engine=args.engine,
-                    trainable=tuple(args.trainable.split(",")), cull=cull)
+                    trainable=tuple(args.trainable.split(",")), cull=cull,
+                    row_block=args.row_block)
     t0 = time.time()
     with _profiled(args.profile_dir, device):
         fitted, losses = fit(scene_init, target, cam, cfg)
@@ -281,7 +278,7 @@ def cmd_fit(args):
         print(f"wrote fitted scene JSON {args.save_scene}")
     if args.out:
         with torch.no_grad():
-            save_png(render(fitted, cam, h, w, **kw), args.out)
+            save_png(render(fitted, cam, h, w, depth=args.depth), args.out)
         print(f"wrote {args.out}")
 
 
@@ -301,11 +298,6 @@ def cmd_animate(args):
         raise SystemExit("--gif is not yet ported (it needs PIL, which the "
                          "port does not depend on; see ROADMAP.md); the PNG "
                          "sequence is written without it")
-    if args.engine == "culled_pallas" and args.depth > 0:
-        raise SystemExit(f"depth {args.depth} with --engine culled_pallas: "
-                         "the reference traces these children with the "
-                         "dense XLA engine, which is not yet ported (see "
-                         "ROADMAP.md); use --engine pallas")
     device = _device(args.device)
     h, w = args.height, args.width
     cull = None
@@ -348,13 +340,16 @@ def main(argv=None):
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
-    r.add_argument("--engine", default="culled_pallas", choices=ENGINES,
-                   help="culled_pallas and pallas are ported")
+    r.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="'culled' is not yet ported (rejected)")
     r.add_argument("--cull-tile", type=int, default=32,
                    help="pixel tile side of the culled engine")
     r.add_argument("--child-cull", action="store_true",
                    help="cull the bounce children too (bounce cones; needs "
-                        "depth >= 1; the default for c4_mirror4096)")
+                        "--engine culled_pallas and depth >= 1)")
+    r.add_argument("--row-block", type=int, default=None,
+                   help="dense engines: trace the image in blocks of this "
+                        "many rows (bounds memory; must divide the height)")
     r.add_argument("--bounce", default="tree", choices=["tree", "stack"],
                    help="'stack' is not yet ported (rejected)")
     r.add_argument("--camera-pos", type=float, nargs=3, default=None,
@@ -386,13 +381,13 @@ def main(argv=None):
                    default="spheres.center,spheres.radius,materials.diffuse")
     f.add_argument("--sharded", action="store_true",
                    help="not yet ported (rejected)")
-    f.add_argument("--engine", default="culled_pallas", choices=ENGINES,
-                   help="culled_pallas (depth 0) and pallas are ported")
+    f.add_argument("--engine", default="auto", choices=ENGINES,
+                   help="'culled' is not yet ported (rejected)")
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
                    help="not yet ported (rejected)")
     f.add_argument("--cull-tile", type=int, default=32)
     f.add_argument("--row-block", type=int, default=None,
-                   help="not yet ported (rejected)")
+                   help="dense engines: render in blocks of this many rows")
     f.add_argument("--checkpoint-dir", default=None,
                    help="not yet ported (rejected)")
     f.add_argument("--out", default=None,
@@ -412,9 +407,9 @@ def main(argv=None):
     a.add_argument("--width", type=int, default=640)
     a.add_argument("--height", type=int, default=360)
     a.add_argument("--depth", type=int, default=0)
-    a.add_argument("--engine", default="pallas", choices=ENGINES,
-                   help="pallas (dense, any depth) or culled_pallas (depth "
-                        "0) are ported")
+    a.add_argument("--engine", default="auto",
+                   choices=ENGINES + ["autodiff"],
+                   help="'culled' is not yet ported (rejected)")
     a.add_argument("--cull-tile", type=int, default=8,
                    help="pixel tile side of engine culled_pallas")
     a.add_argument("--out-pattern", default="frame_{:04d}.png")

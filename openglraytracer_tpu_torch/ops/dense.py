@@ -1,10 +1,16 @@
-"""Dense geometry engine: closest hit and per-light occlusion of every ray
-against every object, in one CUDA kernel.
+"""The dense geometry engines: closest hit and per-light occlusion of every
+ray against every object, ``'xla'`` in plain PyTorch and ``'pallas'`` in
+one CUDA kernel, under one analytic backward.
 
-Port of ``openglraytracer_tpu/ops/pallas_render.py`` (``_scene_tables``,
-``_geometry_kernel``, ``pallas_geometry``), the forward of engine
-``pallas``. Kernel 7 (``dense_hit``, csrc/dense_hit.cu) takes every ray
-through:
+Engine ``'xla'`` (``xla_geometry``) is the XLA branch of the reference's
+``ops/geometry.py _forward``: ``intersect.closest_hit`` (``closest_hit_sp``
+when the scene has no boxes), then the shadow origin ``p + 0.01 n`` and
+``intersect.shadow_occlusion_sp`` with the static light mask.
+
+Engine ``'pallas'`` is the port of
+``openglraytracer_tpu/ops/pallas_render.py`` (``_scene_tables``,
+``_geometry_kernel``, ``pallas_geometry``). Kernel 7 (``dense_hit``,
+csrc/dense_hit.cu) takes every ray through:
 
   1. a running minimum over all N spheres, then all M oriented boxes (slab
      test in the box's frame, face pick by exact equality with the winning
@@ -26,10 +32,10 @@ The normal is normalized with a correctly rounded ``1 / sqrt`` in both
 versions (CUDA's ``rsqrtf`` is not), so the shadow origin rounds alike.
 
 ``dense_geometry`` assembles the ``Hit`` of ``pallas_geometry`` around the
-kernel's record. ``geometry_op`` makes it differentiable, the port of the
-reference's ``ops/geometry.py geometry_op`` for engine ``pallas``: its
-backward ``_dense_bwd`` gathers each ray's winner from the global tables
-and runs the winner replay shared with the culled engine
+kernel's record. ``geometry_op`` makes either engine's forward
+differentiable, the port of the reference's ``ops/geometry.py
+geometry_op``: its backward ``_dense_bwd`` gathers each ray's winner from
+the global tables and runs the winner replay shared with the culled engine
 (``ops/geometry.winner_backward``).
 """
 
@@ -41,10 +47,13 @@ from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
                                                     _with_leaves, box_rotation,
+                                                    component_dot, sum_dot,
                                                     winner_backward)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit, _fma,
-                                                     _inv_safe)
+                                                     _inv_safe, closest_hit,
+                                                     closest_hit_sp,
+                                                     shadow_occlusion_sp)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS
 
 SPH_COLS, BOX_COLS, PLN_COLS, LIGHT_COLS = 4, 18, 4, 3
@@ -310,13 +319,14 @@ def dense_geometry(scene: Scene, origins, dirs):
 # ---------------------------------------------------------------------------
 
 def _dense_bwd(scene: Scene, origins, dirs, hit: Hit, gt, gp, gn,
-               need_rays: bool = False):
+               need_rays: bool = False, dot=sum_dot):
     """Analytic winner-only backward of the dense engine, the port of
     ``geometry._geometry_bwd``: winner rows gathered from the global tables
     by obj_id (index_select), winner_backward, and the per-ray cotangents
     added into the objects with index_add_. Returns the cotangents of the
     leaves of geometry._GEOMETRY_LEAVES, then of the origins and directions
-    (None unless need_rays), as accel._culled_bwd."""
+    (None unless need_rays), as accel._culled_bwd. dot: the replay's
+    row-wise dot product (geometry.component_dot for engine 'xla')."""
     sph, box = scene.spheres, scene.boxes
     n_sph, n_box = sph.count, box.count
     idx = hit.obj_id
@@ -340,7 +350,7 @@ def _dense_bwd(scene: Scene, origins, dirs, hit: Hit, gt, gp, gn,
 
     g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
         scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
-        gt, gp, gn, need_rays)
+        gt, gp, gn, need_rays, dot=dot)
 
     if n_sph:
         g_sph = torch.zeros((n_sph, 4), dtype=gt.dtype, device=gt.device) \
@@ -361,20 +371,39 @@ def _dense_bwd(scene: Scene, origins, dirs, hit: Hit, gt, gp, gn,
             g_offset, go, gd)
 
 
+def xla_geometry(scene: Scene, origins, dirs, chunk_size: int = 512,
+                 shadow_lights: tuple | None = None):
+    """Engine 'xla': (Hit, occluded (R, L) bool) of (R, 3) rays in plain
+    PyTorch, objects scanned in chunks of chunk_size. shadow_lights: static
+    per-light bools; a False light casts no shadow ray (unoccluded)."""
+    if scene.boxes.count:
+        hit = closest_hit(scene, origins, dirs, chunk_size=chunk_size)
+    else:
+        hit = closest_hit_sp(scene, origins, dirs, chunk_size=chunk_size)
+    shadow_org = hit.p + hit.n * SHADOW_EPS
+    to_lights = scene.lights.position[None, :, :] - hit.p[:, None, :]
+    occ = shadow_occlusion_sp(scene, shadow_org, to_lights,
+                              chunk_size=chunk_size,
+                              lights_mask=shadow_lights)
+    return hit, occ
+
+
 class _GeometryOp(torch.autograd.Function):
-    """Forward: dense.dense_geometry (kernel 7). Backward: _dense_bwd.
-    Takes the scene (for its non-differentiable columns), the geometry
-    leaves of geometry._GEOMETRY_LEAVES and the rays; returns the Hit fields
-    and the occlusion, of which only t, p and n are differentiable."""
+    """Forward: xla_geometry (engine 'xla') or dense_geometry (kernel 7,
+    engine 'pallas'). Backward: _dense_bwd. Takes the scene (for its
+    non-differentiable columns), the forward as a function of (scene,
+    origins, dirs), the replay's dot product, the geometry leaves of
+    geometry._GEOMETRY_LEAVES and the rays; returns the Hit fields and the
+    occlusion, of which only t, p and n are differentiable."""
 
     @staticmethod
-    def forward(ctx, scene, *tensors):
+    def forward(ctx, scene, geometry, dot, *tensors):
         leaves, (origins, dirs) = tensors[:-2], tensors[-2:]
         scene = _with_leaves(scene, leaves)
-        hit, occ = dense_geometry(scene, origins, dirs)
+        hit, occ = geometry(scene, origins, dirs)
         ctx.mark_non_differentiable(*hit[3:], occ)
         ctx.save_for_backward(*tensors, hit.inside, hit.obj_id, hit.hit)
-        ctx.scene = scene
+        ctx.scene, ctx.dot = scene, dot
         return (*hit, occ)
 
     @staticmethod
@@ -386,23 +415,34 @@ class _GeometryOp(torch.autograd.Function):
         scene = _with_leaves(ctx.scene, leaves)
         hit = Hit(t=None, p=None, n=None, inside=inside, material_id=None,
                   obj_id=obj_id, hit=hit_mask)
-        need = ctx.needs_input_grad[1:]
+        need = ctx.needs_input_grad[3:]
         grads = _dense_bwd(scene, origins, dirs, hit, gt, gp, gn,
-                           need_rays=any(need[-2:]))
-        return (None, *(g if want else None
-                        for g, want in zip(grads, need)))
+                           need_rays=any(need[-2:]), dot=ctx.dot)
+        return (None, None, None, *(g if want else None
+                                    for g, want in zip(grads, need)))
 
 
-def geometry_op(scene: Scene, origins, dirs):
+def geometry_op(scene: Scene, origins, dirs, engine: str = "xla",
+                chunk_size: int = 512, shadow_lights: tuple | None = None):
     """Closest hit and per-light occlusion of (R, 3) rays against every
     object, with the analytic backward: (Hit, occluded (R, L) bool).
     Gradients of hit.t, hit.p and hit.n flow to the spheres' center and
     radius, the boxes' mins, maxs, position and angles, the planes' normal
     and offset, and to the rays whenever they require grad (bounce
-    children). The reference's ``geometry_op`` for engine 'pallas': kernel
-    7 casts every light's shadow ray, so like the reference kernel it takes
-    no light mask (occlusion carries no gradient)."""
+    children). engine 'xla' (plain PyTorch, chunk_size objects a chunk,
+    shadow rays for the lights of shadow_lights only) or 'pallas' (kernel
+    7, which like the reference kernel casts every light's shadow ray and so
+    ignores chunk_size and shadow_lights; occlusion carries no gradient)."""
+    if engine == "pallas":
+        geometry, dot = dense_geometry, sum_dot
+    elif engine == "xla":
+        def geometry(s, o, d):
+            return xla_geometry(s, o, d, chunk_size, shadow_lights)
+        dot = component_dot
+    else:
+        raise ValueError(f"geometry_op: engine '{engine}' is not a dense "
+                         "engine ('xla' or 'pallas')")
     leaves = [getattr(getattr(scene, part), field)
               for part, field in _GEOMETRY_LEAVES]
-    out = _GeometryOp.apply(scene, *leaves, origins, dirs)
+    out = _GeometryOp.apply(scene, geometry, dot, *leaves, origins, dirs)
     return Hit(*out[:_N_HIT]), out[_N_HIT]

@@ -29,18 +29,37 @@ from __future__ import annotations
 import torch
 
 from openglraytracer_tpu_torch.models.scene import Scene
-from openglraytracer_tpu_torch.ops.intersect import (Hit, _rot_apply,
+from openglraytracer_tpu_torch.ops.intersect import (Hit, _dot3, _rot_apply,
                                                      _rot_apply_t, _safe_div)
 from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
 
 
-def _sphere_recompute(c, r, o, d, inside):
-    """Winning-sphere (t, p, n) replay; frozen inside flag selects the root."""
+def sum_dot(a, b):
+    """Row-wise a . b of (R, 3) rows by torch.sum, as the reference's
+    replay sums them."""
+    return torch.sum(a * b, dim=-1)
+
+
+def component_dot(a, b):
+    """Row-wise a . b summed as intersect._dot3 sums: the replay dot of the
+    dense engine 'xla', whose forward is intersect.py. torch.sum sums in
+    another order on the GPU, and at a grazing ray the discriminant is the
+    difference of nearly equal terms while t's gradient goes as its
+    inverse square root: one rounding apart there moves a whole leaf's
+    gradient (5e-3 of its largest on the OBB world at depth 1, against
+    autograd through the forward). The kernel engines' forwards round as
+    their kernels do, so for them the cheaper torch.sum is as good."""
+    return _dot3(a[:, 0], a[:, 1], a[:, 2], b[:, 0], b[:, 1], b[:, 2])
+
+
+def _sphere_recompute(c, r, o, d, inside, dot=sum_dot):
+    """Winning-sphere (t, p, n) replay; frozen inside flag selects the root.
+    dot: the row-wise dot product (sum_dot or component_dot)."""
     eps = 1.0e-12
     oc = o - c
-    qa = torch.sum(d * d, dim=-1)
-    qb = 2.0 * torch.sum(d * oc, dim=-1)
-    qc = torch.sum(oc * oc, dim=-1) - r * r
+    qa = dot(d, d)
+    qb = 2.0 * dot(d, oc)
+    qc = dot(oc, oc) - r * r
     disc = qb * qb - 4.0 * qa * qc
     disc_safe = torch.where(disc > 0.0, disc, 1.0)
     sq = torch.where(disc > 0.0, torch.sqrt(disc_safe), 0.0)
@@ -50,8 +69,7 @@ def _sphere_recompute(c, r, o, d, inside):
     t_s = torch.where(inside, t_far, t_near)
     p_s = o + t_s[:, None] * d
     u = p_s - c
-    u_len = torch.sqrt(torch.clamp(torch.sum(u * u, dim=-1, keepdim=True),
-                                   min=eps))
+    u_len = torch.sqrt(torch.clamp(dot(u, u), min=eps))[:, None]
     n_s = u / u_len
     n_s = torch.where(inside[:, None], -n_s, n_s)
     return t_s, p_s, n_s
@@ -96,21 +114,20 @@ def _box_recompute(bm, bx, bp, rot, o, d, inside):
     return t_b, p_b, n_b
 
 
-def _plane_recompute(pn, poff, o, d):
+def _plane_recompute(pn, poff, o, d, dot=sum_dot):
     eps = 1.0e-12
-    nd = torch.sum(pn * d, dim=-1)
-    no = torch.sum(pn * o, dim=-1)
+    nd = dot(pn, d)
+    no = dot(pn, o)
     t_p = _safe_div(poff - no, nd)
     p_p = o + t_p[:, None] * d
-    pn_len = torch.sqrt(torch.clamp(torch.sum(pn * pn, dim=-1, keepdim=True),
-                                    min=eps))
+    pn_len = torch.sqrt(torch.clamp(dot(pn, pn), min=eps))[:, None]
     n_unit = pn / pn_len
     n_p = torch.where(nd[:, None] > 0.0, -n_unit, n_unit)
     return t_p, p_p, n_p
 
 
 def _winner_recompute(c, r, pn, poff, o, d, is_sph, inside, hit_mask,
-                      box_params=None, is_box=None):
+                      box_params=None, is_box=None, dot=sum_dot):
     """Recompute (t, p, n) of the winning candidate from its own parameters,
     with the forward's discrete decisions (winner, inside flag, hit mask)
     frozen.
@@ -118,9 +135,10 @@ def _winner_recompute(c, r, pn, poff, o, d, is_sph, inside, hit_mask,
     c (R, 3), r (R,), pn (R, 3), poff (R,): winner sphere / plane params.
     box_params: optional (mins, maxs, position, rot (R, 3, 3)) of the winner
     box when the scene has boxes; is_box the per-ray box-winner mask.
+    dot: the row-wise dot product of the sphere and plane replays.
     Returns t (R,), p (R, 3), n (R, 3): t = 0, p = o and n = 0 on misses."""
-    t, p, n = _sphere_recompute(c, r, o, d, inside)
-    t_p, p_p, n_p = _plane_recompute(pn, poff, o, d)
+    t, p, n = _sphere_recompute(c, r, o, d, inside, dot)
+    t_p, p_p, n_p = _plane_recompute(pn, poff, o, d, dot)
 
     is_sph_f = is_sph[:, None]
     t = torch.where(is_sph, t, t_p)
@@ -159,7 +177,7 @@ def box_rotation(boxes):
 
 def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
                     sph_rows, box_rows, gt, gp, gn, need_rays: bool,
-                    lost=None):
+                    lost=None, dot=sum_dot):
     """Per-ray cotangents of each ray's winner, from the cotangents gt (R,),
     gp (R, 3), gn (R, 3) of hit.t, hit.p and hit.n.
 
@@ -167,7 +185,8 @@ def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
     row is known). sph_rows (R, 4) [c r] and box_rows (R, 18) [mins maxs
     pos rot(9)]: the gathered winner rows (None when the scene has none of
     that kind); planes are gathered here by global object id. lost: rays
-    whose winner is unknown (their cotangents are dropped), or None.
+    whose winner is unknown (their cotangents are dropped), or None. dot:
+    the replay's row-wise dot product (component_dot for engine 'xla').
 
     On a miss the forward's p is the ray origin, so p's cotangent goes to
     the origin. Returns (g_sph (R, 4), g_box (R, 18), g_normal (P, 3),
@@ -220,7 +239,8 @@ def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
         bp = leaves[4:8] if n_box else None
         t, p, n = _winner_recompute(leaves[0], leaves[1], leaves[2],
                                     leaves[3], o_, d_, is_sph, hit.inside,
-                                    hm, box_params=bp, is_box=is_box)
+                                    hm, box_params=bp, is_box=is_box,
+                                    dot=dot)
         grads = torch.autograd.grad((t, p, n), leaves, (gt, gp, gn),
                                     allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g

@@ -1,40 +1,48 @@
-"""The renderer: ``render(scene, camera) -> image`` for engines pallas and
+"""The renderer: ``render(scene, camera) -> image`` for the dense engines
+'xla' ('auto'), 'autodiff' and 'pallas', and the culled engine
 culled_pallas.
 
-Port of ``openglraytracer_tpu/ops/render.py`` (``trace_rays_fast``,
-``pick_tracer``, ``render``, ``_apply_bounces``, ``_trace_child_culled``
-and the engine branches of ``_render_jit``). There is no jit: these are
-plain functions that enqueue device work and never wait for the device, so
-a frame (raygen -> image) runs without a host sync once the cull specs and
-the static light and bounce masks are known; they are computed on the
-host, once, outside the frame.
+Port of ``openglraytracer_tpu/ops/render.py`` (``trace_rays``,
+``trace_rays_fast``, ``pick_tracer``, ``render``, ``_apply_bounces``,
+``_trace_child_culled`` and the engine branches of ``_render_jit``). There
+is no jit: these are plain functions that enqueue device work and never
+wait for the device, so a frame (raygen -> image) runs without a host sync
+once the cull specs and the static light and bounce masks are known; they
+are computed on the host, once, outside the frame.
 
-Two engines, named for the reference's contracts:
+The engines, named for the reference's contracts:
 
-  * ``pallas``, the dense engine: every ray against every object in one
-    kernel (kernel 7, ops/dense.py geometry_op), rays
-    in raster order, shaded by the plain-torch ``phong_shade_lit`` with
-    materials gathered by id, as the reference shades this engine in XLA.
-    Bounce children recurse through the same engine.
+  * ``xla`` (and ``auto``, which means ``xla``, the default), the plain
+    dense engine: every ray against every object in chunks of
+    ``chunk_size`` objects in plain PyTorch (ops/intersect.py), with the
+    analytic winner backward (ops/dense.py geometry_op), rays in raster
+    order, shaded by the plain-torch ``phong_shade_lit``. Bounce children
+    recurse through the same engine.
+  * ``autodiff``: the same forward (``trace_rays``: ``closest_hit`` and
+    ``phong_shade`` with its per-light ``any_hit`` queries), differentiated
+    by autograd straight through it: the gradient reference.
+  * ``pallas``, the dense kernel engine: as ``xla``, with the geometry in
+    one kernel (kernel 7, ops/dense.py).
   * ``culled_pallas``: the cone broad phase, then the survivor-list
     narrow-phase kernels, then the fused shade kernel (ops/culled.py,
     ops/shade.py), rays in tile-major order. Its bounce children take the
-    secondary-ray culled path (``child_cull``: bounce cones, kernel 2 with
-    its hot launch, kernel B) and are shaded by ``phong_shade_lit``.
-    Children without ``child_cull`` run the plain-XLA dense engine in the
-    reference, which is not ported: that raises NotImplementedError (see
-    ROADMAP.md), as do the engines 'xla', 'auto', 'autodiff' and 'culled'.
-    Row blocks, the mirror-chain tracer and the stack bounce engine are not
-    ported either (no parameter selects them here).
+    secondary-ray culled path with ``child_cull`` (bounce cones, kernel 2
+    with its hot launch, kernel B) and are shaded by ``phong_shade_lit``;
+    without ``child_cull`` they are traced densely on ``xla``.
+
+The engine 'culled' (the XLA culled engine), the mirror-chain tracer and
+the stack bounce engine are not ported (see ROADMAP.md): 'culled' raises
+NotImplementedError, and no parameter selects the other two.
 
 Bounces (depth > 0) run the reference's static tree unroll: each level's
 reflection and refraction children are traced for all rays and blended
 ``mix(mix(phong, refl, reflectivity), refr, transparency)``.
 
-Both functions are differentiable: gradients of the image flow to the
+Every engine is differentiable: gradients of the image flow to the
 spheres, boxes and planes through the analytic winner backward of each
-engine (ops/geometry.winner_backward) and to the materials and lights through the shade.
-A caller that only renders wraps the call in ``torch.no_grad()``.
+engine (ops/geometry.winner_backward), or through autograd for 'autodiff',
+and to the materials and lights through the shade. A caller that only
+renders wraps the call in ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -50,31 +58,29 @@ from openglraytracer_tpu_torch.ops.accel import (cull_hot_p,
 from openglraytracer_tpu_torch.ops.culled import (bounce_culled_geometry_op,
                                                   culled_geometry_op)
 from openglraytracer_tpu_torch.ops.dense import geometry_op
+from openglraytracer_tpu_torch.ops.intersect import closest_hit
 from openglraytracer_tpu_torch.ops.raygen import generate_rays
 from openglraytracer_tpu_torch.ops.shade import shade_fused
 from openglraytracer_tpu_torch.ops.shading import (gather_materials,
                                                    materials_from_rows,
+                                                   phong_shade,
                                                    phong_shade_lit,
                                                    static_bounce_mask,
                                                    static_shadow_mask)
 from openglraytracer_tpu_torch.ops.transforms import reflect, refract
 
-ENGINE = "culled_pallas"
-DENSE = "pallas"
-ENGINES = (DENSE, ENGINE)
+CULLED = "culled_pallas"
+# the dense engines (every ray against every object, no cull spec), then
+# the culled one
+ENGINES = ("auto", "xla", "autodiff", "pallas", CULLED)
 BOUNCE_EPS = 1.0e-3  # reflection/refraction origin offset along the normal
 
 
-def _check_slice(engine: str, depth: int, child_cull) -> None:
+def _check_engine(engine: str) -> None:
     if engine not in ENGINES:
         raise NotImplementedError(
             f"engine '{engine}' is not yet ported; this package renders "
             f"with engines {ENGINES} only; see ROADMAP.md")
-    if engine == ENGINE and depth > 0 and child_cull is None:
-        raise NotImplementedError(
-            f"depth {depth} without child_cull: dense bounce children (the "
-            "dense engine) are not yet ported; pass a child spec from "
-            "ops/accel.suggest_child_cull_config; see ROADMAP.md")
 
 
 def _mix(a, b, w):
@@ -139,15 +145,20 @@ def _trace_child_culled(scene: Scene, origins, dirs, active, depth: int,
 
 
 def _culled_bounces(scene: Scene, dirs, hit, color, depth: int, mat_rows,
-                    child_cull: tuple, shadow_lights: tuple | None,
-                    bounce_mask: tuple, ovf=None):
-    """The bounce levels below a culled trace (none at depth 0): the
-    children through _trace_child_culled, blended into color. Returns
-    (color, ovf plus every child level's overflow); ovf None counts only
-    the children's (None when no child was traced)."""
+                    child_cull: tuple | None, shadow_lights: tuple | None,
+                    bounce_mask: tuple, ovf=None, chunk_size: int = 512):
+    """The bounce levels below a culled trace (none at depth 0), blended
+    into color: the children through _trace_child_culled, or with
+    child_cull None densely on engine 'xla' (chunk_size objects a chunk),
+    as the reference does. Returns (color, ovf plus every culled child
+    level's overflow); ovf None counts only the children's (None when no
+    culled child was traced)."""
     ovfs = [] if ovf is None else [ovf]
 
     def recurse(o, d, dd, act):
+        if child_cull is None:
+            return _trace_dense(scene, o, d, dd, "xla", chunk_size,
+                                shadow_lights, bounce_mask)
         c, child_ovf = _trace_child_culled(scene, o, d, act, dd, child_cull,
                                            shadow_lights, bounce_mask)
         ovfs.append(child_ovf)
@@ -159,30 +170,57 @@ def _culled_bounces(scene: Scene, dirs, hit, color, depth: int, mat_rows,
     return color, (sum(ovfs[1:], ovfs[0]) if ovfs else None)
 
 
+def trace_rays(scene: Scene, origins, dirs, depth: int = 0,
+               chunk_size: int = 512, bounce_mask: tuple | None = None):
+    """Engine 'autodiff': trace rays (R, 3) through closest_hit and
+    phong_shade (every light casts its shadow ray), with depth > 0 the
+    bounce children, differentiated by autograd straight through the
+    chunked object scan. Returns colors (R, 3), black on misses.
+    bounce_mask None reads the material table on the host."""
+    if bounce_mask is None:
+        bounce_mask = static_bounce_mask(scene)
+    hit = closest_hit(scene, origins, dirs, chunk_size=chunk_size)
+    color = phong_shade(scene, dirs, hit, chunk_size=chunk_size)
+    if depth > 0:
+        color = _apply_bounces(
+            scene, dirs, hit, color, depth,
+            lambda o, d, dd, _act: trace_rays(scene, o, d, dd, chunk_size,
+                                              bounce_mask),
+            bounce_mask)
+    return torch.where(hit.hit[:, None], color, 0.0)
+
+
 def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
-                    engine: str = ENGINE, cull: tuple | None = None,
+                    chunk_size: int = 512, engine: str = "xla",
+                    cull: tuple | None = None,
                     shadow_lights: tuple | None = None,
                     with_cull_stats: bool = False,
                     bounce_mask: tuple | None = None,
                     child_cull: tuple | None = None):
-    """Trace rays (R, 3) and shade them, with depth > 0 the bounce children.
+    """Trace rays (R, 3) and shade them, with depth > 0 the bounce children,
+    with the analytic winner backward.
 
-    engine 'pallas': any rays; kernel 7 for the geometry, phong_shade_lit,
-    children through the same engine; cull and child_cull are not used.
+    engine 'xla' (the default; 'auto' and 'autodiff' run it too, as in the
+    reference) and 'pallas': any rays; the dense geometry (plain PyTorch in
+    chunks of chunk_size objects, or kernel 7), phong_shade_lit, children
+    through the same engine; cull and child_cull are not used.
     engine 'culled_pallas': tile-major rays sharing one origin; culled
     narrow phase, survivor-routed materials, fused shade. cull = (tile_p,
     kp, ks[, hot_m[, kb, ksb]]); child_cull = (tile_p, kp, ks, hot_m, kb,
-    ksb[, hot_p]), needed when depth > 0.
+    ksb[, hot_p]) traces the bounce children on the culled path, None
+    traces them densely on 'xla'.
 
+    shadow_lights: static per-light bools (engines 'xla' and
+    culled_pallas; kernel 7 casts every light); None casts every light.
     bounce_mask: static (has_refl, has_refr); None reads the material table
     on the host (static_bounce_mask). Returns colors (R, 3), black on
     misses, and with with_cull_stats also a device int32 scalar counting
-    (tile, list) slots that overflowed their static K over every level
-    (always 0 for the dense engine, which drops nothing)."""
-    _check_slice(engine, depth, child_cull)
-    if engine == DENSE:
-        return _trace_dense(scene, origins, dirs, depth, with_cull_stats,
-                            bounce_mask)
+    (tile, list) slots that overflowed their static K over every culled
+    level (always 0 for the dense engines, which drop nothing)."""
+    _check_engine(engine)
+    if engine != CULLED:
+        return _trace_dense(scene, origins, dirs, depth, engine, chunk_size,
+                            shadow_lights, bounce_mask, with_cull_stats)
     if cull is None:
         raise ValueError(
             f"engine='{engine}' needs cull=(tile_p, kp, ks[, hot_m[, kb, "
@@ -196,7 +234,7 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
         bounce_mask = static_bounce_mask(scene)
     color, child_ovf = _culled_bounces(scene, dirs, hit, color, depth,
                                        mat_rows, child_cull, shadow_lights,
-                                       bounce_mask)
+                                       bounce_mask, chunk_size=chunk_size)
     color = torch.where(hit.hit[:, None], color, 0.0)
     if with_cull_stats:
         ovf = cull_overflow_count(aux)
@@ -204,47 +242,56 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
     return color
 
 
-def _trace_dense(scene: Scene, origins, dirs, depth: int,
-                 with_cull_stats: bool, bounce_mask: tuple | None):
-    """trace_rays_fast for engine 'pallas' (the reference's non-culled
-    branch): geometry_op on kernel 7, which casts every light's shadow ray
-    (so no light mask reaches it), phong_shade_lit with materials gathered
-    by id, and the children through the same engine."""
-    hit, occ = geometry_op(scene, origins, dirs)
+def _trace_dense(scene: Scene, origins, dirs, depth: int, engine: str,
+                 chunk_size: int, shadow_lights: tuple | None,
+                 bounce_mask: tuple | None, with_cull_stats: bool = False):
+    """trace_rays_fast for the dense engines (the reference's non-culled
+    branch): geometry_op on kernel 7 for 'pallas' and in plain PyTorch for
+    the others, phong_shade_lit with materials gathered by id, and the
+    children through the same engine."""
+    geo = "pallas" if engine == "pallas" else "xla"
+    hit, occ = geometry_op(scene, origins, dirs, geo, chunk_size,
+                           shadow_lights)
     color = phong_shade_lit(scene, dirs, hit, occ)
     if depth > 0:
         if bounce_mask is None:
             bounce_mask = static_bounce_mask(scene)
         color = _apply_bounces(
             scene, dirs, hit, color, depth,
-            lambda o, d, dd, _act: _trace_dense(scene, o, d, dd, False,
+            lambda o, d, dd, _act: _trace_dense(scene, o, d, dd, geo,
+                                                chunk_size, shadow_lights,
                                                 bounce_mask),
             bounce_mask)
     color = torch.where(hit.hit[:, None], color, 0.0)
-    if with_cull_stats:     # the dense engine drops no object
+    if with_cull_stats:     # the dense engines drop no object
         return color, torch.zeros((), dtype=torch.int32,
                                   device=color.device)
     return color
 
 
-def pick_tracer(scene: Scene, engine: str = DENSE,
+def pick_tracer(scene: Scene, engine: str = "auto",
                 shadow_lights: tuple | None = None,
                 bounce_mask: tuple | None = None):
-    """The trace function of an engine: tracer(scene, origins, dirs,
-    depth=0) -> colors. 'pallas' is the dense engine (kernel 7 forward, the
-    analytic O(R) backward); 'auto' and 'xla' (the plain-XLA dense engine)
-    and 'autodiff' are not yet ported and raise (see ROADMAP.md). scene is
-    unused, as in the reference's signature (the tracer takes its own)."""
-    if engine != DENSE:
-        raise NotImplementedError(
-            f"pick_tracer engine '{engine}' is not yet ported; this package "
-            f"traces with engine '{DENSE}' here (see ROADMAP.md)")
-
-    def tracer(s, o, d, depth=0):
-        return trace_rays_fast(s, o, d, depth, engine=DENSE,
-                               shadow_lights=shadow_lights,
-                               bounce_mask=bounce_mask)
-    return tracer
+    """The trace function of a dense engine: tracer(scene, origins, dirs,
+    depth=0, chunk_size=512) -> colors.
+      'auto'     -> 'xla'
+      'xla'      -> plain PyTorch forward and the analytic O(R) backward
+      'pallas'   -> kernel 7 forward and the same analytic backward
+      'autodiff' -> the plain forward differentiated by autograd (the
+                    gradient reference)
+    scene is unused, as in the reference's signature (the tracer takes its
+    own)."""
+    _check_engine(engine)
+    if engine == CULLED:
+        raise ValueError(f"pick_tracer: engine '{engine}' needs a cull "
+                         "spec; call trace_rays_fast or render with cull")
+    if engine == "autodiff":
+        return lambda s, o, d, depth=0, chunk_size=512: trace_rays(
+            s, o, d, depth, chunk_size=chunk_size, bounce_mask=bounce_mask)
+    engine = "xla" if engine == "auto" else engine
+    return lambda s, o, d, depth=0, chunk_size=512: trace_rays_fast(
+        s, o, d, depth, chunk_size=chunk_size, engine=engine,
+        shadow_lights=shadow_lights, bounce_mask=bounce_mask)
 
 
 def _check_device(scene: Scene, camera: Camera, device: torch.device):
@@ -256,49 +303,70 @@ def _check_device(scene: Scene, camera: Camera, device: torch.device):
 
 
 def render(scene: Scene, camera: Camera, height: int, width: int,
-           depth: int = 0, engine: str = ENGINE, cull: tuple | None = None,
-           shadow_lights: tuple | None = None,
+           depth: int = 0, chunk_size: int = 512,
+           row_block: int | None = None, engine: str = "auto",
+           cull: tuple | None = None, shadow_lights: tuple | None = None,
            with_cull_stats: bool = False, device=None,
            bounce_mask: tuple | None = None,
            child_cull: tuple | None = None):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
 
-    engine 'pallas' traces the rays in raster order through the dense
-    engine, at any depth; it needs no cull spec. engine 'culled_pallas'
-    needs cull = ((tile_h, tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it with
+    The dense engines ('auto' = 'xla', the default; 'autodiff'; 'pallas')
+    trace the rays in raster order, at any depth, with no cull spec:
+    chunk_size objects a chunk ('xla', 'autodiff'), and with row_block the
+    image in blocks of row_block rows (it must divide height), which bounds
+    the memory of a trace. engine 'culled_pallas' needs cull = ((tile_h,
+    tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it with
     ops/accel.suggest_cull_config (counts above K drop objects and are
-    reported through with_cull_stats). depth > 0 needs child_cull =
-    ((tile_h, tile_w), kp, ks, hot_m, kb, ksb[, hot_p]) with the parent's
-    tile, sized by ops/accel.suggest_child_cull_config. shadow_lights and
-    bounce_mask: static masks; None reads the light (material) table on
-    the host, which waits for the device — pass them to keep the frame
-    sync-free. with_cull_stats: return (image, overflow) where overflow is
-    a device int32 scalar counting K overflows over every bounce level (0
-    for the dense engine)."""
-    _check_slice(engine, depth, child_cull)
+    reported through with_cull_stats) — and takes no row_block (it is
+    tile-blocked already). At depth > 0 its children are traced on the
+    culled path with child_cull = ((tile_h, tile_w), kp, ks, hot_m, kb,
+    ksb[, hot_p]) with the parent's tile, sized by
+    ops/accel.suggest_child_cull_config, and densely on 'xla' without it.
+    shadow_lights and bounce_mask: static masks; None reads the light
+    (material) table on the host, which waits for the device — pass them
+    to keep the frame sync-free ('pallas' and 'autodiff' cast every light
+    and read no light mask). with_cull_stats: return (image, overflow)
+    where overflow is a device int32 scalar counting K overflows over every
+    culled level (0 for the dense engines)."""
+    _check_engine(engine)
     device = (torch.device(device) if device is not None
               else camera.position.device)
     _check_device(scene, camera, device)
+    if shadow_lights is None and engine in ("auto", "xla", CULLED):
+        shadow_lights = static_shadow_mask(scene)
     if bounce_mask is None:
         bounce_mask = static_bounce_mask(scene) if depth > 0 \
             else (True, True)
-    if engine == DENSE:
-        origins, dirs = generate_rays(camera, height, width)
-        out = _trace_dense(scene, origins.reshape(-1, 3),
-                           dirs.reshape(-1, 3), depth, with_cull_stats,
-                           bounce_mask)
-        if with_cull_stats:
-            return out[0].reshape(height, width, 3), out[1]
-        return out.reshape(height, width, 3)
+    origins, dirs = generate_rays(camera, height, width)
+    if engine != CULLED:
+        tracer = pick_tracer(scene, engine, shadow_lights, bounce_mask)
+        o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
+        if row_block is None or row_block >= height:
+            colors = tracer(scene, o, d, depth, chunk_size=chunk_size)
+        else:
+            if height % row_block:
+                raise ValueError(f"row_block {row_block} must divide the "
+                                 f"height {height}")
+            n = row_block * width
+            colors = torch.cat([tracer(scene, o[i:i + n], d[i:i + n], depth,
+                                       chunk_size=chunk_size)
+                                for i in range(0, o.shape[0], n)])
+        img = colors.reshape(height, width, 3)
+        if with_cull_stats:     # the dense engines drop no object
+            return img, torch.zeros((), dtype=torch.int32, device=device)
+        return img
     if cull is None:
         raise ValueError(
             f"engine='{engine}' needs cull=((th, tw), kp, ks[, hot_m[, kb, "
             "ksb]])")
-    if shadow_lights is None:
-        shadow_lights = static_shadow_mask(scene)
+    if row_block is not None:
+        raise ValueError(
+            f"row_block is not supported with engine='{engine}' (the culled "
+            "path is already tile-blocked); drop it or use engine='xla'")
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
     cc = None
-    if depth > 0:
+    if depth > 0 and child_cull is not None:
         (cth, ctw), ckp, cks, chot, ckb, cksb = parse_cull_spec(child_cull)
         if (cth, ctw) != (th, tw):
             raise ValueError(
@@ -306,10 +374,10 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
                 f"{(th, tw)}: children inherit the parent's tile-major ray "
                 "order")
         cc = (cth * ctw, ckp, cks, chot, ckb, cksb, cull_hot_p(child_cull))
-    origins, dirs = generate_rays(camera, height, width)
     o = tile_image(origins, th, tw).reshape(-1, 3)
     d = tile_image(dirs, th, tw).reshape(-1, 3)
-    out = trace_rays_fast(scene, o, d, depth, engine=engine,
+    out = trace_rays_fast(scene, o, d, depth, chunk_size=chunk_size,
+                          engine=engine,
                           cull=(th * tw, kp, ks, hot_m, kb, ksb),
                           shadow_lights=shadow_lights,
                           with_cull_stats=with_cull_stats,

@@ -1,13 +1,15 @@
 """Phong ADS shading math.
 
-Port of the parts of ``openglraytracer_tpu/ops/shading.py`` that the culled
-path uses: the packed 20-column material table and its per-ray views, the
-static masks of lights that need shadow rays and of bounce branches that can
-contribute, ``phong_core`` — the lighting math over raw per-ray arrays,
-which is also the plain version of the fused shade kernel
-(``ops/shade.py``) — and ``phong_shade_lit``, the plain-torch shade of bounce
-children (as in the reference, which shades them with its XLA chain, not
-the fused kernel). Reference quirks kept: the shadow segment is the
+Port of ``openglraytracer_tpu/ops/shading.py``: the packed 20-column
+material table and its per-ray views, the static masks of lights that need
+shadow rays and of bounce branches that can contribute, ``phong_core`` —
+the lighting math over raw per-ray arrays, which is also the plain version
+of the fused shade kernel (``ops/shade.py``) — ``phong_shade_lit``, the
+plain-torch shade of the dense engines and of bounce children (as in the
+reference, which shades them with its XLA chain, not the fused kernel),
+and ``shadow_masks`` and ``phong_shade``, the shade with its own
+``any_hit`` shadow queries that engine 'autodiff' differentiates through.
+Reference quirks kept: the shadow segment is the
 unnormalized light_pos - p, and the output is ``phong.rgb * phong.a``.
 """
 
@@ -16,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from openglraytracer_tpu_torch.models.scene import Scene
-from openglraytracer_tpu_torch.ops.intersect import Hit, _safe_normalize
+from openglraytracer_tpu_torch.ops.intersect import (Hit, _safe_normalize,
+                                                     any_hit)
 
 _POW_EPS = 1.0e-12
 SHADOW_EPS = 0.01  # shadow-ray origin offset along the normal
@@ -133,3 +136,23 @@ def phong_shade_lit(scene: Scene, dirs, hit: Hit, occluded, mat_rows=None):
     return phong_core(mat_rows, lights.position, lights.ambient,
                       lights.diffuse, lights.specular, dirs, hit.p, hit.n,
                       occluded)
+
+
+def shadow_masks(scene: Scene, hit: Hit, chunk_size: int = 512):
+    """Per-light occlusion (R, L) bool (True = in shadow): an any_hit
+    query per light along the segment from p + 0.01 n to the light."""
+    shadow_org = hit.p + hit.n * SHADOW_EPS
+    cols = [any_hit(scene, shadow_org, scene.lights.position[j] - hit.p,
+                    max_t=1.0, chunk_size=chunk_size)
+            for j in range(scene.lights.count)]
+    if not cols:
+        return torch.zeros((hit.p.shape[0], 0), dtype=torch.bool,
+                           device=hit.p.device)
+    return torch.stack(cols, dim=-1)
+
+
+def phong_shade(scene: Scene, dirs, hit: Hit, chunk_size: int = 512):
+    """ADS Phong (R, 3) of each ray's hit with its shadow queries (every
+    light casts); finite but meaningless on misses (the caller masks)."""
+    occluded = shadow_masks(scene, hit, chunk_size=chunk_size)
+    return phong_shade_lit(scene, dirs, hit, occluded)

@@ -2,9 +2,11 @@
 descent.
 
 Port of ``openglraytracer_tpu/train/inverse.py`` for the single-device fit
-on the hard engines: ``culled_pallas``, at depth 0 or, with a bounce-child
-cull spec (``FitConfig.child_cull``), with bounces; and the dense engine
-``pallas`` at any depth, with no cull spec. Trainable leaves are chosen by
+on the hard engines: the dense engines ``'auto'`` (= ``'xla'``, the
+default), ``'xla'``, ``'autodiff'`` and ``'pallas'`` at any depth, with no
+cull spec; and ``culled_pallas`` with a cull spec, its bounce children on
+the culled path with a child spec (``FitConfig.child_cull``) and densely on
+``'xla'`` without one. Trainable leaves are chosen by
 dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
 a render, and its gradient runs through the shade's backward and the
@@ -14,8 +16,7 @@ optimizer.
 
 Not ported yet (see ROADMAP.md), and rejected with a message: the
 tile-sharded fit (``mesh``, slice 8), and the soft-coverage forward
-(``soft``), checkpoints (``checkpoint_dir``), ``row_block`` and ``remat``
-(slice 7).
+(``soft``), checkpoints (``checkpoint_dir``) and ``remat`` (slice 7).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from openglraytracer_tpu_torch.models.scene import Camera, Scene
-from openglraytracer_tpu_torch.ops.render import DENSE, ENGINE, render
+from openglraytracer_tpu_torch.ops.render import CULLED, ENGINES, render
 
 DEFAULT_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse")
 
@@ -64,19 +65,21 @@ class FitConfig:
     height: int = 256
     width: int = 256
     depth: int = 0
+    chunk_size: int = 512
     steps: int = 200
     learning_rate: float = 1.0e-2
     trainable: tuple = DEFAULT_TRAINABLE
     log_every: int = 10
-    engine: str = ENGINE
+    engine: str = "auto"    # 'auto' | 'xla' | 'autodiff' | 'pallas' |
+    # 'culled_pallas'
     # culled_pallas only: ((th, tw), kp, ks[, hot_m[, kb, ksb]]), and the
-    # bounce-child spec, needed at depth > 0
+    # bounce-child spec (children traced densely on 'xla' without it)
     cull: tuple | None = None
     child_cull: tuple | None = None
+    row_block: int | None = None    # dense engines: bound a trace's memory
     log_path: str | None = None     # JSONL sink for fit()'s MetricsLogger
     # not ported yet: setting any of these raises (see ROADMAP.md)
     checkpoint_dir: str | None = None
-    row_block: int | None = None
     remat: bool = False
     soft: tuple | None = None
 
@@ -86,7 +89,7 @@ def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
         raise NotImplementedError(
             "mesh: the tile-sharded fit is not yet ported (slice 8 of "
             "ROADMAP.md); fit on one device with mesh=None")
-    for name in ("soft", "checkpoint_dir", "row_block", "remat"):
+    for name in ("soft", "checkpoint_dir", "remat"):
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"FitConfig.{name} is not yet ported (slice 7 of "
@@ -94,20 +97,17 @@ def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
     if isinstance(camera, (list, tuple)) and not isinstance(camera, Camera):
         raise ValueError("multi-view fitting is a soft-stage feature "
                          "(hard cull specs are single-camera)")
-    if cfg.engine == DENSE:
-        return
-    if cfg.engine != ENGINE:
+    if cfg.engine not in ENGINES:
         raise NotImplementedError(
-            f"engine '{cfg.engine}' is not yet ported; fit with "
-            f"'{ENGINE}' or '{DENSE}' (see ROADMAP.md)")
-    if cfg.cull is None:
+            f"engine '{cfg.engine}' is not yet ported; fit with one of "
+            f"{ENGINES} (see ROADMAP.md)")
+    if cfg.engine == CULLED and cfg.cull is None:
         raise ValueError(f"engine '{cfg.engine}' needs FitConfig.cull; size "
                          "it with ops/accel.suggest_cull_config")
-    if cfg.depth > 0 and cfg.child_cull is None:
-        raise NotImplementedError(
-            f"depth {cfg.depth} without FitConfig.child_cull: dense bounce "
-            "children are not yet ported (see ROADMAP.md); size a child "
-            "spec with ops/accel.suggest_child_cull_config")
+    if cfg.engine == CULLED and cfg.row_block is not None:
+        raise ValueError(f"row_block is not supported with engine "
+                         f"'{cfg.engine}' (the culled path is already "
+                         "tile-blocked)")
 
 
 def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
@@ -154,8 +154,10 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     def step_fn(params, opt, scene: Scene, target):
         opt.zero_grad(set_to_none=True)
         img, ovf = render(apply_params(scene, params), camera, cfg.height,
-                          cfg.width, depth=cfg.depth, engine=cfg.engine,
-                          cull=cfg.cull, child_cull=cfg.child_cull,
+                          cfg.width, depth=cfg.depth,
+                          chunk_size=cfg.chunk_size, row_block=cfg.row_block,
+                          engine=cfg.engine, cull=cfg.cull,
+                          child_cull=cfg.child_cull,
                           shadow_lights=state["shadow_lights"],
                           bounce_mask=state["bounce_mask"],
                           with_cull_stats=True)

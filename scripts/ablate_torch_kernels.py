@@ -276,8 +276,8 @@ def capture(dev):
         child = accel.suggest_child_cull_config(scene, cam, h, w, spec,
                                                 shadow_lights=lights)
         with chip_smoke.Capture(culled, shade, accel) as cap:
-            render(scene, cam, h, w, depth=depth, cull=spec,
-                   child_cull=child, shadow_lights=lights,
+            render(scene, cam, h, w, depth=depth, engine="culled_pallas",
+                   cull=spec, child_cull=child, shadow_lights=lights,
                    bounce_mask=shading.static_bounce_mask(scene))
         calls["primary_hit_hot"] = (culled.primary_hit_ray,
                                     cap.args["primary_hit_hot"],
@@ -291,7 +291,8 @@ def capture(dev):
         spec = accel.suggest_cull_config(scene, cam, 1024, 1024, (64, 64),
                                          shadow_lights=lights)
         with chip_smoke.Capture(culled, shade, accel) as cap:
-            render(scene, cam, 1024, 1024, cull=spec, shadow_lights=lights)
+            render(scene, cam, 1024, 1024, engine="culled_pallas",
+                   cull=spec, shadow_lights=lights)
         calls["primary_hit"] = (culled.primary_hit, cap.args["primary_hit"],
                                 {})
         calls["shadow_occlusion"] = (culled.shadow_occlusion,
@@ -302,7 +303,8 @@ def capture(dev):
         c5_spec = accel.suggest_cull_config(c5, c5_cam, h, w, (32, 32),
                                             shadow_lights=c5_lights)
         with chip_smoke.Capture(culled, shade, accel) as cap:
-            render(c5, c5_cam, h, w, cull=c5_spec, shadow_lights=c5_lights)
+            render(c5, c5_cam, h, w, engine="culled_pallas", cull=c5_spec,
+                   shadow_lights=c5_lights)
         calls["shadow_occlusion_c5"] = (culled.shadow_occlusion,
                                         cap.args["shadow_occlusion"], {})
         calls["compact_mask"] = (accel.compact_mask, next(

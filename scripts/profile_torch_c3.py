@@ -1,16 +1,19 @@
 """Where a frame or training step of the PyTorch/CUDA port spends its
 device time.
 
-    python scripts/profile_torch_c3.py [--scene c3_grid64|c5_grid4096|
-        c4_mirror4096|animated_obb] [--engine culled_pallas|pallas]
-        [--depth D] [--frames 5] [--train] [--ops] [--out-dir DIR]
+    python scripts/profile_torch_c3.py [--scene c1_sphere_plane|
+        c2_eight_spheres|c3_grid64|c4_mirror|c5_grid4096|c4_mirror4096|
+        animated_obb] [--engine culled_pallas|pallas|xla] [--depth D]
+        [--frames 5] [--train] [--ops] [--out-dir DIR]
 
-Renders the scene (c3_grid64: 1024x1024, depth 0, 64x64 tiles;
+Renders the scene (c1_sphere_plane: 256x256, depth 0; c2_eight_spheres:
+512x512, depth 0; c3_grid64: 1024x1024, depth 0, 64x64 tiles; c4_mirror:
+1024x1024, depth 1, 64x64 tiles, its bounce children densely on 'xla';
 c5_grid4096: 2048x2048, depth 0, 32x32 tiles; c4_mirror4096: 1024x1024,
 depth 1 with culled bounce children, 32x32 tiles; animated_obb: the
 reference's animated OBB world at time 1.2, 1280x720, depth 0; --depth
-overrides the depth) with engine culled_pallas or, with --engine pallas,
-the dense engine (kernel 7; no cull spec, children through the same
+overrides the depth) with engine culled_pallas or a dense engine (pallas,
+kernel 7, or xla, plain PyTorch; no cull spec, children through the same
 engine) on the GPU under torch.profiler — or, with --train, runs its
 training step (forward, backward and an SGD step of mean(img^2) with
 respect to spheres.center, spheres.radius and materials.diffuse, and for
@@ -22,8 +25,8 @@ frame or step (enqueued behind a spin kernel, as chip_smoke.py measures
 it; median of 5) and its peak device memory
 (torch.cuda.max_memory_allocated). With --out-dir it also writes the
 Chrome trace there.
-animated_obb takes only --engine pallas (its children need the dense
-engine), c5_grid4096 and c4_mirror4096 only culled_pallas.
+c1_sphere_plane, c2_eight_spheres and animated_obb take only the dense
+engines, c5_grid4096 and c4_mirror4096 only culled_pallas.
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 # the cull tile side of each scene, as the reference's benchmark sizes it
-TILES = {"c3_grid64": 64, "c5_grid4096": 32, "c4_mirror4096": 32,
+# (None: dense engines only)
+TILES = {"c1_sphere_plane": None, "c2_eight_spheres": None, "c3_grid64": 64,
+         "c4_mirror": 64, "c5_grid4096": 32, "c4_mirror4096": 32,
          "animated_obb": None}
+# the scenes whose benchmark row culls the bounce children too
+CHILD_CULL = ("c4_mirror4096",)
 OBB_TIME = 1.2
 OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
                  "boxes.position", "boxes.angles")
@@ -60,7 +67,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", default="c3_grid64", choices=list(TILES))
     p.add_argument("--engine", default="culled_pallas",
-                   choices=["culled_pallas", "pallas"])
+                   choices=["culled_pallas", "pallas", "xla"])
     p.add_argument("--depth", type=int, default=None,
                    help="overrides the scene's depth")
     p.add_argument("--frames", type=int, default=5)
@@ -75,10 +82,8 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
 
     dev = torch.device("cuda", 0)
-    dense = args.engine == "pallas"
+    dense = args.engine != "culled_pallas"
     if args.scene == "animated_obb":
-        if not dense:
-            raise SystemExit("animated_obb takes only --engine pallas")
         (scene, cam), h, w, depth = (reference_frame(OBB_TIME, device=dev),
                                      720, 1280, 0)
         trainable = OBB_TRAINABLE
@@ -88,9 +93,11 @@ def main(argv=None):
         trainable = OBB_TRAINABLE[:3]
     if args.depth is not None:
         depth = args.depth
-    if dense and args.scene not in ("c3_grid64", "animated_obb"):
+    if dense and args.scene in ("c5_grid4096", "c4_mirror4096"):
         raise SystemExit(f"{args.scene} takes only --engine culled_pallas")
     tile = TILES[args.scene]
+    if not dense and tile is None:
+        raise SystemExit(f"{args.scene} takes only the dense engines")
     lights = static_shadow_mask(scene)
     spec = child = None
     if not dense:
@@ -98,7 +105,7 @@ def main(argv=None):
                                    shadow_lights=lights)
         child = (suggest_child_cull_config(scene, cam, h, w, spec,
                                            shadow_lights=lights)
-                 if depth else None)
+                 if depth and args.scene in CHILD_CULL else None)
     bmask = static_bounce_mask(scene) if depth else (True, True)
 
     if args.train:

@@ -57,7 +57,8 @@ def test_depth1_render_matches_jax():
     side."""
     scene, cam, cull, child = _fixture()
     ts, tc = to_torch_scene(scene), to_torch_camera(cam)
-    img_t, ovf_t = t_render_mod.render(ts, tc, H, W, depth=1, cull=cull,
+    img_t, ovf_t = t_render_mod.render(ts, tc, H, W, depth=1,
+                                       engine="culled_pallas", cull=cull,
                                        child_cull=child, with_cull_stats=True)
     origins, dirs = (np_(x) for x in t_render_mod.generate_rays(tc, H, W))
     o, d = (ja.tile_image(jnp.asarray(x), *TILE).reshape(-1, 3)
@@ -71,7 +72,8 @@ def test_depth1_render_matches_jax():
     assert int(ovf_t) == int(ovf_j) == 0
     np.testing.assert_allclose(np_(img_t), np_(img_j), rtol=0, atol=1e-5)
     # the bounces changed the image
-    img_0 = t_render_mod.render(ts, tc, H, W, cull=cull)
+    img_0 = t_render_mod.render(ts, tc, H, W, engine="culled_pallas",
+                                cull=cull)
     assert float((img_t - img_0).abs().max()) > 1e-2
 
 
@@ -80,7 +82,8 @@ def test_render_checks_the_child_tile():
     ts, tc = to_torch_scene(scene), to_torch_camera(cam)
     bad = ((8, 8),) + tuple(child[1:])
     with pytest.raises(ValueError, match="tile"):
-        t_render_mod.render(ts, tc, H, W, depth=1, cull=cull, child_cull=bad)
+        t_render_mod.render(ts, tc, H, W, depth=1, engine="culled_pallas",
+                            cull=cull, child_cull=bad)
 
 
 def test_depth1_train_step_matches_jax():
@@ -112,8 +115,8 @@ def test_depth1_train_step_matches_jax():
         jinv.extract_params(scene, TRAINABLE))
 
     lr = 1e-2
-    cfg = tinv.FitConfig(height=H, width=W, depth=1, cull=cull,
-                         child_cull=child, trainable=TRAINABLE)
+    cfg = tinv.FitConfig(height=H, width=W, depth=1, engine="culled_pallas",
+                         cull=cull, child_cull=child, trainable=TRAINABLE)
     init_t, step_t = tinv.make_train_step(
         tc, cfg, optimizer=lambda ps: torch.optim.SGD(ps, lr=lr))
     p_t, opt_t = init_t(ts)
@@ -131,7 +134,27 @@ def test_depth1_train_step_matches_jax():
 
 
 def test_depth1_needs_a_child_spec():
+    """A depth-1 culled_pallas trace needs a child spec only to trace its
+    children on the culled path: without one they are traced densely on
+    engine 'xla', as the JAX package does (render.py's culled branch), and
+    the colors equal its trace_rays_fast without child_cull on the same
+    rays (2e-5, as test_render_matches_jax of test_torch_culled.py). The
+    training step takes no child spec either."""
     scene, cam, cull, _ = _fixture()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinv.make_train_step(to_torch_camera(cam), tinv.FitConfig(
-            height=H, width=W, depth=1, cull=cull))
+    (th, tw), kp, ks, hot_m, kb, ksb = ja.parse_cull_spec(cull)
+    ts, tc = to_torch_scene(scene), to_torch_camera(cam)
+    origins, dirs = (np_(x) for x in t_render_mod.generate_rays(tc, H, W))
+    o, d = (ja.tile_image(jnp.asarray(x), *TILE).reshape(-1, 3)
+            for x in (origins, dirs))
+    flat = (th * tw, kp, ks, hot_m, kb, ksb)
+    want = j_trace(scene, o, d, 1, engine="culled_pallas", cull=flat)
+    with torch.no_grad():
+        got, ovf = t_render_mod.trace_rays_fast(
+            ts, *to_torch(o, d), 1, engine="culled_pallas", cull=flat,
+            with_cull_stats=True)
+    assert int(ovf) == 0
+    np.testing.assert_allclose(np_(got), np_(want), rtol=0, atol=2e-5)
+    init_fn, step_fn = tinv.make_train_step(tc, tinv.FitConfig(
+        height=H, width=W, depth=1, engine="culled_pallas", cull=cull))
+    _, _, loss, ovf = step_fn(*init_fn(ts), ts, torch.zeros((H, W, 3)))
+    assert bool(torch.isfinite(loss)) and int(ovf) == 0

@@ -78,16 +78,37 @@ def test_kernel_argument_checks():
 
 
 def test_render_rejects_unported_paths():
+    """The XLA culled engine is not ported; the culled engine needs a cull
+    spec and takes no row blocks; row blocks must divide the height."""
     scene, cam = sphere_grid_scene(2, device="cpu")
     spec = ((8, 8), 8, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, cam, 16, 16, engine="xla", cull=spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, cam, 16, 16, depth=1, cull=spec)
+        render(scene, cam, 16, 16, engine="culled", cull=spec)
     with pytest.raises(ValueError, match="cull"):
-        render(scene, cam, 16, 16)
+        render(scene, cam, 16, 16, engine="culled_pallas")
+    with pytest.raises(ValueError, match="row_block"):
+        render(scene, cam, 16, 16, engine="culled_pallas", cull=spec,
+               row_block=8)
+    with pytest.raises(ValueError, match="divide"):
+        render(scene, cam, 16, 16, row_block=6)
     with pytest.raises(ValueError, match="must be on"):
         render(scene, cam, 16, 16, cull=spec, device="meta")
+
+
+def test_render_defaults_to_the_plain_dense_engine(monkeypatch):
+    """render(scene, cam, h, w) names no engine and renders through engine
+    'xla' ('auto'), the reference's default: one call of the plain dense
+    geometry, no kernel launch, the same image as engine='xla'."""
+    from openglraytracer_tpu_torch.ops import dense
+    calls = []
+    real = dense.xla_geometry
+    monkeypatch.setattr(dense, "xla_geometry", lambda *a: (
+        calls.append(1), real(*a))[1])
+    scene, cam = sphere_grid_scene(2, device="cpu")
+    kernels.LAUNCHES.clear()
+    img = render(scene, cam, 16, 16)
+    assert calls == [1] and sum(kernels.LAUNCHES.values()) == 0
+    assert torch.equal(img, render(scene, cam, 16, 16, engine="xla"))
 
 
 def test_cli_render_cpu_writes_png(tmp_path, capsys):
@@ -97,27 +118,28 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
     out = tmp_path / "c3.png"
     scene_json = tmp_path / "c3.json"
     cli.main(["render", "--scene", "c3_grid64", "--width", "64", "--height",
-              "64", "--cull-tile", "16", "--device", "cpu", "--out",
-              str(out), "--save-scene", str(scene_json)])
+              "64", "--engine", "culled_pallas", "--cull-tile", "16",
+              "--device", "cpu", "--out", str(out), "--save-scene",
+              str(scene_json)])
     printed = capsys.readouterr().out
     assert "cull: tile=16 kp=48 ks=64 hot_m=0" in printed
     png = np.asarray(Image.open(out).convert("RGB"))
     scene, cam = sphere_grid_scene(8, device="cpu")
     spec = suggest_cull_config(scene, cam, 64, 64, (16, 16))
-    img = render(scene, cam, 64, 64, cull=spec)
+    img = render(scene, cam, 64, 64, engine="culled_pallas", cull=spec)
     np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
     # the saved scene+camera renders the same image
     out2 = tmp_path / "again.png"
     cli.main(["render", "--scene", str(scene_json), "--width", "64",
-              "--height", "64", "--cull-tile", "16", "--device", "cpu",
-              "--out", str(out2)])
+              "--height", "64", "--engine", "culled_pallas", "--cull-tile",
+              "16", "--device", "cpu", "--out", str(out2)])
     assert out2.read_bytes() == out.read_bytes()
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "xla"], ["--engine", "auto"], ["--child-cull"],
-    ["--bounce", "stack"], ["--depth", "1"], ["--cull-tile", "24"],
-    ["--time"], ["--engine", "pallas", "--child-cull"]])
+    ["--child-cull"], ["--bounce", "stack"],
+    ["--engine", "culled_pallas", "--cull-tile", "24"], ["--time"],
+    ["--engine", "pallas", "--child-cull"], ["--engine", "culled"]])
 def test_cli_rejects_unserved_flags(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["render", "--scene", "c1_sphere_plane", "--width", "32",
@@ -131,9 +153,10 @@ def test_cli_fit_cpu(tmp_path, capsys):
     versions; the loss falls and the fitted scene and its render are
     written."""
     out, scene_json = tmp_path / "fit.png", tmp_path / "fit.json"
-    cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width", "32",
-              "--height", "32", "--steps", "5", "--out", str(out),
-              "--save-scene", str(scene_json)])
+    cli.main(["fit", "--engine", "culled_pallas", "--device", "cpu",
+              "--grid-side", "2", "--width", "32", "--height", "32",
+              "--steps", "5", "--out", str(out), "--save-scene",
+              str(scene_json)])
     printed = capsys.readouterr().out
     assert "cull: ((32, 32)," in printed
     line = next(x for x in printed.splitlines() if x.startswith("fit:"))
@@ -147,8 +170,7 @@ def test_cli_fit_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--target", "t.png"], ["--scene", "s.json"], ["--soft", "0.3,0.3"],
-    ["--sharded"], ["--checkpoint-dir", "ckpt"], ["--row-block", "8"],
-    ["--engine", "xla"], ["--depth", "1"]])
+    ["--sharded"], ["--checkpoint-dir", "ckpt"], ["--engine", "culled"]])
 def test_cli_fit_rejects_unported(flags):
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
@@ -158,8 +180,8 @@ def test_cli_fit_rejects_unported(flags):
 
 def test_cli_fit_checks_the_tile(tmp_path):
     with pytest.raises(SystemExit, match="must divide"):
-        cli.main(["fit", "--device", "cpu", "--width", "48", "--height",
-                  "48", "--cull-tile", "32"])
+        cli.main(["fit", "--engine", "culled_pallas", "--device", "cpu",
+                  "--width", "48", "--height", "48", "--cull-tile", "32"])
 
 
 def test_cli_render_pallas_cpu(tmp_path, capsys):
@@ -195,14 +217,73 @@ def test_cli_animate_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--gif", "x.gif"], ["--engine", "xla"], ["--engine", "culled"],
-    ["--engine", "culled_pallas", "--depth", "1"]])
+    ["--gif", "x.gif"], ["--engine", "culled"]])
 def test_cli_animate_rejects_unported(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["animate", "--frames", "1", "--width", "32", "--height",
                   "16", "--device", "cpu", "--out-pattern",
                   str(tmp_path / "f{}.png")] + flags)
     assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+
+
+def _png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"), np.int16)
+
+
+# flags that exited before the plain dense engine was ported: each now runs
+# and writes what the JAX package's CLI writes
+RUNS = {
+    "render": [["--engine", "xla"], ["--engine", "auto"], ["--depth", "1"]],
+    "fit": [["--engine", "xla"], ["--depth", "1"], ["--row-block", "8"]],
+    "animate": [["--engine", "xla"],
+                ["--engine", "culled_pallas", "--depth", "1", "--cull-tile",
+                 "16"]],
+}
+
+
+@pytest.mark.parametrize("cmd,flags", [(c, f) for c, fs in RUNS.items()
+                                       for f in fs])
+def test_cli_runs_the_dense_engine_flags(cmd, flags, tmp_path, capsys):
+    """Each flag runs, and its PNG is within one 8-bit level of the JAX
+    package's: render and animate against the JAX package's CLI run with
+    the same flags; fit (whose start is perturbed by another generator)
+    against the JAX package's render of the fitted scene the port saved,
+    since the fit writes its output with the default engine. One level:
+    the JAX package renders under jit, where XLA contracts multiply-adds
+    into fused ones (tests/test_torch_xla_render.py)."""
+    from openglraytracer_tpu import cli as j_cli
+    out, ref = tmp_path / "t.png", tmp_path / "j.png"
+    if cmd == "render":
+        base = ["render", "--scene", "c1_sphere_plane", "--width", "32",
+                "--height", "32"]
+        cli.main(base + ["--device", "cpu", "--out", str(out)] + flags)
+        j_cli.main(base + ["--out", str(ref)] + flags)
+    elif cmd == "animate":
+        base = ["animate", "--frames", "1", "--width", "32", "--height",
+                "16", "--start-time", "0.7"]
+        cli.main(base + ["--device", "cpu", "--out-pattern",
+                         str(tmp_path / "t{}.png")] + flags)
+        j_cli.main(base + ["--out-pattern", str(tmp_path / "j{}.png")]
+                   + flags)
+        out, ref = tmp_path / "t0.png", tmp_path / "j0.png"
+    else:
+        from openglraytracer_tpu.models.scene import load_scene_camera
+        from openglraytracer_tpu.ops.render import render as j_render
+        scene_json = tmp_path / "fit.json"
+        cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
+                  "32", "--height", "32", "--steps", "3", "--out", str(out),
+                  "--save-scene", str(scene_json)] + flags)
+        line = next(x for x in capsys.readouterr().out.splitlines()
+                    if x.startswith("fit:"))
+        first, final = (float(line.split(w)[1].split(",")[0])
+                        for w in (" first ", " final "))
+        assert final < first
+        depth = int(flags[1]) if flags[0] == "--depth" else 0
+        scene, cam = load_scene_camera(str(scene_json))
+        j_image.save_png(j_render(scene, cam, 32, 32, depth=depth), str(ref))
+    a, b = _png(out), _png(ref)
+    assert a.shape == b.shape and int(np.abs(a - b).max()) <= 1
 
 
 def test_cli_animate_culled_cpu(tmp_path, capsys):

@@ -76,7 +76,7 @@ def _kernel_inputs(monkeypatch, scene, cam, hw, tile):
             return _fn(*a)
         monkeypatch.setattr(mod, name, spy)
     spec = suggest_cull_config(scene, cam, hw, hw, (tile, tile))
-    render(scene, cam, hw, hw, cull=spec)
+    render(scene, cam, hw, hw, engine="culled_pallas", cull=spec)
     monkeypatch.undo()
     return seen
 
@@ -114,14 +114,16 @@ def test_launch_counts_and_cpu_agreement(dev):
     scene, cam = sphere_grid_scene(8, device=dev)
     spec = suggest_cull_config(scene, cam, 64, 64, (16, 16))
     kernels.LAUNCHES.clear()
-    img, ovf = render(scene, cam, 64, 64, cull=spec, with_cull_stats=True)
+    img, ovf = render(scene, cam, 64, 64, engine="culled_pallas", cull=spec,
+                      with_cull_stats=True)
     assert dict(kernels.LAUNCHES) == {"primary_hit": 1,
                                       "shadow_occlusion": 1,
                                       "phong_fused": 1}
     assert int(ovf) == 0
     cpu_scene, cpu_cam = sphere_grid_scene(8, device="cpu")
     kernels.LAUNCHES.clear()
-    ref = render(cpu_scene, cpu_cam, 64, 64, cull=spec)
+    ref = render(cpu_scene, cpu_cam, 64, 64, engine="culled_pallas",
+                 cull=spec)
     assert sum(kernels.LAUNCHES.values()) == 0
     torch.testing.assert_close(img.cpu(), ref, rtol=0, atol=1e-4)
 
@@ -131,11 +133,13 @@ def test_frame_is_sync_free(dev):
     lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, 128, 128, (32, 32),
                                shadow_lights=lights)
-    render(scene, cam, 128, 128, cull=spec, shadow_lights=lights)
+    render(scene, cam, 128, 128, engine="culled_pallas", cull=spec,
+           shadow_lights=lights)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        img = render(scene, cam, 128, 128, cull=spec, shadow_lights=lights)
+        img = render(scene, cam, 128, 128, engine="culled_pallas", cull=spec,
+                     shadow_lights=lights)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(img).all())
@@ -150,7 +154,8 @@ def _grad_step(scene, cam, hw, spec, trainable, shadow_lights=None):
     render, backpropagated; returns the leaves (their .grad filled)."""
     params = {k: v.detach().clone().requires_grad_()
               for k, v in inverse.extract_params(scene, trainable).items()}
-    img = render(inverse.apply_params(scene, params), cam, hw, hw, cull=spec,
+    img = render(inverse.apply_params(scene, params), cam, hw, hw,
+                 engine="culled_pallas", cull=spec,
                  shadow_lights=shadow_lights)
     torch.mean(torch.square(img)).backward()
     return params
@@ -192,8 +197,8 @@ def test_train_step_launches_and_is_sync_free(dev):
     overflow; its gradients are finite and non-zero."""
     scene, cam = sphere_grid_scene(8, device=dev)
     spec = suggest_cull_config(scene, cam, 128, 128, (32, 32))
-    cfg = inverse.FitConfig(height=128, width=128, cull=spec,
-                            trainable=inverse.DEFAULT_TRAINABLE)
+    cfg = inverse.FitConfig(height=128, width=128, engine="culled_pallas",
+                            cull=spec, trainable=inverse.DEFAULT_TRAINABLE)
     init_fn, step_fn = inverse.make_train_step(
         cam, cfg, optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-7))
     params, opt = init_fn(scene)
@@ -239,7 +244,7 @@ def test_gradients_match_cpu(dev):
         params = {k: v.detach().clone().requires_grad_() for k, v in
                   inverse.extract_params(s, TRAINABLE).items()}
         img = trace_rays_fast(inverse.apply_params(s, params), o.to(device),
-                              d.to(device),
+                              d.to(device), engine="culled_pallas",
                               cull=(th * tw, kp, ks, hot_m, kb, ksb))
         torch.mean(torch.square(img)).backward()
         grads.append(params)
@@ -338,7 +343,8 @@ def test_shadow_kernel_hot_pairs_match_plain(dev, monkeypatch):
         return fn(*a, **k)
     monkeypatch.setattr(culled, "shadow_occlusion", spy)
     with torch.no_grad():
-        render(scene, cam, 128, 128, depth=1, cull=spec, child_cull=child)
+        render(scene, cam, 128, 128, depth=1, engine="culled_pallas",
+               cull=spec, child_cull=child)
     monkeypatch.undo()
     assert len(seen) == 2 and all(a[9] is not None for a in seen)
     for a in seen:
@@ -361,8 +367,9 @@ def _mirror_inputs(monkeypatch, dev, hw):
         return fn(*a, **k)
     monkeypatch.setattr(culled, "primary_hit_ray", spy)
     with torch.no_grad():
-        _, ovf = render(scene, cam, hw, hw, depth=1, cull=spec,
-                        child_cull=child, with_cull_stats=True)
+        _, ovf = render(scene, cam, hw, hw, depth=1, engine="culled_pallas",
+                        cull=spec, child_cull=child,
+                        with_cull_stats=True)
     monkeypatch.undo()
     assert int(ovf) == 0
     return seen
@@ -425,8 +432,8 @@ def test_depth1_frame_launches_and_is_sync_free(dev, monkeypatch):
                                shadow_lights=lights)
     child = suggest_child_cull_config(scene, cam, 128, 128, spec,
                                       shadow_lights=lights)
-    kw = dict(depth=1, cull=spec, child_cull=child, shadow_lights=lights,
-              bounce_mask=bmask, with_cull_stats=True)
+    kw = dict(depth=1, engine="culled_pallas", cull=spec, child_cull=child,
+              shadow_lights=lights, bounce_mask=bmask, with_cull_stats=True)
     with torch.no_grad():
         render(scene, cam, 128, 128, **kw)
         torch.cuda.synchronize()
@@ -592,3 +599,40 @@ def test_dense_wrapper_rejects_bad_inputs(dev):
                         pln, lg)
     with pytest.raises(ValueError, match="on cpu"):
         dense.dense_hit(rays.cpu(), rays, sph, box, pln, lg)
+
+
+def test_xla_engine_on_the_card(dev):
+    """Engine 'xla' (plain PyTorch) runs on the card without a kernel and
+    without a host sync, and renders the CPU's image (1e-4: the two
+    devices' rsqrt, exp and log round differently); c4_mirror's culled
+    parent launches kernels A, B and the shade once and traces its children
+    on 'xla'."""
+    from openglraytracer_tpu_torch.models.builders import (
+        eight_sphere_scene, mirror_scene)
+    scene, cam = eight_sphere_scene(device=dev)
+    cpu_scene, cpu_cam = eight_sphere_scene(device="cpu")
+    lights = shading.static_shadow_mask(scene)
+    with torch.no_grad():
+        render(scene, cam, 64, 64, shadow_lights=lights)
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img = render(scene, cam, 64, 64, shadow_lights=lights)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sum(kernels.LAUNCHES.values()) == 0
+        ref = render(cpu_scene, cpu_cam, 64, 64)
+    torch.testing.assert_close(img.cpu(), ref, rtol=0, atol=1e-4)
+    scene, cam = mirror_scene(device=dev)
+    spec = suggest_cull_config(scene, cam, 128, 128, (64, 64))
+    kernels.LAUNCHES.clear()
+    with torch.no_grad():
+        img, ovf = render(scene, cam, 128, 128, depth=1,
+                          engine="culled_pallas", cull=spec,
+                          with_cull_stats=True)
+    assert int(ovf) == 0 and bool(torch.isfinite(img).all())
+    assert {k: kernels.LAUNCHES[k] for k in ("primary_hit",
+                                             "shadow_occlusion",
+                                             "phong_fused")} == {
+        "primary_hit": 1, "shadow_occlusion": 1, "phong_fused": 1}

@@ -155,7 +155,8 @@ def test_render_matches_jax(name):
     scene, cam = builder()
     spec = ja.suggest_cull_config(scene, cam, H, W, TILE)
     ts, tc = to_torch_scene(scene), to_torch_camera(cam)
-    img_t, ovf = t_render(ts, tc, H, W, cull=spec, with_cull_stats=True)
+    img_t, ovf = t_render(ts, tc, H, W, engine="culled_pallas", cull=spec,
+                          with_cull_stats=True)
     assert img_t.shape == (H, W, 3) and int(ovf) == 0
     origins, dirs = (np_(x) for x in t_rays(tc, H, W))
     o = ja.tile_image(jnp.asarray(origins), *TILE).reshape(-1, 3)
@@ -186,5 +187,6 @@ def test_box_only_scene_render_matches_jax():
     cull = (TILE_P, kp, ks, hot_m, kb, ksb)
     a = j_trace(scene, o, d, engine="culled_pallas", cull=cull)
     from openglraytracer_tpu_torch.ops.render import trace_rays_fast
-    b = trace_rays_fast(ts, *to_torch(o, d), cull=cull)
+    b = trace_rays_fast(ts, *to_torch(o, d), engine="culled_pallas",
+                        cull=cull)
     np.testing.assert_allclose(np_(b), np_(a), rtol=0, atol=2e-5)

@@ -153,30 +153,43 @@ def test_train_step_matches_jax(monkeypatch):
 
 
 def test_dense_engine_needs_no_cull_spec():
-    """FitConfig(engine='pallas') takes no cull spec at any depth; the
-    culled engine still needs one, and its children a child spec."""
+    """The dense engines ('pallas', 'xla', 'auto', the default, and
+    'autodiff') take no cull spec at any depth; the culled engine still
+    needs one (its children do not: without a child spec they are traced
+    on 'xla'); the XLA culled engine is not ported."""
     scene, cam = reference_frame(0.8)
     tc = to_torch_camera(cam)
-    tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W, depth=2,
-                                            engine="pallas"))
+    for engine in ("pallas", "xla", "auto", "autodiff"):
+        tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W, depth=2,
+                                                engine=engine))
+    tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W, depth=2))
     with pytest.raises(ValueError, match="cull"):
-        tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W))
-    for engine in ("xla", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W,
-                                                    engine=engine))
+        tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W,
+                                                engine="culled_pallas"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W,
+                                                engine="culled"))
 
 
 def test_pick_tracer():
-    """pick_tracer('pallas') traces through the dense engine, as
-    trace_rays_fast does; the engines not ported raise."""
+    """pick_tracer returns the reference's tracers: 'pallas' and 'xla' as
+    trace_rays_fast traces them, 'auto' (the default) as 'xla', 'autodiff'
+    as trace_rays; the culled engines need a cull spec, and 'culled' is not
+    ported."""
     scene, cam = reference_frame(0.8)
     ts = to_torch_scene(scene)
     o, d = to_torch(*_flat_rays(cam))
-    tracer = t_render_mod.pick_tracer(ts, "pallas")
-    assert torch.equal(tracer(ts, o, d, 1),
-                       t_render_mod.trace_rays_fast(ts, o, d, 1,
-                                                    engine="pallas"))
-    for engine in ("auto", "xla", "autodiff"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_render_mod.pick_tracer(ts, engine)
+    with torch.no_grad():
+        for engine, want in (
+                ("pallas", t_render_mod.trace_rays_fast(ts, o, d, 1,
+                                                        engine="pallas")),
+                ("xla", t_render_mod.trace_rays_fast(ts, o, d, 1)),
+                ("autodiff", t_render_mod.trace_rays(ts, o, d, 1))):
+            tracer = t_render_mod.pick_tracer(ts, engine)
+            assert torch.equal(tracer(ts, o, d, 1), want), engine
+        assert torch.equal(t_render_mod.pick_tracer(ts)(ts, o, d, 1),
+                           t_render_mod.trace_rays_fast(ts, o, d, 1))
+    with pytest.raises(ValueError, match="cull"):
+        t_render_mod.pick_tracer(ts, "culled_pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_render_mod.pick_tracer(ts, "culled")

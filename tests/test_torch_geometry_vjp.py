@@ -182,7 +182,8 @@ def test_render_gradients_match_jax(case):
     to, td = to_torch(o, d)
     params = {k: v.clone().requires_grad_()
               for k, v in tinv.extract_params(ts, trainable).items()}
-    img = t_trace(tinv.apply_params(ts, params), to, td, cull=cull)
+    img = t_trace(tinv.apply_params(ts, params), to, td,
+                  engine="culled_pallas", cull=cull)
     lt = torch.mean(torch.square(img - torch.from_numpy(target)))
     lt.backward()
     np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-6)

@@ -77,7 +77,8 @@ def test_train_step_matches_jax(monkeypatch):
     rays = to_torch(*j_rays(cam, H, W))
     monkeypatch.setattr(t_render_mod, "generate_rays", lambda *a: rays)
     ts, tc = to_torch_scene(scene), to_torch_camera(cam)
-    cfg_t = tinv.FitConfig(height=H, width=W, cull=spec, trainable=TRAINABLE)
+    cfg_t = tinv.FitConfig(height=H, width=W, engine="culled_pallas",
+                           cull=spec, trainable=TRAINABLE)
     init_t, step_t = tinv.make_train_step(
         tc, cfg_t, optimizer=lambda ps: torch.optim.SGD(ps, lr=lr))
     p_t, opt_t = init_t(ts)
@@ -107,13 +108,14 @@ def test_fit_reduces_loss():
     scene, cam = tb.sphere_grid_scene(2, seed=7, device="cpu")
     spec = suggest_cull_config(scene, cam, h, w, (16, 16), headroom=2.0)
     with torch.no_grad():
-        target = t_render_mod.render(scene, cam, h, w, cull=spec)
+        target = t_render_mod.render(scene, cam, h, w,
+                                     engine="culled_pallas", cull=spec)
     noise = np.random.default_rng(3).normal(0, 1, (4, 3)).astype(np.float32)
     init = scene._replace(spheres=scene.spheres._replace(
         center=scene.spheres.center + 0.25 * torch.from_numpy(noise)))
     cfg = tinv.FitConfig(height=h, width=w, steps=100, learning_rate=3e-2,
                          log_every=10, trainable=("spheres.center",),
-                         cull=spec)
+                         engine="culled_pallas", cull=spec)
     seen = []
     fitted, losses = tinv.fit(init, target, cam, cfg,
                               callback=lambda s, v: seen.append(s))
@@ -141,8 +143,8 @@ def test_trainable_lights_cast_every_shadow(monkeypatch):
         masks.append(k["shadow_lights"]), real(*a, **k))[1])
     target = torch.zeros((H, W, 3))
     for trainable in (("spheres.center",), ("lights.diffuse",)):
-        cfg = tinv.FitConfig(height=H, width=W, cull=spec,
-                             trainable=trainable)
+        cfg = tinv.FitConfig(height=H, width=W, engine="culled_pallas",
+                             cull=spec, trainable=trainable)
         init_fn, step_fn = tinv.make_train_step(cam, cfg)
         step_fn(*init_fn(scene), scene, target)
     assert masks == [(True, False), (True, True)]
@@ -174,7 +176,8 @@ def test_fit_charges_rays_with_the_static_bounce_mask(monkeypatch, depth):
 def test_make_train_step_rejects_unported(change):
     scene, cam = tb.sphere_grid_scene(2, device="cpu")
     mesh = change.pop("mesh", None)
-    kw = dict(height=H, width=W, cull=((16, 16), 8, 8, 0))
+    kw = dict(height=H, width=W, engine="culled_pallas",
+              cull=((16, 16), 8, 8, 0))
     kw.update(change)
     with pytest.raises((NotImplementedError, ValueError),
                        match="ROADMAP|cull"):
