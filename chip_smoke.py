@@ -17,7 +17,11 @@ angles. Engine 'xla' (the plain dense engine, the default 'auto'; no
 kernel): c1_sphere_plane (256x256), c2_eight_spheres (512x512) and the OBB
 world (the reference's animated_obb_720p row), and the children of
 c4_mirror (64 mirror spheres and a plane, 1024x1024, depth 1, a
-culled_pallas parent with 64x64 tiles). Every call names its engine. It
+culled_pallas parent with 64x64 tiles). The stack bounce engine
+(render(bounce='stack')): the reference's glass rows glass_stack_depth4
+(the OBB world at 1024x1024, depth 4, 'xla' and 'pallas') and
+glass4096_stack_culled (4096 glass spheres, 1024x1024, depth 4,
+culled_pallas). Every call names its engine. It
 exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
@@ -114,6 +118,30 @@ exits non-zero on any failure. Phases:
      the analytic backward of 'xla': per leaf within 1e-3 * max|g|, on the
      OBB world at depth 0 and 1 and on c4_mirror at 1024x1024 (AUTODIFF_HW),
      with each engine's peak device memory
+ 22. glass_stack_depth4 (bench.py:317-385): the OBB and glass world at
+     1024x1024, depth 4 (31 casts a pixel), render(bounce='stack') and
+     the tree on 'xla' (no launch) and 'pallas' (dense_hit 31 times a
+     frame, 62 a forward+backward: the checkpointed steps recompute), each
+     image within 1/255 of the others on >= 99.9% of pixels, frame and
+     forward+backward (w.r.t. spheres.center, boxes.position,
+     materials.diffuse) timed in 3 windows with device time and peak
+     memory above the resident, stack gradients within 1e-3 * max|g| of
+     the tree's
+ 23. glass4096_stack_culled (bench.py:403-441): 4096 glass spheres at
+     1024x1024, depth 4, culled_pallas with suggest_stack_cull_config
+     (headroom 2, Ks = N): 0 overflow, the launches a frame of kernel 2
+     (cold and hot), B and 6 as the code counts them, the image within
+     1/255 of the 'pallas' stack over all spheres on >= 99.9% of pixels,
+     kernels 2 (cold and hot) and B bit for bit against their plain
+     versions on a deep step's inputs (TIR rays included), cut as in phase
+     10; the frame timed in 2 windows of 3, and one forward+backward
+ 24. the culled stack on a 1024-sphere glass grid (512x512, depth 2, a
+     spec no list can overflow, kernel 6 running): image within 1/255 of
+     the plain versions' and of 'pallas' on >= 99.9% of pixels, gradients
+     within 1e-3 * max|g| of the plain versions' (reported against
+     'pallas' and 'xla': the centers' gradient of refracting glass is
+     singular at grazes; see the phase); render(mirror_only=True) on
+     c4_mirror at 1024x1024, depth 3, against the tree
 
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
@@ -209,6 +237,15 @@ EARLIER_FUNCTIONS = ("oglrt_primary_hit", "oglrt_primary_hit_ray",
 # occlusion and box-or-plane occlusion in two (T, L, P) outputs
 EARLIER_SHADOW_SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_uint] + [
     ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+# the stack bounce engine (phases 22-24): the depth and size of the
+# reference's glass rows (bench.py:317-441), the calls a timing window
+# holds, the leaves of glass_stack_depth4's step (bench.py:355-363), the
+# culled stack's gradient check and the mirror chain's depth
+STACK_DEPTH, STACK_HW, STACK_TILE = 4, 1024, 32
+STACK_FRAMES, STACK_STEPS = 3, 2
+STACK_TRAINABLE = ("spheres.center", "boxes.position", "materials.diffuse")
+GLASS_GRAD = dict(side=32, hw=512, depth=2)
+MIRROR_DEPTH = 3
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
@@ -878,27 +915,28 @@ def device_ms(torch, fn, args, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_windows(torch, fn, warm: int = 3):
-    """Per-call ms of WINDOWS windows of WINDOW_FRAMES calls under
+def timed_windows(torch, fn, warm: int = 3, windows: int = WINDOWS,
+                  frames: int = WINDOW_FRAMES):
+    """Per-call ms of `windows` windows of `frames` calls under
     set_sync_debug_mode('error'), and the calls' outputs."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    windows, outs = [], []
-    for _ in range(WINDOWS):
+    per_call, outs = [], []
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.set_sync_debug_mode("error")
         try:
             start.record()
-            for _ in range(WINDOW_FRAMES):
+            for _ in range(frames):
                 outs.append(fn())
             end.record()
         finally:
             torch.cuda.set_sync_debug_mode("default")
         end.synchronize()
-        windows.append(start.elapsed_time(end) / WINDOW_FRAMES)
-    return windows, outs
+        per_call.append(start.elapsed_time(end) / frames)
+    return per_call, outs
 
 
 def box_scene(torch, device):
@@ -992,7 +1030,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/21] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/24] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1032,7 +1070,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/21] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/24] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1141,7 +1179,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/21] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/24] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1190,7 +1228,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/21] timing, forward and training step ({smi})")
+    log(f"[12/24] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1328,7 +1366,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/21] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/24] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1441,7 +1479,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/21] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/24] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1510,7 +1548,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/21] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/24] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1544,7 +1582,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/21] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/24] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1607,7 +1645,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/21] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/24] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1652,33 +1690,38 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
     return launches, cells, max(errs.values()), inputs["c3 primary"]
 
 
-def time_cell(torch, cell, what, fn, ovf_at, n_rays):
+def time_cell(torch, cell, what, fn, ovf_at, n_rays, warm: int = 3,
+              windows: int = WINDOWS, frames: int = WINDOW_FRAMES,
+              dev_reps: int = 5):
     """Time fn (a frame or a training step whose output's ovf_at-th item is
-    the overflow count) as phases 5 and 7 do: WINDOWS windows of
-    WINDOW_FRAMES calls under set_sync_debug_mode('error'), its device time
-    (one call behind a spin kernel, median of 5) and its peak device
-    memory. Returns those numbers."""
-    windows, outs = timed_windows(torch, fn)
+    the overflow count) as phases 5 and 7 do: `windows` windows of `frames`
+    calls under set_sync_debug_mode('error'), its device time (one call
+    behind a spin kernel, median of dev_reps) and its peak device memory,
+    also above what was allocated before the call. Returns those
+    numbers."""
+    per_call, outs = timed_windows(torch, fn, warm, windows, frames)
     check(int(torch.stack([o[ovf_at] for o in outs]).sum()) == 0,
           f"{cell}: overflow while timing the {what}")
     del outs
-    med = statistics.median(windows)
+    med = statistics.median(per_call)
     dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
-                               for _ in range(5))
+                               for _ in range(dev_reps))
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     fn()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  {cell} {what}: median {med:.4f} ms, min {min(windows):.4f} ms "
-        f"over {WINDOWS} windows of {WINDOW_FRAMES} "
-        f"({[round(x, 4) for x in windows]}), sync-free under "
+    log(f"  {cell} {what}: median {med:.4f} ms, min {min(per_call):.4f} ms "
+        f"over {windows} windows of {frames} "
+        f"({[round(x, 4) for x in per_call]}), sync-free under "
         f"set_sync_debug_mode('error'); device time (one call behind a "
-        f"spin kernel, median of 5) {dev_ms:.4f} ms; peak device memory "
-        f"{peak:.3f} GiB; {n_rays} rays/frame -> "
+        f"spin kernel, median of {dev_reps}) {dev_ms:.4f} ms; peak device "
+        f"memory {peak:.3f} GiB ({peak - base:.3f} above the "
+        f"{base:.3f} GiB held before the call); {n_rays} rays/frame -> "
         f"{n_rays / (med / 1e3) / 1e6:.1f} Mrays/s median")
-    return dict(median_ms=med, min_ms=min(windows), device_ms=dev_ms,
-                peak_gib=peak)
+    return dict(median_ms=med, min_ms=min(per_call), device_ms=dev_ms,
+                peak_gib=peak, call_gib=peak - base)
 
 
 def compare_grads(torch, cell, grads, want, what, tol=GRAD_TOL):
@@ -1736,7 +1779,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 18. 'xla' against kernel 7
     t0 = time.perf_counter()
-    log("[18/21] engine 'xla' (plain PyTorch) against engine 'pallas' "
+    log("[18/24] engine 'xla' (plain PyTorch) against engine 'pallas' "
         "(kernel 7) and 'auto', full size")
     for cfg, pth in paths.items():
         kernels.LAUNCHES.clear()
@@ -1769,7 +1812,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                                      (64, 64), shadow_lights=c4m["lights"])
     c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
         ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
-    log(f"[19/21] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+    log(f"[19/24] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
         f"spec {spec}, no child spec (children on 'xla'); shadow lights "
         f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
     kernels.LAUNCHES.clear()
@@ -1841,7 +1884,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 20. the reference's rows on 'auto'
     t0 = time.perf_counter()
-    log(f"[20/21] engine 'auto': frame and training step timing ({smi})")
+    log(f"[20/24] engine 'auto': frame and training step timing ({smi})")
     for cfg in ("c1_sphere_plane", "c2_eight_spheres",
                 "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
         pth = paths[cfg]
@@ -1868,7 +1911,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 21. 'autodiff' against the analytic backward
     t0 = time.perf_counter()
-    log("[21/21] engine 'autodiff' (autograd through the chunked scan) "
+    log("[21/24] engine 'autodiff' (autograd through the chunked scan) "
         "against 'xla' (the analytic backward): gradients of mean(img^2)")
     cells = {f"animated_obb_720p_depth{d}": paths[
         f"animated_obb_720p_depth{d}"] for d in (0, 1)}
@@ -1896,6 +1939,388 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                       "autodiff - analytic")
     log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def deep_step(torch, cap, steps, min_level: int = 3):
+    """From a culled stack frame's Capture: the deepest step (level >=
+    min_level; the last such step first) whose kernel 2 hot launch has a
+    truly hot tile and whose rays include zero-direction TIR rays, or
+    failing that the deepest with a truly hot tile. Returns (step index,
+    level, cold (args, kw), hot (args, kw), kernel B (args, kw))."""
+    calls = {"cold": [], "hot": [], "shadow": []}
+    for name, a, kw in cap.log:
+        if name == "primary_hit_ray":
+            calls["hot" if kw.get("tile_ids") is not None
+                  else "cold"].append((a, kw))
+        elif name == "shadow_occlusion":
+            calls["shadow"].append((a, kw))
+    check(all(len(v) == len(steps) for v in calls.values()),
+          f"one cold, hot and kernel B call a step: "
+          f"{ {k: len(v) for k, v in calls.items()} } for {len(steps)} steps")
+    best = None
+    for i in reversed(range(len(steps))):
+        if steps[i][1] < min_level:
+            continue
+        hot = calls["hot"][i][0][5][:, 0] > 0
+        tir = bool(((calls["cold"][i][0][0] == 0.0).all(dim=-1)).any())
+        if bool(hot.any()) and (tir or best is None):
+            best = i
+            if tir:
+                break
+    check(best is not None, "no deep step with a truly hot tile")
+    return (best, steps[best][1], calls["cold"][best], calls["hot"][best],
+            calls["shadow"][best])
+
+
+def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phases 22-24: the stack bounce engine. glass_stack_depth4 (the OBB
+    and glass world, 1024x1024, depth 4, 'xla' and 'pallas', stack against
+    tree); glass4096_stack_culled (4096 glass spheres, culled_pallas,
+    every DFS step on kernels 2 (cold and hot), B and 6); the culled
+    stack's gradients on a 1024-sphere glass grid and the mirror chain on
+    c4_mirror. Returns (per-path launch counts, max abs errors of kernels 2
+    cold and hot and B on a deep step)."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
+                                                           glass_grid_scene)
+    from openglraytracer_tpu_torch.ops.render import _dfs_schedule, render
+    from openglraytracer_tpu_torch.utils.metrics import rays_per_frame
+
+    launches, errs = {}, {}
+    steps = _dfs_schedule(STACK_DEPTH)
+    n_steps = len(steps)
+
+    def counted(fn):
+        kernels.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    def share_within(a, b):
+        diff = (a - b).abs().amax(dim=-1)
+        return float((diff <= 1.0 / 255.0).float().mean()), float(diff.max())
+
+    # ---- 22. glass_stack_depth4
+    t0 = time.perf_counter()
+    h = w = STACK_HW
+    scene, cam = reference_frame(OBB_TIME, device=dev)
+    sm = shading.static_shadow_mask(scene)
+    bm = shading.static_bounce_mask(scene)
+    check(bm == (True, True), f"the glass world's bounce mask is {bm}")
+    n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
+                            shadow_lights=sm)
+    log(f"[22/24] glass_stack_depth4: reference_frame({OBB_TIME}) at "
+        f"{w}x{h}, depth {STACK_DEPTH} ({n_steps} casts a pixel), shadow "
+        f"lights {sm}; engines 'xla' and 'pallas', stack against tree; "
+        f"{n_rays} rays/frame ({smi})")
+
+    def frame(engine, bounce):
+        with torch.no_grad():
+            return render(scene, cam, h, w, depth=STACK_DEPTH, engine=engine,
+                          bounce=bounce, shadow_lights=sm, bounce_mask=bm,
+                          with_cull_stats=True)
+
+    def step(engine, bounce):
+        s, params = train_scene(scene, STACK_TRAINABLE)
+        img, ovf = render(s, cam, h, w, depth=STACK_DEPTH, engine=engine,
+                          bounce=bounce, shadow_lights=sm, bounce_mask=bm,
+                          with_cull_stats=True)
+        torch.mean(torch.square(img)).backward()
+        return {k: v.grad for k, v in params.items()}, ovf
+
+    imgs = {}
+    for engine in ("xla", "pallas"):
+        for bounce in ("stack", "tree"):
+            (img, ovf), got = counted(lambda: frame(engine, bounce))
+            launches[f"glass_stack_depth4_{engine}_{bounce}"] = got
+            want = {} if engine == "xla" else {"dense_hit": n_steps}
+            log(f"  {engine} {bounce} frame: launches {got}, overflow "
+                f"{int(ovf)}, mean {float(img.mean()):.5f}")
+            check(got == want, f"{engine} {bounce}: launches {got}, want "
+                  f"{want}")
+            check(tuple(img.shape) == (h, w, 3)
+                  and bool(torch.isfinite(img).all()) and int(ovf) == 0,
+                  f"{engine} {bounce}: a finite {h}x{w} image, no overflow")
+            imgs[engine, bounce] = img
+    for a, b in ((("xla", "stack"), ("xla", "tree")),
+                 (("pallas", "stack"), ("xla", "stack")),
+                 (("pallas", "stack"), ("pallas", "tree"))):
+        what = f"'{a[0]}' {a[1]} vs '{b[0]}' {b[1]}"
+        share, mx = share_within(imgs[a], imgs[b])
+        log(f"  {what}: {share:.6f} of pixels within 1/255, max diff "
+            f"{mx:.3e}")
+        check(share >= 0.999, f"{what} disagree")
+    del imgs
+    cells = {}
+    for engine in ("xla", "pallas"):
+        grads = {}
+        for bounce in ("stack", "tree"):
+            cell = f"glass_stack_depth4 {engine} {bounce}"
+            cells[cell, "frame"] = time_cell(
+                torch, cell, "frame", lambda: frame(engine, bounce), 1,
+                n_rays, warm=1, windows=3, frames=STACK_FRAMES, dev_reps=3)
+            (grads[bounce], _), got = counted(lambda: step(engine, bounce))
+            launches[f"train_glass_stack_depth4_{engine}_{bounce}"] = got
+            # the stack recomputes each checkpointed step in the backward
+            want = {} if engine == "xla" else {
+                "dense_hit": n_steps * (2 if bounce == "stack" else 1)}
+            log(f"  {cell} forward+backward: launches {got}")
+            check(got == want, f"{cell} step: launches {got}, want {want}")
+            cells[cell, "step"] = time_cell(
+                torch, cell, "forward+backward", lambda: step(engine, bounce),
+                1, n_rays, warm=1, windows=3, frames=STACK_STEPS, dev_reps=3)
+        compare_grads(torch, f"glass_stack_depth4 {engine}", grads["stack"],
+                      grads["tree"], "stack - tree")
+    for engine in ("xla", "pallas"):
+        for what in ("frame", "step"):
+            st = cells[f"glass_stack_depth4 {engine} stack", what]
+            tr = cells[f"glass_stack_depth4 {engine} tree", what]
+            log(f"  {engine} {what}, stack / tree: device "
+                f"{st['device_ms']:.2f} / {tr['device_ms']:.2f} ms, memory "
+                f"above the resident {st['call_gib']:.3f} / "
+                f"{tr['call_gib']:.3f} GiB")
+    log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 23. glass4096_stack_culled
+    t0 = time.perf_counter()
+    scene, cam = glass_grid_scene(device=dev)
+    sm = shading.static_shadow_mask(scene)
+    bm = shading.static_bounce_mask(scene)
+    n = int(scene.spheres.count)
+    spec = accel.suggest_stack_cull_config(
+        scene, cam, h, w, (STACK_TILE, STACK_TILE), headroom=2.0,
+        shadow_lights=sm)
+    log(f"  sized stack spec {spec} ({time.perf_counter() - t0:.1f} s)")
+    # the shadow lists go dense (Ks = N), as the reference's row sets them
+    spec = (spec[0], spec[1], n, 0, spec[4], spec[5]) + tuple(spec[6:])
+    hot = accel.cull_hot_p(spec) > 0
+    lit = sum(map(bool, sm))
+    wide = int(n >= accel.MIN_N_FOR_KERNEL)
+    # per step: kernel 2's cold launch, its hot launch over the global
+    # table, one kernel B launch (hot_m 0), and kernel 6 on the bounce-cone
+    # mask, on the hot tiles' winner mask and on each lit light's mask
+    want = {"primary_hit_ray": n_steps, "shadow_occlusion": n_steps,
+            "compact_mask": n_steps * wide * (1 + int(hot) + lit)}
+    if hot:
+        want["primary_hit_hot"] = n_steps
+    n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
+                            shadow_lights=sm)
+    log(f"[23/24] glass4096_stack_culled: glass_grid_scene() ({n} glass "
+        f"spheres), {w}x{h}, depth {STACK_DEPTH}, engine culled_pallas, "
+        f"bounce 'stack', spec {spec}, shadow lights {sm}; launches a frame "
+        f"by the code: {want}; {n_rays} rays/frame")
+
+    def cframe():
+        with torch.no_grad():
+            return render(scene, cam, h, w, depth=STACK_DEPTH,
+                          engine="culled_pallas", bounce="stack", cull=spec,
+                          shadow_lights=sm, bounce_mask=bm,
+                          with_cull_stats=True)
+
+    with Capture(culled, shade, accel) as cap:
+        cframe()
+    torch.cuda.synchronize()
+    frames, got = counted(lambda: [cframe() for _ in range(FRAMES)])
+    launches["glass4096_stack_culled"] = got
+    ovfs = [int(o) for _, o in frames]
+    log(f"  launches over {FRAMES} frames: {got}; overflow per frame {ovfs}")
+    check(got == {k: v * FRAMES for k, v in want.items()},
+          f"launches {got}, want {FRAMES} x {want}")
+    check(all(o == 0 for o in ovfs), "glass4096_stack_culled overflowed")
+    img = frames[-1][0]
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all())
+          and all(torch.equal(f[0], img) for f in frames),
+          "the frames must be finite, of the image's shape and equal")
+    del frames
+    with torch.no_grad():
+        (ref, _), got_p = counted(lambda: render(
+            scene, cam, h, w, depth=STACK_DEPTH, engine="pallas",
+            bounce="stack", bounce_mask=bm, with_cull_stats=True))
+    share, mx = share_within(img, ref)
+    log(f"  image vs the 'pallas' stack over all {n} spheres (kernel 7, "
+        f"launches {got_p}): {share:.6f} of pixels within 1/255, max diff "
+        f"{mx:.3e}; mean {float(img.mean()):.5f}")
+    check(share >= 0.999, "the culled stack disagrees with the 'pallas' "
+          "stack")
+    del img, ref
+    # kernels 2 and B bit for bit on one deep step's inputs, cut to the
+    # hottest and some cold tiles (the zero-direction TIR rays' tiles first)
+    i, level, (a_c, kw_c), (a_h, kw_h), (a_b, kw_b) = deep_step(
+        torch, cap, steps)
+    tile_p = a_c[6]
+    n_tiles = a_c[5].shape[0]
+    ids_h = kw_h["tile_ids"].long()
+    truly = a_h[5][:, 0] > 0
+    zero_t = (a_c[0] == 0.0).all(dim=-1).reshape(n_tiles, tile_p)
+    hot_set = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    hot_set[ids_h[truly]] = True
+    cold_ok = ~hot_set & (a_c[5][:, 0] > 0)
+    tir_tiles = torch.nonzero(cold_ok & zero_t.any(dim=1)).flatten()
+    tir_tiles = tir_tiles[:CUT_COLD // 2]
+    rest = torch.nonzero(cold_ok).flatten()
+    rest = rest[torch.linspace(0, rest.numel() - 1,
+                               CUT_COLD - tir_tiles.numel(),
+                               device=dev).long()]
+    cold = torch.unique(torch.cat([tir_tiles, rest]))
+    tir_h = zero_t[ids_h].any(dim=1)
+    hb = torch.cat([torch.nonzero(truly & tir_h).flatten(),
+                    torch.nonzero(truly & ~tir_h).flatten()])[:CUT_HOT]
+    n_tir = int(zero_t[cold].sum()) + int(zero_t[ids_h[hb]].sum())
+    log(f"  deep step {i} (level {level}): {int(truly.sum())} truly hot "
+        f"tiles of {ids_h.numel()}; {int(zero_t.sum())} zero-direction rays "
+        f"in {int(zero_t.any(dim=1).sum())} tiles; cut: {cold.numel()} cold "
+        f"tiles ({tir_tiles.numel()} with TIR rays), {hb.numel()} hot; "
+        f"{n_tir} zero-direction rays in the cuts")
+    check(n_tir > 0 or not bool(zero_t.any()),
+          "the cuts leave out the step's zero-direction rays")
+
+    def rays(x, ids):
+        return x.reshape(n_tiles, tile_p, 3)[ids].reshape(-1, 3).contiguous()
+
+    cut_c = (rays(a_c[0], cold), rays(a_c[1], cold),
+             a_c[2][cold].contiguous(), a_c[3][cold].contiguous(), a_c[4],
+             a_c[5][cold].contiguous(), tile_p)
+    cut_h = (rays(a_h[0], ids_h[hb]), rays(a_h[1], ids_h[hb]), a_h[2],
+             a_h[3], a_h[4], a_h[5][hb].contiguous(), tile_p)
+    ids_cut = torch.arange(hb.numel(), dtype=torch.int32, device=dev)
+    plain2 = primary_hit_ray_plain(culled)
+    for what, args, kw, name in (
+            ("cold", cut_c, {}, "primary_hit_ray"),
+            ("hot", cut_h, {"tile_ids": ids_cut}, "primary_hit_hot")):
+        got_k = culled.primary_hit_ray(*args, **kw)
+        errs[name] = compare_primary(
+            torch, got_k, plain2(*args, **kw),
+            f"glass4096 level {level} {what} cut", name, exact=True)[1]
+        zero = (args[0] == 0.0).all(dim=-1)
+        check(not bool((got_k[0][zero] < 1e4).any()),
+              f"a zero-direction ray hit in kernel 2's {what} launch")
+    check(a_b[9] is None, "kernel B's hot launch is off (hot_m 0)")
+    b_tiles = torch.unique(torch.cat([cold, ids_h[hb]]))
+    t_of = b_tiles.repeat_interleave(tile_p) * tile_p + torch.arange(
+        tile_p, device=dev).repeat(b_tiles.numel())
+    cut_b = (a_b[0][t_of].contiguous(), a_b[1][t_of].contiguous(), a_b[2],
+             a_b[3], a_b[4][b_tiles].contiguous(),
+             a_b[5][b_tiles].contiguous(), a_b[6],
+             a_b[7][b_tiles].contiguous(), tile_p) + tuple(a_b[9:])
+    log(f"  kernel B cut: {b_tiles.numel()} tiles, survivor rows "
+        f"{tuple(cut_b[4].shape)}, max count "
+        f"{int(cut_b[7][..., 0].max())}")
+    errs["shadow_occlusion"] = compare_shadow(
+        torch, culled.shadow_occlusion(*cut_b, **kw_b),
+        culled.shadow_occlusion_plain(*cut_b, **kw_b),
+        f"glass4096 level {level} cut")[1]
+    del cap
+    time_cell(torch, "glass4096_stack_culled", "frame", cframe, 1, n_rays,
+              warm=1, windows=2, frames=3, dev_reps=3)
+    trainable = ("spheres.center", "materials.diffuse")
+
+    def cstep():
+        s, params = train_scene(scene, trainable)
+        img, ovf = render(s, cam, h, w, depth=STACK_DEPTH,
+                          engine="culled_pallas", bounce="stack", cull=spec,
+                          shadow_lights=sm, bounce_mask=bm,
+                          with_cull_stats=True)
+        torch.mean(torch.square(img)).backward()
+        return {k: v.grad for k, v in params.items()}, ovf
+
+    (g, ovf), got = counted(cstep)
+    launches["train_glass4096_stack_culled"] = got
+    log(f"  one forward+backward step w.r.t. {trainable}: launches {got}, "
+        f"overflow {int(ovf)}, finite gradients "
+        f"{all(bool(torch.isfinite(x).all()) for x in g.values())}")
+    check(int(ovf) == 0, "glass4096_stack_culled step overflowed")
+    time_cell(torch, "glass4096_stack_culled", "forward+backward", cstep, 1,
+              n_rays, warm=0, windows=2, frames=1, dev_reps=1)
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 24. the culled stack's gradients and the mirror chain
+    t0 = time.perf_counter()
+    side, gh, gdepth = GLASS_GRAD["side"], GLASS_GRAD["hw"], \
+        GLASS_GRAD["depth"]
+    scene, cam = glass_grid_scene(side, device=dev)
+    n = int(scene.spheres.count)
+    spec = ((STACK_TILE, STACK_TILE), n, n, 0, 0, 0)
+    sm = shading.static_shadow_mask(scene)
+    bm = shading.static_bounce_mask(scene)
+    log(f"[24/24] culled stack gradients: glass_grid_scene({side}) ({n} "
+        f"spheres), {gh}x{gh}, depth {gdepth}, spec {spec} (no list can "
+        f"overflow), culled_pallas against its plain versions, 'pallas' "
+        f"and 'xla'; then render(mirror_only=True) on c4_mirror")
+
+    def run(engine):
+        s, params = train_scene(scene, trainable)
+        img, ovf = render(s, cam, gh, gh, depth=gdepth, engine=engine,
+                          bounce="stack", shadow_lights=sm, bounce_mask=bm,
+                          with_cull_stats=True,
+                          cull=spec if engine == "culled_pallas" else None)
+        torch.mean(torch.square(img)).backward()
+        check(int(ovf) == 0, f"{engine}: overflow")
+        return img.detach(), {k: v.grad for k, v in params.items()}
+
+    out = {}
+    for engine in ("culled_pallas", "pallas", "xla"):
+        out[engine], got = counted(lambda: run(engine))
+        launches[f"train_glass{n}_stack_{engine}"] = got
+        log(f"  {engine}: launches {got}, overflow 0")
+    check(launches[f"train_glass{n}_stack_culled_pallas"].get(
+        "compact_mask", 0) > 0, "kernel 6 did not run")
+    with PlainVersions(culled, shade, shading, accel):
+        out["plain"] = run("culled_pallas")
+    # held to the same stack through the plain versions on the card, whose
+    # discrete outputs are those of the kernels bit for bit, and, for the
+    # image, to kernel 7's 'pallas', an independent engine; the gradients
+    # against 'pallas' and 'xla' and the image against 'xla' are reported.
+    # The centers' gradient of refracting glass is singular at grazes and
+    # at the edge of total internal reflection: where kernels 2 and 7 round
+    # one grazing ray apart (one pixel of 262,144 differs by 1.4e-2), it
+    # moved the sum by 2.5e-3 max|g| on the H100; the JAX package's own
+    # eager 'xla' and 'pallas' engines differ by 2.1 max|g| on a 256-sphere
+    # grid. And 'xla''s sphere quadratic (the reference's, qb^2 - 4 qa qc,
+    # each op rounded once) misses the float64 primary t by up to 2.3e-3
+    # at the grid's 70-80 units, more than the 1e-3 bounce offset, so some
+    # of its refraction children start outside their sphere and hit it
+    # again; the kernels round as the Mosaic kernels do (0.2-0.8e-3).
+    for other in ("plain", "pallas", "xla"):
+        share, mx = share_within(out["culled_pallas"][0], out[other][0])
+        held = other != "xla"
+        log(f"  image: {share:.6f} of pixels within 1/255 of '{other}', max "
+            f"diff {mx:.3e}" + ("" if held else " (reported, not held)"))
+        check(share >= 0.999 or not held,
+              f"the culled stack's image disagrees with '{other}'")
+    compare_grads(torch, f"glass{n} stack", out["culled_pallas"][1],
+                  out["plain"][1], "kernels - plain")
+    for other in ("pallas", "xla"):
+        for k, g in out[other][1].items():
+            err = float((out["culled_pallas"][1][k] - g).abs().max())
+            log(f"  glass{n} stack grad {k} against '{other}' (reported, "
+                f"not held): {err / max(float(g.abs().max()), 1e-30):.2e} "
+                f"of max |g|")
+    del out
+    builder, mh, mw, _ = BENCH_CONFIGS["c4_mirror"]
+    scene, cam = builder(device=dev)
+    sm = shading.static_shadow_mask(scene)
+    bm = shading.static_bounce_mask(scene)
+    mdepth = MIRROR_DEPTH
+
+    def mframe(mirror_only):
+        with torch.no_grad():
+            return render(scene, cam, mh, mw, depth=mdepth, shadow_lights=sm,
+                          bounce_mask=bm, mirror_only=mirror_only)
+    chain, got = counted(lambda: mframe(True))
+    tree, got_t = counted(lambda: mframe(False))
+    share, mx = share_within(chain, tree)
+    ms = {k: statistics.median(device_ms(torch, mframe, (k == "chain",),
+                                         reps=1) for _ in range(3))
+          for k in ("chain", "tree")}
+    log(f"  c4_mirror {mw}x{mh}, depth {mdepth}: mirror_only chain "
+        f"(launches {got}) vs the tree on 'xla' (launches {got_t}, bounce "
+        f"mask {bm}): {share:.6f} of pixels within 1/255, max diff "
+        f"{mx:.3e}; frame device time chain {ms['chain']:.4f} ms, tree "
+        f"{ms['tree']:.4f} ms")
+    check(not got and not got_t and share >= 0.999,
+          "the mirror chain disagrees with the tree")
+    log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+    return launches, errs
 
 
 def main() -> int:
@@ -1930,7 +2355,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/21] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/24] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -1938,7 +2363,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/21] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/24] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -1951,7 +2376,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/21] kernels vs plain versions")
+    log("[3/24] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -2040,7 +2465,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/21] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/24] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -2087,7 +2512,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/21] forward timing ({name}; {smi})")
+    log(f"[5/24] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -2149,7 +2574,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/21] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/24] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -2193,7 +2618,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/21] training timing ({name}; {smi})")
+    log(f"[7/24] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -2215,7 +2640,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/21] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/24] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -2248,6 +2673,10 @@ def main() -> int:
         torch, dev, kernels, culled, shade, shading, accel, smi, earlier)
     launches_xla = run_xla(torch, dev, kernels, culled, shade, shading, accel,
                            smi)
+    launches_stack, errs_stack = run_stack(torch, dev, kernels, culled,
+                                           shade, shading, accel, smi)
+    for k, v in errs_stack.items():
+        errs[k] = max(errs[k], v)
     c3_dense = dense_cells["c3 primary"]
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
     # the redesigned kernels' earlier time, from the same call (None
@@ -2299,7 +2728,7 @@ def main() -> int:
     library_ms = {"compact_mask": topk_ms}
     path_launches = {"render_c3_grid64": fwd_launches,
                      "train_step_c3_grid64": train_launches, **launches_4096,
-                     **launches_dense, **launches_xla}
+                     **launches_dense, **launches_xla, **launches_stack}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",

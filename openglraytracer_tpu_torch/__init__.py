@@ -7,14 +7,15 @@ plain PyTorch version of the same function beside it. On a CPU tensor a kernel
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-The port covers engine ``culled_pallas``, forward and backward, at depth 0
-and with bounce children on the culled path: ray generation, the tile-cone
-broad phase with its compaction kernel, the primary-hit kernel (shared-origin
-and per-ray modes, with the hot-primary launch) and the shadow-occlusion
-kernel, survivor-routed materials, the fused Phong shade kernel and the
-bounce blend; the analytic winner backward of the narrow phase, the shade
-backward kernel and the inverse-rendering fit (``train/inverse.py``). Other
-engines and dense bounce children are listed in ROADMAP.md.
+The port covers the engines ``culled_pallas``, ``pallas`` (the dense
+kernel), ``xla`` (``auto``) and ``autodiff``, forward and backward, at any
+depth: ray generation, the tile-cone broad phase with its compaction kernel,
+the primary-hit kernel (shared-origin and per-ray modes, with the
+hot-primary launch) and the shadow-occlusion kernel, survivor-routed
+materials, the fused Phong shade kernel, the dense hit kernel, the bounce
+tree and the stack bounce engine; the analytic winner backward, the shade
+backward kernel and the inverse-rendering fit (``train/inverse.py``). What
+is still to port is listed in ROADMAP.md.
 
 The package imports neither ``jax`` nor ``openglraytracer_tpu``.
 """

@@ -12,6 +12,8 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
       --engine pallas --out c3.png      # the dense kernel engine, kernel 7
   python -m openglraytracer_tpu_torch.cli render --scene c4_mirror4096 \\
       --engine culled_pallas --child-cull --out c4m.png
+  python -m openglraytracer_tpu_torch.cli render --scene c2_eight_spheres \\
+      --depth 4 --bounce stack --out c2s.png   # the stack bounce engine
   python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
       --width 1280 --height 720 --depth 1 --out-pattern frame_{:04d}.png
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
@@ -21,13 +23,19 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
 apply, plus ``--device`` (default ``cuda``; there is no silent fall back to
 the CPU), and ``render`` and ``fit`` ``--row-block``. The engines are the
 reference's, with its default ``auto`` (= ``xla``, plain PyTorch):
-``xla``, ``pallas`` (kernel 7), ``culled_pallas`` and, in ``animate``,
-``autodiff``, each at any depth. With ``culled_pallas`` the bounce
-children are traced densely on ``xla``, and on the culled path with a
-child spec sized from a measured bounce pass with ``--child-cull``. Flags
-for what this package does not do yet (the engine ``culled``, the stack
-bounce engine, ``animate --gif``; PNG targets, soft, sharded and
-checkpointed fits) are rejected with a message.
+``xla``, ``pallas`` (kernel 7), ``culled_pallas`` and, in ``render`` and
+``animate``, ``autodiff``, each at any depth. With ``culled_pallas`` the
+bounce children are traced densely on ``xla``, and on the culled path with
+a child spec sized from a measured bounce pass with ``--child-cull``.
+``render --bounce stack`` runs the stack bounce engine on every engine but
+``autodiff`` (which the reference rejects too); on ``culled_pallas`` its
+one spec for every step is sized by ``suggest_stack_cull_config`` (the
+reference's CLI passes the primary spec, whose lists deep bundles
+overflow). ``--time`` charges the reference's rays: the primary rays and
+a shadow ray per static shadow-casting light, per cast of the static
+bounce tree, whatever the engine. Flags for what this package does not do
+yet (the engine ``culled``, ``animate --gif``; PNG targets, soft, sharded
+and checkpointed fits) are rejected with a message.
 """
 
 from __future__ import annotations
@@ -121,34 +129,49 @@ def _check_row_block(args):
 
 def _reject_unported(args, depth: int):
     _reject_engine(args.engine, "renders")
-    if args.bounce != "tree":
-        raise SystemExit(f"--bounce {args.bounce} is not yet ported "
-                         "(see ROADMAP.md)")
+    if args.bounce == "stack" and args.engine == "autodiff":
+        raise SystemExit("--bounce stack supports --engine auto, xla, pallas "
+                         "and culled_pallas, not autodiff")
     _check_row_block(args)
     if args.child_cull and args.engine != "culled_pallas":
         raise SystemExit("--child-cull requires --engine culled_pallas (it "
                          "sizes the culled bounce-child lists; --engine "
                          f"{args.engine} traces children densely)")
+    if args.child_cull and args.bounce == "stack":
+        raise SystemExit("--child-cull sizes the tree's bounce children; "
+                         "--bounce stack traces every step with one spec "
+                         "(suggest_stack_cull_config)")
     if args.child_cull and depth <= 0:
         raise SystemExit("--child-cull needs --depth >= 1 (it sizes the "
                          "bounce children's survivor lists)")
 
 
-def _cull_spec(scene, cam, h: int, w: int, t: int, shadow_lights, **kw):
-    """The culled engine's spec for (t, t) tiles (suggest_cull_config with
-    the keywords kw), printed."""
-    from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+def _cull_spec(scene, cam, h: int, w: int, t: int, shadow_lights,
+               stack: bool = False, **kw):
+    """The culled engine's spec for (t, t) tiles, printed:
+    suggest_cull_config with the keywords kw, or with stack the stack
+    engine's suggest_stack_cull_config."""
+    from openglraytracer_tpu_torch.ops.accel import (
+        suggest_cull_config, suggest_stack_cull_config)
     if h % t or w % t:
         raise SystemExit(
             f"--cull-tile {t} must divide the image: {w}x{h} "
             f"(--width/--height); pick a dividing tile or resolution "
             f"(e.g. --height {h - h % t or t})")
-    spec = suggest_cull_config(scene, cam, h, w, (t, t),
-                               shadow_lights=shadow_lights, **kw)
-    print(f"cull: tile={t} "
+    suggest = suggest_stack_cull_config if stack else suggest_cull_config
+    spec = suggest(scene, cam, h, w, (t, t), shadow_lights=shadow_lights,
+                   **kw)
+    print(f"{'stack cull' if stack else 'cull'}: tile={t} "
           + " ".join(f"{k}={v}" for k, v in
-                     zip(("kp", "ks", "hot_m", "kb", "ksb"), spec[1:])))
+                     zip(("kp", "ks", "hot_m", "kb", "ksb", "hot_p"),
+                         spec[1:])))
     return spec
+
+
+def _check_timing(device):
+    if device.type != "cuda":
+        raise SystemExit("--time measures with CUDA events: it needs "
+                         "--device cuda")
 
 
 def cmd_render(args):
@@ -163,18 +186,19 @@ def cmd_render(args):
                                                          time_fn)
 
     device = _device(args.device)
-    if args.time and device.type != "cuda":
-        raise SystemExit("--time measures with CUDA events: it needs "
-                         "--device cuda")
+    if args.time:
+        _check_timing(device)
     scene, cam, h, w, depth = _resolve_scene(args, device)
     _reject_unported(args, depth)
     shadow_lights = static_shadow_mask(scene)
     bounce_mask = static_bounce_mask(scene) if depth > 0 else (True, True)
     kwargs = dict(depth=depth, engine=args.engine, bounce_mask=bounce_mask,
-                  shadow_lights=shadow_lights, row_block=args.row_block)
+                  shadow_lights=shadow_lights, row_block=args.row_block,
+                  bounce=args.bounce)
     if args.engine == "culled_pallas":
         kwargs["cull"] = _cull_spec(scene, cam, h, w, args.cull_tile,
-                                    shadow_lights)
+                                    shadow_lights,
+                                    stack=args.bounce == "stack")
     if args.child_cull:
         spec = kwargs["cull"]
         cspec = suggest_child_cull_config(scene, cam, h, w, spec,
@@ -191,12 +215,11 @@ def cmd_render(args):
     if args.time:
         with torch.no_grad():
             dt = time_fn(lambda: render(scene, cam, h, w, **kwargs))
-        # kernel 7 casts every light's shadow ray
-        n_rays = rays_per_frame(
-            h, w, scene.lights.count, depth,
-            shadow_lights=(None if args.engine == "pallas"
-                           else shadow_lights),
-            bounce_mask=bounce_mask)
+        # the reference's count for every engine, though kernel 7 casts
+        # every light's shadow ray
+        n_rays = rays_per_frame(h, w, scene.lights.count, depth,
+                                shadow_lights=shadow_lights,
+                                bounce_mask=bounce_mask)
         MetricsLogger("render").log(
             h=h, w=w, depth=depth, sec=dt,
             mrays_per_s=round(n_rays / dt / 1e6, 2),
@@ -340,7 +363,8 @@ def main(argv=None):
     r.add_argument("--width", type=int, default=None)
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
-    r.add_argument("--engine", default="auto", choices=ENGINES,
+    r.add_argument("--engine", default="auto",
+                   choices=ENGINES + ["autodiff"],
                    help="'culled' is not yet ported (rejected)")
     r.add_argument("--cull-tile", type=int, default=32,
                    help="pixel tile side of the culled engine")
@@ -351,7 +375,9 @@ def main(argv=None):
                    help="dense engines: trace the image in blocks of this "
                         "many rows (bounds memory; must divide the height)")
     r.add_argument("--bounce", default="tree", choices=["tree", "stack"],
-                   help="'stack' is not yet ported (rejected)")
+                   help="bounce engine: 'tree' (static unroll) or 'stack' "
+                        "(one cast a tree node in depth-first order, "
+                        "O(depth) memory; not with --engine autodiff)")
     r.add_argument("--camera-pos", type=float, nargs=3, default=None,
                    help="overrides the scene JSON's camera when given")
     r.add_argument("--camera-angles", type=float, nargs=3, default=None)

@@ -162,6 +162,24 @@ def mirror_grid4096_scene(dtype=torch.float32,
                              device=device)
 
 
+def glass_grid_scene(side: int = 64, dtype=torch.float32,
+                     device="cuda") -> tuple[Scene, Camera]:
+    """side x side GLASS spheres (reflectivity 0.25 and transparency 0.35,
+    so both bounce branches live) over an opaque ground plane: the c5 grid
+    (seed 1) with every sphere refractive at index 1.45; side=64 gives
+    the 4096-sphere scene of the culled stack engine's benchmark row
+    (``bench.py glass_grid_scene``)."""
+    scene, cam = sphere_grid_scene(side, reflectivity=0.25, seed=1,
+                                   dtype=dtype, device=device)
+    m = scene.materials
+    transparency = torch.full_like(m.transparency, 0.35)
+    transparency[-1] = 0.0                  # the ground plane stays opaque
+    scene = scene._replace(materials=m._replace(
+        transparency=transparency,
+        refraction_index=torch.full_like(m.refraction_index, 1.45)))
+    return scene, cam
+
+
 BENCH_CONFIGS = {
     # name -> (builder, height, width, depth); builder(dtype=, device=)
     "c1_sphere_plane": (single_sphere_scene, 256, 256, 0),

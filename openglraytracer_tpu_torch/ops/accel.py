@@ -902,3 +902,36 @@ def suggest_child_cull_config(scene: Scene, camera, height: int, width: int,
     return _spec_from_counts(scene, p_count, s_count, pb_count, sb_count,
                              tile, headroom, min_k, hot_primary=True,
                              w_count=w_count)
+
+
+def suggest_stack_cull_config(scene: Scene, camera, height: int, width: int,
+                              tile: tuple, headroom: float = 1.5,
+                              shadow_lights: tuple | None = None):
+    """Cull spec ((th, tw), kp, ks, 0, kb, ksb, hot_p) that covers every
+    step of the culled stack engine (render.trace_rays_stack with cull):
+    the elementwise maximum of the primary spec (hot=False) and the depth-1
+    bounce-child spec, with hot_m 0 (the hot shadow tiles are sized from
+    primary hits and do not carry over to bounce bundles). hot_p is every
+    tile when the child spec has a hot budget at all: deep refractive
+    bundles outgrow the depth-1 measurement, and kernel 2's hot launch is
+    gated by each tile's count, so a tile under the cap scans no row. Kp is
+    then floored at min(N, tile_h tile_w), since a tile of that many rays
+    hits at most that many distinct objects, so no winner list overflows
+    at any depth. Deeper bundles are usually narrower than depth 1's; the
+    per-step overflow count stays the check. Runs on the host: call it
+    once, outside a frame."""
+    prim = suggest_cull_config(scene, camera, height, width, tile,
+                               headroom=headroom, hot=False,
+                               shadow_lights=shadow_lights)
+    child = suggest_child_cull_config(scene, camera, height, width, prim,
+                                      headroom=headroom,
+                                      shadow_lights=shadow_lights)
+    _, pkp, pks, _, pkb, pksb = parse_cull_spec(prim)
+    _, ckp, cks, _, ckb, cksb = parse_cull_spec(child)
+    t_tiles = (height // tile[0]) * (width // tile[1])
+    hot_p = t_tiles if cull_hot_p(child) else 0
+    kp = max(pkp, ckp)
+    if hot_p:
+        kp = max(kp, min(int(scene.spheres.count), tile[0] * tile[1]))
+    return (tile, kp, max(pks, cks), 0, max(pkb, ckb), max(pksb, cksb),
+            hot_p)

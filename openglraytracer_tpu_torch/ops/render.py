@@ -4,7 +4,9 @@ culled_pallas.
 
 Port of ``openglraytracer_tpu/ops/render.py`` (``trace_rays``,
 ``trace_rays_fast``, ``pick_tracer``, ``render``, ``_apply_bounces``,
-``_trace_child_culled`` and the engine branches of ``_render_jit``). There
+``_trace_child_culled``, ``_dfs_schedule``, ``trace_rays_stack`` with its
+single-branch chains, ``trace_rays_mirror`` and the engine and bounce
+branches of ``_render_jit``). There
 is no jit: these are plain functions that enqueue device work and never
 wait for the device, so a frame (raygen -> image) runs without a host sync
 once the cull specs and the static light and bounce masks are known; they
@@ -30,13 +32,21 @@ The engines, named for the reference's contracts:
     with its hot launch, kernel B) and are shaded by ``phong_shade_lit``;
     without ``child_cull`` they are traced densely on ``xla``.
 
-The engine 'culled' (the XLA culled engine), the mirror-chain tracer and
-the stack bounce engine are not ported (see ROADMAP.md): 'culled' raises
-NotImplementedError, and no parameter selects the other two.
+The engine 'culled' (the XLA culled engine) is not ported (see
+ROADMAP.md): it raises NotImplementedError.
 
-Bounces (depth > 0) run the reference's static tree unroll: each level's
-reflection and refraction children are traced for all rays and blended
-``mix(mix(phong, refl, reflectivity), refr, transparency)``.
+Bounces (depth > 0) run, with ``bounce='tree'`` (the default), the
+reference's static tree unroll: each level's reflection and refraction
+children are traced for all rays and blended
+``mix(mix(phong, refl, reflectivity), refr, transparency)``. With
+``bounce='stack'`` they run the stack engine ``trace_rays_stack``: one cast
+a step over the tree's static depth-first schedule, the blend linearised
+into a running weighted sum, each step under ``torch.utils.checkpoint``
+when autograd records, so that a backward holds O(depth) rays, not the
+tree's every node. On culled_pallas every step takes the secondary-ray
+culled path with one spec (``accel.suggest_stack_cull_config``).
+``mirror_only`` traces the reflection chain alone (``trace_rays_mirror``)
+on the dense engines.
 
 Every engine is differentiable: gradients of the image flow to the
 spheres, boxes and planes through the analytic winner backward of each
@@ -47,7 +57,10 @@ renders wraps the call in ``torch.no_grad()``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from openglraytracer_tpu_torch.models.scene import AIR_IOR, Camera, Scene
 from openglraytracer_tpu_torch.ops.accel import (cull_hot_p,
@@ -294,6 +307,234 @@ def pick_tracer(scene: Scene, engine: str = "auto",
         shadow_lights=shadow_lights, bounce_mask=bounce_mask)
 
 
+def _dfs_schedule(depth: int):
+    """Static preorder schedule of the full reflection/refraction binary
+    tree of the given depth: one step per node, 2^(depth+1) - 1 in all.
+
+    Each step is (source_slot, level): source_slot -1 means the node's ray
+    is the previous step's reflection child (carried directly); s >= 0
+    means the pending refraction frame at stack slot s (a node at level s
+    stores its refraction child there). The stack machine's depth-first
+    order, fixed before the trace because the tree's shape is static."""
+    steps = [(-1, 0)]
+    sim_stack: list[int] = []
+    level = 0
+    total = 2 ** (depth + 1) - 1
+    while len(steps) < total:
+        if level < depth:
+            sim_stack.append(level)
+            level += 1
+            steps.append((-1, level))       # descend the reflection child
+        else:
+            slot = sim_stack.pop()
+            level = slot + 1
+            steps.append((slot, level))     # pop the refraction child
+    return steps
+
+
+def _chain_schedule(depth: int, refl_branch: bool):
+    """The schedule of a tree with one live branch, a chain of depth + 1
+    casts: the reflection chain carries each child to the next step, the
+    refraction chain pops the frame the level above stored."""
+    if refl_branch:
+        return [(-1, level) for level in range(depth + 1)]
+    return [(-1, 0)] + [(level - 1, level) for level in range(1, depth + 1)]
+
+
+def _maybe_checkpoint(fn, *args):
+    """fn(*args), under torch.utils.checkpoint while autograd records: the
+    step keeps only its inputs and recomputes itself in the backward (its
+    kernels launch again there). Nothing in a trace draws random numbers,
+    so no RNG state is kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _stack_node(scene: Scene, cast, refl: bool, refr: bool, o, d, w):
+    """One step of the stack engine: cast (o, d) of weight w (R, 1); the
+    node's contribution w (1 - w_refl)(1 - w_refr) color, where w_refl and
+    w_refr are the hit's reflectivity and transparency (0 on a miss) for
+    the live branches refl and refr; its reflection child (o, d, w w_refl
+    (1 - w_refr)) and refraction child (o, d, w w_refr), None for a branch
+    not traced; and the step's overflow count."""
+    color, hit, ovf = cast(o, d, w)
+    mat = gather_materials(scene, hit.material_id)
+    keep = w
+    if refl:
+        w_refl = torch.where(hit.hit & (mat.reflectivity > 0.0),
+                             mat.reflectivity, 0.0)[:, None]
+        keep = keep * (1.0 - w_refl)
+    if refr:
+        w_refr = torch.where(hit.hit & (mat.transparency > 0.0),
+                             mat.transparency, 0.0)[:, None]
+        keep = keep * (1.0 - w_refr)
+    refl_child = refr_child = None
+    if refl:
+        w_child = w * w_refl
+        if refr:
+            w_child = w_child * (1.0 - w_refr)
+        refl_child = (hit.p + hit.n * BOUNCE_EPS, reflect(d, hit.n), w_child)
+    if refr:
+        ratio = torch.where(hit.inside, mat.refraction_index / AIR_IOR,
+                            AIR_IOR / mat.refraction_index)
+        refr_child = (hit.p - hit.n * BOUNCE_EPS,
+                      refract(d, hit.n, ratio[:, None]), w * w_refr)
+    return keep * color, refl_child, refr_child, ovf
+
+
+def _trace_schedule(scene: Scene, origins, dirs, depth: int, cast,
+                    bounce_mask: tuple, steps):
+    """Run a static schedule of (source_slot, level) steps (_dfs_schedule,
+    or _chain_schedule for one live branch) through cast(o, d, w) ->
+    (color, hit, overflow): each node adds its contribution to the
+    running sum, carries its reflection child to the next step and stores
+    its refraction child at the slot of its level. The stack is a Python
+    list of depth + 1 frames, not a tensor written in place, so autograd
+    saves nothing that a later step overwrites. Returns (colors (R, 3),
+    the overflow summed over every step)."""
+    has_refl, has_refr = bounce_mask
+    r = origins.shape[0]
+    carry = (origins, dirs,
+             torch.ones((r, 1), dtype=origins.dtype, device=origins.device))
+    stack = [None] * (depth + 1)
+    accum = torch.zeros((r, 3), dtype=origins.dtype, device=origins.device)
+    ovf = None
+    for src, level in steps:
+        o, d, w = carry if src < 0 else stack[src]
+        leaf = level >= depth
+        contrib, carry, stack[level], step_ovf = _maybe_checkpoint(
+            lambda o, d, w, leaf=leaf: _stack_node(
+                scene, cast, has_refl and not leaf, has_refr and not leaf,
+                o, d, w), o, d, w)
+        accum = accum + contrib
+        ovf = step_ovf if ovf is None else ovf + step_ovf
+    return accum, ovf
+
+
+def trace_rays_stack(scene: Scene, origins, dirs, depth: int,
+                     chunk_size: int = 512, engine: str = "xla",
+                     shadow_lights: tuple | None = None,
+                     bounce_mask: tuple | None = None,
+                     cull: tuple | None = None,
+                     with_cull_stats: bool = False):
+    """The full reflection and refraction bounce tree of (R, 3) rays, one
+    cast per node in depth-first order, holding only a stack of depth + 1
+    pending refraction frames: the stack machine of the reference's GLSL
+    with its order fixed before the trace.
+
+    The blend mix(mix(phong, refl, rho), refr, tau) linearises over the
+    tree: each node adds throughput (1 - rho')(1 - tau') phong, and its
+    edges carry rho'(1 - tau') (reflection) and tau' (refraction), where
+    rho' = rho [hit & rho > 0] and tau' = tau [hit & tau > 0], both 0 at
+    the leaves. A total-internal-reflection child has the zero direction
+    and misses (black); children of misses weigh 0. The image equals the
+    tree's (trace_rays_fast) to rounding: the same node colours summed in
+    another order. With one statically live branch (bounce_mask) the tree
+    is a chain of depth + 1 casts; at depth 0, or with none, it is one
+    trace_rays_fast cast.
+
+    engine 'xla' ('auto') or 'pallas' (kernel 7) with cull None: the dense
+    geometry_op and phong_shade_lit, as the tree. engine 'culled_pallas'
+    with cull = (tile_p, kp, ks, hot_m, kb, ksb, hot_p): every step, the
+    root included, takes the secondary-ray culled path (bounce cones over
+    the step's live rays, kernel 2 cold and, on the hot_p budget, hot,
+    kernel B, survivor-routed materials); rays in tile-major order, which
+    every step keeps. Size the spec with accel.suggest_stack_cull_config.
+    with_cull_stats: also return the overflow summed over every step (a
+    device int32 scalar, 0 on the dense engines). Under autograd each step
+    runs under torch.utils.checkpoint and is recomputed in the backward."""
+    _check_engine(engine)
+    if engine == "autodiff":
+        raise ValueError("trace_rays_stack supports engines 'xla' ('auto'), "
+                         "'pallas' and, with cull, 'culled_pallas'; not "
+                         "'autodiff'")
+    if (cull is not None) != (engine == CULLED):
+        raise ValueError(f"engine '{engine}' with cull={cull}: a cull spec "
+                         "goes with engine 'culled_pallas' and only with it")
+    if bounce_mask is None:
+        bounce_mask = static_bounce_mask(scene)
+    has_refl, has_refr = bounce_mask
+
+    if cull is not None:
+        tile_p, kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
+        if isinstance(tile_p, tuple):
+            tile_p = tile_p[0] * tile_p[1]
+        hot_p = cull_hot_p(cull)
+
+        def cast(o, d, w):
+            hit, occ, aux = bounce_culled_geometry_op(
+                scene, o, d, w[:, 0] > 0.0, tile_p, kp, ks, shadow_lights,
+                hot_m, kb, ksb, hot_p=hot_p)
+            mat_rows = culled_material_rows(scene, hit, aux, tile_p)
+            color = phong_shade_lit(scene, d, hit, occ, mat_rows=mat_rows)
+            return (torch.where(hit.hit[:, None], color, 0.0), hit,
+                    cull_overflow_count(aux))
+    else:
+        geo = "pallas" if engine == "pallas" else "xla"
+
+        def cast(o, d, w):
+            hit, occ = geometry_op(scene, o, d, geo, chunk_size,
+                                   shadow_lights)
+            color = phong_shade_lit(scene, d, hit, occ)
+            return (torch.where(hit.hit[:, None], color, 0.0), hit,
+                    torch.zeros((), dtype=torch.int32, device=o.device))
+
+    if depth == 0 or not (has_refl or has_refr):
+        if cull is None:
+            return trace_rays_fast(scene, origins, dirs, 0,
+                                   chunk_size=chunk_size, engine=geo,
+                                   shadow_lights=shadow_lights,
+                                   with_cull_stats=with_cull_stats)
+        steps, bounce_mask = [(-1, 0)], (False, False)
+    elif has_refl and has_refr:
+        steps = _dfs_schedule(depth)
+    else:
+        steps = _chain_schedule(depth, has_refl)
+    colors, ovf = _trace_schedule(scene, origins, dirs, depth, cast,
+                                  bounce_mask, steps)
+    return (colors, ovf) if with_cull_stats else colors
+
+
+def _mirror_step(scene: Scene, chunk_size: int, last: bool, o, d,
+                 throughput, accum):
+    """One level of trace_rays_mirror: (o, d, throughput, accum) of the
+    next level; a ray that does not reflect keeps its origin and
+    direction, at throughput 0."""
+    hit = closest_hit(scene, o, d, chunk_size=chunk_size)
+    phong = phong_shade(scene, d, hit, chunk_size=chunk_size)
+    phong = torch.where(hit.hit[:, None], phong, 0.0)
+    refl = torch.index_select(scene.materials.reflectivity, 0,
+                              hit.material_id)
+    do_refl = hit.hit & (refl > 0.0) & (not last)
+    weight = torch.where(do_refl, refl, 0.0)[:, None]
+    accum = accum + throughput * phong * (1.0 - weight)
+    o = torch.where(do_refl[:, None], hit.p + hit.n * BOUNCE_EPS, o)
+    d = torch.where(do_refl[:, None], reflect(d, hit.n), d)
+    return o, d, throughput * weight, accum
+
+
+def trace_rays_mirror(scene: Scene, origins, dirs, depth: int,
+                      chunk_size: int = 512, remat: bool = True):
+    """The reflection-only bounce chain of (R, 3) rays, depth + 1 casts
+    through closest_hit and phong_shade (every light casts): each level
+    adds throughput (1 - rho') phong and passes throughput rho' on. Equal
+    to the tree when no material is transparent; refraction is ignored.
+    remat: while autograd records, run each step under
+    torch.utils.checkpoint. Returns colors (R, 3)."""
+    r = origins.shape[0]
+    carry = (origins, dirs,
+             torch.ones((r, 1), dtype=origins.dtype, device=origins.device),
+             torch.zeros((r, 3), dtype=origins.dtype, device=origins.device))
+    for level in range(depth + 1):
+        step = functools.partial(_mirror_step, scene, chunk_size,
+                                 level >= depth)
+        carry = (_maybe_checkpoint(step, *carry) if remat
+                 else step(*carry))
+    return carry[3]
+
+
 def _check_device(scene: Scene, camera: Camera, device: torch.device):
     for part in (*scene, camera):
         for x in part:
@@ -308,7 +549,8 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
            cull: tuple | None = None, shadow_lights: tuple | None = None,
            with_cull_stats: bool = False, device=None,
            bounce_mask: tuple | None = None,
-           child_cull: tuple | None = None):
+           child_cull: tuple | None = None, bounce: str = "tree",
+           mirror_only: bool = False):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
 
     The dense engines ('auto' = 'xla', the default; 'autodiff'; 'pallas')
@@ -328,8 +570,26 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     to keep the frame sync-free ('pallas' and 'autodiff' cast every light
     and read no light mask). with_cull_stats: return (image, overflow)
     where overflow is a device int32 scalar counting K overflows over every
-    culled level (0 for the dense engines)."""
+    culled level (0 for the dense engines).
+
+    bounce: 'tree' (the static unroll) or 'stack' (trace_rays_stack: one
+    cast a tree node in depth-first order, O(depth) rays held in a
+    backward) on 'auto', 'xla', 'pallas' and culled_pallas, not
+    'autodiff'. On culled_pallas the stack traces every step, the root
+    included, on the secondary-ray path with the one spec cull = ((tile_h,
+    tile_w), kp, ks, hot_m, kb, ksb, hot_p) of
+    ops/accel.suggest_stack_cull_config; child_cull is not used there.
+    mirror_only: the dense engines trace the reflection chain alone
+    (trace_rays_mirror, through closest_hit and phong_shade whatever the
+    engine, refraction ignored); culled_pallas ignores it, as the reference
+    does."""
     _check_engine(engine)
+    if bounce not in ("tree", "stack"):
+        raise ValueError(f"bounce '{bounce}': 'tree' or 'stack'")
+    stack = bounce == "stack" and not mirror_only
+    if stack and engine == "autodiff":
+        raise ValueError("bounce='stack' supports engines 'auto', 'xla', "
+                         "'pallas' and 'culled_pallas', not 'autodiff'")
     device = (torch.device(device) if device is not None
               else camera.position.device)
     _check_device(scene, camera, device)
@@ -340,7 +600,18 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
             else (True, True)
     origins, dirs = generate_rays(camera, height, width)
     if engine != CULLED:
-        tracer = pick_tracer(scene, engine, shadow_lights, bounce_mask)
+        if stack:
+            def tracer(s, o, d, depth, chunk_size=512):
+                return trace_rays_stack(s, o, d, depth, chunk_size=chunk_size,
+                                        engine=engine,
+                                        shadow_lights=shadow_lights,
+                                        bounce_mask=bounce_mask)
+        elif mirror_only:
+            def tracer(s, o, d, depth, chunk_size=512):
+                return trace_rays_mirror(s, o, d, depth,
+                                         chunk_size=chunk_size, remat=False)
+        else:
+            tracer = pick_tracer(scene, engine, shadow_lights, bounce_mask)
         o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
         if row_block is None or row_block >= height:
             colors = tracer(scene, o, d, depth, chunk_size=chunk_size)
@@ -365,23 +636,33 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
             f"row_block is not supported with engine='{engine}' (the culled "
             "path is already tile-blocked); drop it or use engine='xla'")
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
-    cc = None
-    if depth > 0 and child_cull is not None:
-        (cth, ctw), ckp, cks, chot, ckb, cksb = parse_cull_spec(child_cull)
-        if (cth, ctw) != (th, tw):
-            raise ValueError(
-                f"child_cull tile {(cth, ctw)} must match the cull tile "
-                f"{(th, tw)}: children inherit the parent's tile-major ray "
-                "order")
-        cc = (cth * ctw, ckp, cks, chot, ckb, cksb, cull_hot_p(child_cull))
     o = tile_image(origins, th, tw).reshape(-1, 3)
     d = tile_image(dirs, th, tw).reshape(-1, 3)
-    out = trace_rays_fast(scene, o, d, depth, chunk_size=chunk_size,
-                          engine=engine,
-                          cull=(th * tw, kp, ks, hot_m, kb, ksb),
-                          shadow_lights=shadow_lights,
-                          with_cull_stats=with_cull_stats,
-                          bounce_mask=bounce_mask, child_cull=cc)
+    if stack:
+        out = trace_rays_stack(scene, o, d, depth, engine=engine,
+                               shadow_lights=shadow_lights,
+                               bounce_mask=bounce_mask,
+                               cull=(th * tw, kp, ks, hot_m, kb, ksb,
+                                     cull_hot_p(cull)),
+                               with_cull_stats=with_cull_stats)
+    else:
+        cc = None
+        if depth > 0 and child_cull is not None:
+            (cth, ctw), ckp, cks, chot, ckb, cksb = parse_cull_spec(
+                child_cull)
+            if (cth, ctw) != (th, tw):
+                raise ValueError(
+                    f"child_cull tile {(cth, ctw)} must match the cull tile "
+                    f"{(th, tw)}: children inherit the parent's tile-major "
+                    "ray order")
+            cc = (cth * ctw, ckp, cks, chot, ckb, cksb,
+                  cull_hot_p(child_cull))
+        out = trace_rays_fast(scene, o, d, depth, chunk_size=chunk_size,
+                              engine=engine,
+                              cull=(th * tw, kp, ks, hot_m, kb, ksb),
+                              shadow_lights=shadow_lights,
+                              with_cull_stats=with_cull_stats,
+                              bounce_mask=bounce_mask, child_cull=cc)
     if with_cull_stats:
         colors, ovf = out
         return untile_image(colors, height, width, th, tw), ovf

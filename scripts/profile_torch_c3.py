@@ -3,16 +3,22 @@ device time.
 
     python scripts/profile_torch_c3.py [--scene c1_sphere_plane|
         c2_eight_spheres|c3_grid64|c4_mirror|c5_grid4096|c4_mirror4096|
-        animated_obb] [--engine culled_pallas|pallas|xla] [--depth D]
-        [--frames 5] [--train] [--ops] [--out-dir DIR]
+        animated_obb|glass_obb|glass4096] [--engine culled_pallas|pallas|
+        xla] [--depth D] [--bounce tree|stack] [--frames 5] [--train]
+        [--ops] [--out-dir DIR]
 
 Renders the scene (c1_sphere_plane: 256x256, depth 0; c2_eight_spheres:
 512x512, depth 0; c3_grid64: 1024x1024, depth 0, 64x64 tiles; c4_mirror:
 1024x1024, depth 1, 64x64 tiles, its bounce children densely on 'xla';
 c5_grid4096: 2048x2048, depth 0, 32x32 tiles; c4_mirror4096: 1024x1024,
 depth 1 with culled bounce children, 32x32 tiles; animated_obb: the
-reference's animated OBB world at time 1.2, 1280x720, depth 0; --depth
-overrides the depth) with engine culled_pallas or a dense engine (pallas,
+reference's animated OBB world at time 1.2, 1280x720, depth 0;
+glass_obb: the same world at 1024x1024, depth 4, the reference's
+glass_stack_depth4 row; glass4096: glass_grid_scene(), 4096 glass spheres,
+1024x1024, depth 4, 32x32 tiles, the reference's glass4096_stack_culled
+row, whose stack spec is suggest_stack_cull_config with headroom 2 and
+Ks = N; --depth overrides the depth; --bounce stack runs the stack bounce
+engine, frames only) with engine culled_pallas or a dense engine (pallas,
 kernel 7, or xla, plain PyTorch; no cull spec, children through the same
 engine) on the GPU under torch.profiler — or, with --train, runs its
 training step (forward, backward and an SGD step of mean(img^2) with
@@ -25,8 +31,9 @@ frame or step (enqueued behind a spin kernel, as chip_smoke.py measures
 it; median of 5) and its peak device memory
 (torch.cuda.max_memory_allocated). With --out-dir it also writes the
 Chrome trace there.
-c1_sphere_plane, c2_eight_spheres and animated_obb take only the dense
-engines, c5_grid4096 and c4_mirror4096 only culled_pallas.
+c1_sphere_plane, c2_eight_spheres, animated_obb and glass_obb take only
+the dense engines, c5_grid4096, c4_mirror4096 and glass4096 only
+culled_pallas.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # (None: dense engines only)
 TILES = {"c1_sphere_plane": None, "c2_eight_spheres": None, "c3_grid64": 64,
          "c4_mirror": 64, "c5_grid4096": 32, "c4_mirror4096": 32,
-         "animated_obb": None}
+         "animated_obb": None, "glass_obb": None, "glass4096": 32}
 # the scenes whose benchmark row culls the bounce children too
 CHILD_CULL = ("c4_mirror4096",)
 OBB_TIME = 1.2
@@ -57,9 +64,11 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from openglraytracer_tpu_torch.models.animated import reference_frame
-    from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
+    from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
+                                                           glass_grid_scene)
     from openglraytracer_tpu_torch.ops.accel import (
-        suggest_child_cull_config, suggest_cull_config)
+        suggest_child_cull_config, suggest_cull_config,
+        suggest_stack_cull_config)
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.ops.shading import (static_bounce_mask,
                                                        static_shadow_mask)
@@ -70,6 +79,7 @@ def main(argv=None):
                    choices=["culled_pallas", "pallas", "xla"])
     p.add_argument("--depth", type=int, default=None,
                    help="overrides the scene's depth")
+    p.add_argument("--bounce", default="tree", choices=["tree", "stack"])
     p.add_argument("--frames", type=int, default=5)
     p.add_argument("--train", action="store_true",
                    help="profile the training step instead of the frame")
@@ -83,24 +93,40 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     dense = args.engine != "culled_pallas"
+    if args.train and args.bounce == "stack":
+        raise SystemExit("--bounce stack profiles frames only")
     if args.scene == "animated_obb":
-        (scene, cam), h, w, depth = (reference_frame(OBB_TIME, device=dev),
-                                     720, 1280, 0)
+        scene, cam = reference_frame(OBB_TIME, device=dev)
+        h, w, depth = 720, 1280, 0
         trainable = OBB_TRAINABLE
+    elif args.scene == "glass_obb":
+        scene, cam = reference_frame(OBB_TIME, device=dev)
+        h, w, depth = 1024, 1024, 4
+        trainable = OBB_TRAINABLE
+    elif args.scene == "glass4096":
+        scene, cam = glass_grid_scene(device=dev)
+        h, w, depth = 1024, 1024, 4
+        trainable = OBB_TRAINABLE[:3]
     else:
         builder, h, w, depth = BENCH_CONFIGS[args.scene]
         scene, cam = builder(device=dev)
         trainable = OBB_TRAINABLE[:3]
     if args.depth is not None:
         depth = args.depth
-    if dense and args.scene in ("c5_grid4096", "c4_mirror4096"):
+    if dense and args.scene in ("c5_grid4096", "c4_mirror4096",
+                                "glass4096"):
         raise SystemExit(f"{args.scene} takes only --engine culled_pallas")
     tile = TILES[args.scene]
     if not dense and tile is None:
         raise SystemExit(f"{args.scene} takes only the dense engines")
     lights = static_shadow_mask(scene)
     spec = child = None
-    if not dense:
+    if not dense and args.bounce == "stack":
+        spec = suggest_stack_cull_config(scene, cam, h, w, (tile, tile),
+                                         headroom=2.0, shadow_lights=lights)
+        if args.scene == "glass4096":       # dense shadow lists, Ks = N
+            spec = spec[:2] + (int(scene.spheres.count), 0) + spec[4:]
+    elif not dense:
         spec = suggest_cull_config(scene, cam, h, w, (tile, tile),
                                    shadow_lights=lights)
         child = (suggest_child_cull_config(scene, cam, h, w, spec,
@@ -127,7 +153,7 @@ def main(argv=None):
                 return render(scene, cam, h, w, depth=depth,
                               engine=args.engine, cull=spec,
                               child_cull=child, shadow_lights=lights,
-                              bounce_mask=bmask)
+                              bounce_mask=bmask, bounce=args.bounce)
     what = "step" if args.train else "frame"
 
     for _ in range(3):
@@ -150,7 +176,8 @@ def main(argv=None):
                     // args.frames, e.key) for e in events), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{torch.cuda.get_device_name(0)}; {args.scene} {w}x{h} depth "
-          f"{depth}; engine {args.engine}; spec {spec}"
+          f"{depth}; engine {args.engine}; bounce {args.bounce}; spec "
+          f"{spec}"
           + (f"; child spec {child}" if child else ""))
     print(f"{what} wall {wall_ms:.4f} ms (CUDA events, profiler on); device "
           f"busy {busy:.4f} ms = {100 * busy / wall_ms:.1f}%; "
@@ -184,7 +211,8 @@ def main(argv=None):
         os.makedirs(args.out_dir, exist_ok=True)
         path = os.path.join(
             args.out_dir,
-            f"{args.scene}_{args.engine}_d{depth}_{what}_trace.json")
+            f"{args.scene}_{args.engine}_d{depth}_{args.bounce}_{what}"
+            "_trace.json")
         prof.export_chrome_trace(path)
         print(f"wrote {path}")
 

@@ -14,8 +14,10 @@ import torch
 from openglraytracer_tpu.utils import image as j_image
 from openglraytracer_tpu.utils.metrics import rays_per_frame as j_rays
 from openglraytracer_tpu_torch import cli, kernels
-from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
-from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
+from openglraytracer_tpu_torch.models.builders import (eight_sphere_scene,
+                                                      sphere_grid_scene)
+from openglraytracer_tpu_torch.ops.accel import (suggest_cull_config,
+                                                 suggest_stack_cull_config)
 from openglraytracer_tpu_torch.ops.render import render
 from openglraytracer_tpu_torch.utils import image as t_image
 from openglraytracer_tpu_torch.utils import metrics as t_metrics
@@ -137,7 +139,7 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--child-cull"], ["--bounce", "stack"],
+    ["--child-cull"], ["--engine", "autodiff", "--bounce", "stack"],
     ["--engine", "culled_pallas", "--cull-tile", "24"], ["--time"],
     ["--engine", "pallas", "--child-cull"], ["--engine", "culled"]])
 def test_cli_rejects_unserved_flags(flags, tmp_path):
@@ -146,6 +148,70 @@ def test_cli_rejects_unserved_flags(flags, tmp_path):
                   "--height", "32", "--cull-tile", "16", "--device", "cpu",
                   "--out", str(tmp_path / "x.png")] + flags)
     assert isinstance(e.value.code, str) and e.value.code
+
+
+def test_cli_render_stack_cpu(tmp_path, capsys):
+    """render --bounce stack --depth 2: the PNG holds the image of
+    render(..., bounce='stack'); on culled_pallas the stack spec is sized
+    and printed, and the image is that spec's render."""
+    from PIL import Image
+    out = tmp_path / "s.png"
+    cli.main(["render", "--scene", "c2_eight_spheres", "--width", "32",
+              "--height", "32", "--depth", "2", "--bounce", "stack",
+              "--device", "cpu", "--out", str(out)])
+    scene, cam = eight_sphere_scene(device="cpu")
+    with torch.no_grad():
+        img = render(scene, cam, 32, 32, depth=2, bounce="stack")
+    png = np.asarray(Image.open(out).convert("RGB"))
+    np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
+    capsys.readouterr()
+    cli.main(["render", "--scene", "c2_eight_spheres", "--width", "32",
+              "--height", "32", "--depth", "2", "--bounce", "stack",
+              "--engine", "culled_pallas", "--cull-tile", "16", "--device",
+              "cpu", "--out", str(out)])
+    assert "stack cull: tile=16 " in capsys.readouterr().out
+    spec = suggest_stack_cull_config(scene, cam, 32, 32, (16, 16))
+    with torch.no_grad():
+        img = render(scene, cam, 32, 32, depth=2, bounce="stack",
+                     engine="culled_pallas", cull=spec)
+    png = np.asarray(Image.open(out).convert("RGB"))
+    np.testing.assert_array_equal(png, j_image.to_uint8(img.numpy()))
+
+
+@pytest.mark.parametrize("engine,depth,bounce", [
+    ("pallas", 0, "tree"), ("pallas", 1, "tree"), ("xla", 2, "stack"),
+    ("pallas", 4, "stack")])
+def test_cli_time_charges_the_reference_rays(monkeypatch, tmp_path, capsys,
+                                             engine, depth, bounce):
+    """render --time logs the Mrays/s of the reference CLI's count for
+    every engine (openglraytracer_tpu/cli.py:125-135): the static
+    shadow-casting lights and, at depth > 0, the static bounce mask. On the
+    OBB world, whose first light is ambient only, 3 rays a cast on
+    --engine pallas too, not the 4 kernel 7 casts. The CUDA timer is
+    replaced by one that reports 1 microsecond a frame."""
+    from openglraytracer_tpu.models.animated import reference_frame as jref
+    from openglraytracer_tpu.ops.shading import (static_bounce_mask,
+                                                 static_shadow_mask)
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.models.scene import save_scene
+    monkeypatch.setattr(cli, "_check_timing", lambda device: None)
+    monkeypatch.setattr(t_metrics, "time_fn", lambda fn: (fn(), 1e-6)[1])
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "cpu")
+    scene, cam = reference_frame(1.2, device="cpu")
+    save_scene(scene, str(tmp_path / "obb.json"), camera=cam)
+    capsys.readouterr()
+    cli.main(["render", "--scene", str(tmp_path / "obb.json"), "--width",
+              "16", "--height", "8", "--engine", engine, "--depth",
+              str(depth), "--bounce", bounce, "--time", "--device", "cpu",
+              "--out", str(tmp_path / "o.png")])
+    record = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    jscene, _ = jref(1.2)
+    want = j_rays(8, 16, jscene.lights.count, depth,
+                  shadow_lights=static_shadow_mask(jscene),
+                  bounce_mask=(static_bounce_mask(jscene) if depth > 0
+                               else None))
+    assert want == 8 * 16 * (2 ** (depth + 1) - 1) * 3
+    assert record["mrays_per_s"] == round(want / 1e-6 / 1e6, 2)
 
 
 def test_cli_fit_cpu(tmp_path, capsys):

@@ -636,3 +636,80 @@ def test_xla_engine_on_the_card(dev):
                                              "shadow_occlusion",
                                              "phong_fused")} == {
         "primary_hit": 1, "shadow_occlusion": 1, "phong_fused": 1}
+
+
+def _zero_dir(d):
+    return (d == 0.0).all(dim=-1)
+
+
+def test_dense_kernel_on_deep_glass_steps(dev, monkeypatch):
+    """Kernel 7 on every step of a depth-4 'pallas' stack frame of the OBB
+    and glass world (160x96): 31 launches, and on the steps that carry
+    zero-direction total-internal-reflection rays (from depth 2 on) the
+    kernel equals dense_hit_plain bit for bit, those rays missing."""
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.ops import dense
+    scene, cam = reference_frame(1.2, device=dev)
+    seen = []
+    fn = dense.dense_hit
+
+    def spy(*a):
+        seen.append(a)
+        return fn(*a)
+    monkeypatch.setattr(dense, "dense_hit", spy)
+    kernels.LAUNCHES.clear()
+    with torch.no_grad():
+        render(scene, cam, 96, 160, depth=4, engine="pallas",
+               bounce="stack")
+    monkeypatch.undo()
+    assert kernels.LAUNCHES["dense_hit"] == 31 == len(seen)
+    tir = [a for a in seen if bool(_zero_dir(a[1]).any())]
+    assert tir, "no step carried a zero-direction ray"
+    for a in tir:
+        got = dense.dense_hit(*a)
+        want = dense.dense_hit_plain(*a)
+        hit = want[0] < 1e4
+        for x, y in zip(got[:4], want[:4]):
+            assert torch.equal(x, y)
+        assert torch.equal(got[4] & hit, want[4] & hit)
+        assert not bool(hit[_zero_dir(a[1])].any())
+
+
+def test_kernel2_on_deep_glass_steps(dev, monkeypatch):
+    """Kernel 2, cold and hot, on the steps of a depth-3 culled stack frame
+    of a 4096-sphere glass grid (128x128, 32x32 tiles, Kp 64 so that tiles
+    go hot, hot_p every tile) that carry zero-direction TIR rays: against
+    its plain version, the discrete outputs equal, t and n to a few ulp,
+    and the zero-direction rays miss in both launches."""
+    from openglraytracer_tpu_torch.models.builders import glass_grid_scene
+    scene, cam = glass_grid_scene(device=dev)
+    n = int(scene.spheres.count)
+    spec = ((32, 32), 64, n, 0, 0, 0, 16)
+    seen = []
+    fn = culled.primary_hit_ray
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return fn(*a, **k)
+    monkeypatch.setattr(culled, "primary_hit_ray", spy)
+    with torch.no_grad():
+        render(scene, cam, 128, 128, depth=3, engine="culled_pallas",
+               bounce="stack", cull=spec)
+    monkeypatch.undo()
+    assert len(seen) == 2 * 15
+    deep = [(a, k) for a, k in seen if bool(_zero_dir(a[0]).any())]
+    assert any(k.get("tile_ids") is None for _, k in deep)
+    assert any(int(a[5][:, 0].max()) == n for a, k in deep
+               if k.get("tile_ids") is not None), "no truly hot tile"
+    for a, k in deep:
+        got = culled.primary_hit_ray(*a, **k)
+        want = culled.primary_hit_plain(*a[:1], *a[2:], origins=a[1], **k)
+        for x, y in zip(got[2:], want[2:]):
+            assert torch.equal(x, y)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+        zero = _zero_dir(a[0])
+        if k.get("tile_ids") is not None:
+            tp = a[6]
+            zero = zero.reshape(-1, tp)[k["tile_ids"].long()].reshape(-1)
+        assert not bool((got[0][zero] < 1e4).any())
