@@ -21,7 +21,11 @@ culled_pallas parent with 64x64 tiles). The stack bounce engine
 (render(bounce='stack')): the reference's glass rows glass_stack_depth4
 (the OBB world at 1024x1024, depth 4, 'xla' and 'pallas') and
 glass4096_stack_culled (4096 glass spheres, 1024x1024, depth 4,
-culled_pallas). Every call names its engine. It
+culled_pallas). Engine 'culled' (the XLA culled engine: the culled narrow
+phase in plain PyTorch, kernel 6 on masks of 1024 objects or more): the
+reference's rows c3_grid64_culled_xla, c5_grid4096_culled_xla,
+c4_mirror4096_xlachild and c4_mirror4096_densechild, and the stack on
+'culled' (a 1024-sphere glass grid). Every call names its engine. It
 exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
@@ -142,7 +146,30 @@ exits non-zero on any failure. Phases:
      'pallas' and 'xla': the centers' gradient of refracting glass is
      singular at grazes; see the phase); render(mirror_only=True) on
      c4_mirror at 1024x1024, depth 3, against the tree
-
+ 25. c3_grid64_culled_xla (the c3 grid, 1024x1024, 64x64 tiles, depth 0,
+     engine 'culled'): no kernel launched; 3 frames and 3 training steps
+     with no overflow; the image within 1/255 of the plain dense engine
+     'xla''s on >= 99.9 % of pixels and the gradients of mean(img^2)
+     within 1e-3 * max|g| of its ('xla' rounds the sphere quadratic and
+     the normal as 'culled' does; see XLA_ROW_BLOCK), and both against
+     culled_pallas reported; frame and step timed as in phases 5 and 7
+     with peak memory
+ 26. c5_grid4096_culled_xla (2048x2048, 32x32 tiles): as 25, kernel 6
+     launched once for the primary mask and once per lit light a frame and
+     a step (3), equal to its plain version on every one of those masks
+ 27. c4_mirror4096_xlachild (1024x1024, depth 1, 32x32 tiles): a 'culled'
+     parent and 'culled' children with suggest_child_cull_config(
+     hot_primary=False) (kernel 6 on each cast's primary and lit-light
+     masks), as 25-26 (culled_pallas with its own child spec reported)
+ 28. c4_mirror4096_densechild: the same parent, children on 'xla', as 27
+ 29. the stack on 'culled': the 1024-sphere glass grid (XLA_STACK) at
+     256x256, depth 4, spec of suggest_stack_cull_config with Ks = N:
+     kernel 6 on every step's masks (equal to its plain version), 3 frames
+     and 3 forward+backward steps with their launches, overflow reported,
+     the image within 1/255 of the 'xla' stack's, the gradients against
+     it and the image and gradients against the culled_pallas stack
+     reported (the glass grid's centers' gradient is singular, see 24),
+     frame and step timed
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
 launch name: its time, its plain version's, its bound (the least time the
@@ -246,6 +273,34 @@ STACK_FRAMES, STACK_STEPS = 3, 2
 STACK_TRAINABLE = ("spheres.center", "boxes.position", "materials.diffuse")
 GLASS_GRAD = dict(side=32, hw=512, depth=2)
 MIRROR_DEPTH = 3
+# the XLA culled engine 'culled' (phases 25-28): the reference's rows
+# (bench.py:466-488) -> (builtin config, cull tile side, the children:
+# None at depth 0, "culled" on the culled path with a child spec sized
+# hot_primary=False, "dense" on 'xla'); and the culled stack on 'culled'
+# (phase 29; the reference has no row for it): phase 24's 1024-sphere glass
+# grid at depth 4, cut to 256x256 (each of its 31 casts tests 65,536 rays
+# against dense lists of all 1024 spheres in plain PyTorch)
+XLA_CELLS = {"c3_grid64_culled_xla": ("c3_grid64", 64, None),
+             "c5_grid4096_culled_xla": ("c5_grid4096", 32, None),
+             "c4_mirror4096_xlachild": ("c4_mirror4096", 32, "culled"),
+             "c4_mirror4096_densechild": ("c4_mirror4096", 32, "dense")}
+XLA_STACK = dict(side=32, hw=256, depth=4)
+# 'culled' rounds the sphere quadratic as the reference's XLA engines do,
+# every op once; culled_pallas as the Mosaic kernel, with fused
+# multiply-adds. At tangent grazes on small, distant spheres the two take
+# another t (and shade another normal) on 0.4-0.8 % of c5's and
+# c4_mirror4096's pixels, so each 'culled' cell's image is held to the
+# plain dense engine 'xla' (the same arithmetic, every ray against every
+# sphere, in blocks of this many image rows) and reported against
+# culled_pallas
+XLA_ROW_BLOCK = 256
+# and each gradient to the engine that computes it as 'culled' does: the
+# spheres' to 'xla' (the same quadratic, normal and winner replay), the
+# materials' to culled_pallas (the same survivor routing of the material
+# rows: per tile, then into the table; 'xla' adds every ray's row into the
+# table at once, and those float32 sums of millions of rays differ by
+# 3.5e-3 of max|g| at c5); the other engine's reported
+XLA_HELD_GRADS = {"spheres": "'xla'", "materials": "culled_pallas"}
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
@@ -1030,7 +1085,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/24] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/29] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1070,7 +1125,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/24] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/29] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1179,7 +1234,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/24] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/29] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1228,7 +1283,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/24] timing, forward and training step ({smi})")
+    log(f"[12/29] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1366,7 +1421,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/24] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/29] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1479,7 +1534,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/24] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/29] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1548,7 +1603,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/24] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/29] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1582,7 +1637,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/24] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/29] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1645,7 +1700,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/24] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/29] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1692,16 +1747,19 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
 def time_cell(torch, cell, what, fn, ovf_at, n_rays, warm: int = 3,
               windows: int = WINDOWS, frames: int = WINDOW_FRAMES,
-              dev_reps: int = 5):
+              dev_reps: int = 5, allow_overflow: bool = False):
     """Time fn (a frame or a training step whose output's ovf_at-th item is
-    the overflow count) as phases 5 and 7 do: `windows` windows of `frames`
-    calls under set_sync_debug_mode('error'), its device time (one call
-    behind a spin kernel, median of dev_reps) and its peak device memory,
-    also above what was allocated before the call. Returns those
-    numbers."""
+    the overflow count, which must be 0 unless allow_overflow) as phases 5
+    and 7 do: `windows` windows of `frames` calls under
+    set_sync_debug_mode('error'), its device time (one call behind a spin
+    kernel, median of dev_reps) and its peak device memory, also above what
+    was allocated before the call. Returns those numbers."""
     per_call, outs = timed_windows(torch, fn, warm, windows, frames)
-    check(int(torch.stack([o[ovf_at] for o in outs]).sum()) == 0,
+    ovf = int(torch.stack([o[ovf_at] for o in outs]).sum())
+    check(ovf == 0 or allow_overflow,
           f"{cell}: overflow while timing the {what}")
+    if ovf:
+        log(f"  {cell} {what}: {ovf} overflow events over the timed calls")
     del outs
     med = statistics.median(per_call)
     dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
@@ -1779,7 +1837,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 18. 'xla' against kernel 7
     t0 = time.perf_counter()
-    log("[18/24] engine 'xla' (plain PyTorch) against engine 'pallas' "
+    log("[18/29] engine 'xla' (plain PyTorch) against engine 'pallas' "
         "(kernel 7) and 'auto', full size")
     for cfg, pth in paths.items():
         kernels.LAUNCHES.clear()
@@ -1812,7 +1870,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                                      (64, 64), shadow_lights=c4m["lights"])
     c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
         ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
-    log(f"[19/24] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+    log(f"[19/29] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
         f"spec {spec}, no child spec (children on 'xla'); shadow lights "
         f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
     kernels.LAUNCHES.clear()
@@ -1884,7 +1942,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 20. the reference's rows on 'auto'
     t0 = time.perf_counter()
-    log(f"[20/24] engine 'auto': frame and training step timing ({smi})")
+    log(f"[20/29] engine 'auto': frame and training step timing ({smi})")
     for cfg in ("c1_sphere_plane", "c2_eight_spheres",
                 "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
         pth = paths[cfg]
@@ -1911,7 +1969,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 21. 'autodiff' against the analytic backward
     t0 = time.perf_counter()
-    log("[21/24] engine 'autodiff' (autograd through the chunked scan) "
+    log("[21/29] engine 'autodiff' (autograd through the chunked scan) "
         "against 'xla' (the analytic backward): gradients of mean(img^2)")
     cells = {f"animated_obb_720p_depth{d}": paths[
         f"animated_obb_720p_depth{d}"] for d in (0, 1)}
@@ -2009,7 +2067,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     check(bm == (True, True), f"the glass world's bounce mask is {bm}")
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[22/24] glass_stack_depth4: reference_frame({OBB_TIME}) at "
+    log(f"[22/29] glass_stack_depth4: reference_frame({OBB_TIME}) at "
         f"{w}x{h}, depth {STACK_DEPTH} ({n_steps} casts a pixel), shadow "
         f"lights {sm}; engines 'xla' and 'pallas', stack against tree; "
         f"{n_rays} rays/frame ({smi})")
@@ -2105,7 +2163,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
         want["primary_hit_hot"] = n_steps
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[23/24] glass4096_stack_culled: glass_grid_scene() ({n} glass "
+    log(f"[23/29] glass4096_stack_culled: glass_grid_scene() ({n} glass "
         f"spheres), {w}x{h}, depth {STACK_DEPTH}, engine culled_pallas, "
         f"bounce 'stack', spec {spec}, shadow lights {sm}; launches a frame "
         f"by the code: {want}; {n_rays} rays/frame")
@@ -2242,7 +2300,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     spec = ((STACK_TILE, STACK_TILE), n, n, 0, 0, 0)
     sm = shading.static_shadow_mask(scene)
     bm = shading.static_bounce_mask(scene)
-    log(f"[24/24] culled stack gradients: glass_grid_scene({side}) ({n} "
+    log(f"[24/29] culled stack gradients: glass_grid_scene({side}) ({n} "
         f"spheres), {gh}x{gh}, depth {gdepth}, spec {spec} (no list can "
         f"overflow), culled_pallas against its plain versions, 'pallas' "
         f"and 'xla'; then render(mirror_only=True) on c4_mirror")
@@ -2323,6 +2381,281 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     return launches, errs
 
 
+def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phases 25-29: the XLA culled engine 'culled' (the narrow phase in
+    plain PyTorch, kernel 6 on masks of 1024 objects or more) on the
+    reference's rows c3_grid64_culled_xla, c5_grid4096_culled_xla,
+    c4_mirror4096_xlachild and c4_mirror4096_densechild, and the culled
+    stack on 'culled' (the 1024-sphere glass grid). Each cell: kernel 6
+    against its plain version on every mask a frame hands it, 3 frames and
+    3 training steps with their launches as the code counts them and no
+    overflow, the image and the gradients held to the plain dense engine
+    'xla' and reported against culled_pallas (see XLA_HELD), and the frame
+    and step timed. Returns the per-path launch counts."""
+    from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
+                                                           glass_grid_scene)
+    from openglraytracer_tpu_torch.ops.render import _dfs_schedule, render
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig,
+                                                         make_train_step)
+    from openglraytracer_tpu_torch.utils.metrics import rays_per_frame
+
+    launches = {}
+
+    def counted(fn):
+        kernels.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    def share_within(a, b):
+        diff = (a - b).abs().amax(dim=-1)
+        return (float((diff <= 1.0 / 255.0).float().mean()),
+                int((diff > 1.0 / 255.0).sum()), float(diff.max()))
+
+    def frames_checked(cell, frame, want, key):
+        """FRAMES frames, the first with its kernel 6 masks captured and
+        each held to the plain version; the launches against FRAMES x
+        want. Returns the last image and the overflow per frame."""
+        with Capture(culled, shade, accel) as cap:
+            frames, got = counted(lambda: [frame() for _ in range(FRAMES)])
+        n_wide = 0
+        for mask, k in cap.calls[:len(cap.calls) // FRAMES]:
+            if mask.shape[-1] < accel.MIN_N_FOR_KERNEL:
+                continue
+            n_wide += 1
+            ki, kv, kc = accel.compact_mask(mask, k)
+            pi, pv, pc = accel.compact_mask_plain(mask, k)
+            check(torch.equal(kv, pv) and torch.equal(kc, pc)
+                  and torch.equal(ki * kv, pi * pv)
+                  and not bool(ki[~kv].any()),
+                  f"{cell}: kernel 6 disagrees with its plain version on "
+                  f"a {tuple(mask.shape)} mask")
+        del cap
+        launches[key] = got
+        ovfs = [int(o) for _, o in frames]
+        log(f"  launches over {FRAMES} frames: {got}; kernel 6 equal to its "
+            f"plain version on all {n_wide} masks of 1024 objects or more "
+            f"the first frame compacts; overflow per frame {ovfs}")
+        check(got == {k: v * FRAMES for k, v in want.items()}
+              and n_wide == want.get("compact_mask", 0),
+              f"{cell}: launches {got}, want {FRAMES} x {want}")
+        img = frames[-1][0]
+        check(bool(torch.isfinite(img).all())
+              and all(torch.equal(f[0], img) for f in frames),
+              f"{cell}: the frames must be finite and equal")
+        return img, ovfs
+
+    def grads_of(scene, render_fn, trainable=DEFAULT_TRAINABLE):
+        """The image and the gradients of mean(img^2) (the training step's
+        loss against its zero target) from one forward through
+        render_fn(scene) -> img."""
+        s, params = train_scene(scene, trainable)
+        img = render_fn(s)
+        torch.mean(torch.square(img)).backward()
+        return img.detach(), {k: v.grad for k, v in params.items()}
+
+    def held_and_reported(cell, img, grads, dense, kernels_, hold_grads=True):
+        """The image within 1/255 of the dense engine's on >= 99.9 % of
+        pixels, and against the kernel engine's reported. With hold_grads,
+        each gradient within GRAD_TOL * max|g| of the engine that computes
+        it as 'culled' does (XLA_HELD_GRADS), and against the other
+        reported; else all reported. dense, kernels_: (name, image,
+        gradients)."""
+        for (name, ref, _), hold in ((dense, True), (kernels_, False)):
+            share, n_out, mx = share_within(img, ref)
+            log(f"  image vs {name}: {share:.6f} of pixels within 1/255 "
+                f"({n_out} outside), max diff {mx:.3e}"
+                + ("" if hold else " (reported)"))
+            check(share >= 0.999 or not hold,
+                  f"{cell}: the image disagrees with {name}")
+        for k in grads:
+            held = XLA_HELD_GRADS.get(k.split(".")[0]) if hold_grads else None
+            for name, _, ref_g in (dense, kernels_):
+                if name == held:
+                    compare_grads(torch, cell, {k: grads[k]}, {k: ref_g[k]},
+                                  f"'culled' - {name}")
+                else:
+                    g = ref_g[k]
+                    err = float((grads[k] - g).abs().max())
+                    log(f"  {cell} grad {k} against {name} (reported): "
+                        f"{err / max(float(g.abs().max()), 1e-30):.2e} of "
+                        f"max |g|")
+
+    dense_refs = {}
+    for i, (cell, (cfg, tile, children)) in enumerate(XLA_CELLS.items()):
+        t0 = time.perf_counter()
+        builder, h, w, depth = BENCH_CONFIGS[cfg]
+        scene, cam = builder(device=dev)
+        lights = shading.static_shadow_mask(scene)
+        bmask = shading.static_bounce_mask(scene) if depth else (True, True)
+        lit = sum(map(bool, lights))
+        spec = accel.suggest_cull_config(scene, cam, h, w, (tile, tile),
+                                         shadow_lights=lights)
+        child = ref_child = None
+        if children == "culled":
+            child = accel.suggest_child_cull_config(
+                scene, cam, h, w, spec, shadow_lights=lights,
+                hot_primary=False)
+            ref_child = accel.suggest_child_cull_config(
+                scene, cam, h, w, spec, shadow_lights=lights)
+        # kernel 6 a frame, by the code: each culled cast (the parent, and
+        # with culled children each live bounce branch) compacts its primary
+        # mask and one shadow mask per lit light, where N >= 1024
+        casts = 1 + (sum(bmask) if children == "culled" else 0)
+        wide = int(scene.spheres.count) >= accel.MIN_N_FOR_KERNEL
+        want = {"compact_mask": casts * (1 + lit)} if wide else {}
+        kw = dict(depth=depth, shadow_lights=lights, bounce_mask=bmask)
+        n_rays = rays_per_frame(h, w, scene.lights.count, depth,
+                                shadow_lights=lights, bounce_mask=bmask)
+        log(f"[{25 + i}/29] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
+            f"'culled', spec {spec}"
+            + (f", child spec {child} (hot_primary=False; culled_pallas's "
+               f"{ref_child})" if child else "")
+            + (", children on 'xla'" if children == "dense" else "")
+            + f"; kernel 6 a frame and a step by the code: {want}; sizing "
+            f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+        def frame(engine="culled", cc=child):
+            with torch.no_grad():
+                return render(scene, cam, h, w, engine=engine, cull=spec,
+                              child_cull=cc, with_cull_stats=True, **kw)
+
+        def trace(engine, cc):
+            return lambda s: render(s, cam, h, w, engine=engine, cull=spec,
+                                    child_cull=cc, **kw)
+
+        img, ovfs = frames_checked(cell, frame, want, f"render_{cell}")
+        check(tuple(img.shape) == (h, w, 3) and all(o == 0 for o in ovfs),
+              f"{cell}: image shape {tuple(img.shape)}, overflow {ovfs}")
+        if cfg not in dense_refs:    # both c4_mirror4096 rows share one
+            t1 = time.perf_counter()
+            dense_refs[cfg] = grads_of(scene, lambda s: render(
+                s, cam, h, w, engine="xla", row_block=min(h, XLA_ROW_BLOCK),
+                **kw))
+            log(f"  the plain dense engine 'xla' (every ray against all "
+                f"{int(scene.spheres.count)} spheres, {XLA_ROW_BLOCK} rows a "
+                f"block): image and gradients in "
+                f"{time.perf_counter() - t1:.1f} s")
+        img_g, grads = grads_of(scene, trace("culled", child))
+        check(torch.equal(img_g, img), f"{cell}: the step's image differs")
+        held_and_reported(
+            cell, img, grads, ("'xla'", *dense_refs[cfg]),
+            ("culled_pallas", *grads_of(scene, trace("culled_pallas",
+                                                     ref_child))))
+        del img, img_g, grads
+        # fewer timed calls where a frame takes 0.1 s (c5) or a second (the
+        # depth-1 rows, warm from the frames and steps before)
+        timing = (dict(warm=0, windows=2, frames=1, dev_reps=1) if depth
+                  else dict(warm=1, windows=2, frames=3, dev_reps=3)
+                  if h * w > H * W else {})
+        time_cell(torch, cell, "frame", frame, 1, n_rays, **timing)
+
+        target = torch.zeros((h, w, 3), device=dev)
+        init_fn, step_fn = make_train_step(
+            cam, FitConfig(height=h, width=w, depth=depth, engine="culled",
+                           cull=spec, child_cull=child,
+                           trainable=DEFAULT_TRAINABLE),
+            optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+        params, opt = init_fn(scene)
+        outs, got = counted(lambda: [step_fn(params, opt, scene, target)
+                                     for _ in range(STEPS)])
+        launches[f"train_step_{cell}"] = got
+        log(f"  launches over {STEPS} training steps: {got}; losses "
+            f"{[float(o[2]) for o in outs]}; overflow "
+            f"{[int(o[3]) for o in outs]}")
+        check(got == {k: v * STEPS for k, v in want.items()},
+              f"{cell}: step launches {got}, want {STEPS} x {want}")
+        check(all(int(o[3]) == 0 for o in outs), f"{cell}: overflow "
+              "training")
+        del outs
+        time_cell(torch, cell, "training step",
+                  lambda: step_fn(params, opt, scene, target), 3, n_rays,
+                  **timing)
+        del params, opt
+        log(f"  phase {25 + i}: {time.perf_counter() - t0:.1f} s")
+    del dense_refs
+
+    # ---- 29. the stack on 'culled'
+    t0 = time.perf_counter()
+    side, hw, depth = XLA_STACK["side"], XLA_STACK["hw"], XLA_STACK["depth"]
+    scene, cam = glass_grid_scene(side, device=dev)
+    n = int(scene.spheres.count)
+    sm = shading.static_shadow_mask(scene)
+    bm = shading.static_bounce_mask(scene)
+    spec = accel.suggest_stack_cull_config(
+        scene, cam, hw, hw, (STACK_TILE, STACK_TILE), headroom=2.0,
+        shadow_lights=sm)
+    # the shadow lists go dense (Ks = N), as phase 23's and the reference's
+    # glass4096_stack_culled row set them
+    spec = (spec[0], spec[1], n, 0, spec[4], spec[5]) + tuple(spec[6:])
+    n_steps = len(_dfs_schedule(depth))
+    want = {"compact_mask": n_steps * (1 + sum(map(bool, sm)))}
+    n_rays = rays_per_frame(hw, hw, scene.lights.count, depth,
+                            shadow_lights=sm)
+    trainable = ("spheres.center", "materials.diffuse")
+    log(f"[29/29] the stack on 'culled': glass_grid_scene({side}) ({n} "
+        f"glass spheres), {hw}x{hw}, depth {depth} ({n_steps} casts a "
+        f"pixel), bounce mask {bm}, spec {spec}; kernel 6 a frame by the "
+        f"code: {want}, twice that a forward+backward (each step is "
+        f"recomputed); {n_rays} rays/frame ({smi})")
+
+    def sframe(engine="culled"):
+        with torch.no_grad():
+            return render(scene, cam, hw, hw, depth=depth, engine=engine,
+                          bounce="stack", cull=spec, shadow_lights=sm,
+                          bounce_mask=bm, with_cull_stats=True)
+
+    def strace(engine):
+        return lambda s: render(s, cam, hw, hw, depth=depth, engine=engine,
+                                bounce="stack", shadow_lights=sm,
+                                bounce_mask=bm,
+                                cull=spec if engine.startswith("culled")
+                                else None)
+
+    def sstep():
+        s, params = train_scene(scene, trainable)
+        img, ovf = render(s, cam, hw, hw, depth=depth, engine="culled",
+                          bounce="stack", cull=spec, shadow_lights=sm,
+                          bounce_mask=bm, with_cull_stats=True)
+        torch.mean(torch.square(img)).backward()
+        return {k: v.grad for k, v in params.items()}, ovf
+
+    img, ovfs = frames_checked("culled stack", sframe, want,
+                               "glass1024_stack_culled_xla")
+    log(f"  overflow per frame {ovfs} (reported: the 'culled' stack has no "
+        f"hot-primary pass)")
+    # held to the 'xla' stack (the same arithmetic, every sphere); the
+    # gradients only reported: the glass grid's centers' gradient is
+    # singular at grazes and at the edge of total internal reflection
+    # (phase 24, PERF.md)
+    img_g, grads = grads_of(scene, strace("culled"), trainable)
+    check(torch.equal(img_g, img), "culled stack: the step's image differs")
+    held_and_reported("culled stack", img, grads,
+                      ("the 'xla' stack", *grads_of(scene, strace("xla"),
+                                                    trainable)),
+                      ("the culled_pallas stack", *grads_of(
+                          scene, strace("culled_pallas"), trainable)),
+                      hold_grads=False)
+    del img, img_g, grads
+    time_cell(torch, "glass1024_stack_culled_xla", "frame", sframe, 1, n_rays,
+              warm=0, windows=2, frames=1, dev_reps=1, allow_overflow=True)
+    outs, got = counted(lambda: [sstep() for _ in range(STEPS)])
+    launches["train_glass1024_stack_culled_xla"] = got
+    log(f"  launches over {STEPS} forward+backward steps: {got}; overflow "
+        f"{[int(o[1]) for o in outs]} (reported)")
+    check(got == {k: 2 * v * STEPS for k, v in want.items()},
+          f"culled stack step: launches {got}, want {2 * STEPS} x {want}")
+    check(all(all(bool(torch.isfinite(g).all()) for g in o[0].values())
+              for o in outs), "culled stack: non-finite gradients")
+    del outs
+    time_cell(torch, "glass1024_stack_culled_xla", "forward+backward", sstep,
+              1, n_rays, warm=0, windows=2, frames=1, dev_reps=1,
+              allow_overflow=True)
+    log(f"  phase 29: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2355,7 +2688,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/24] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/29] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -2363,7 +2696,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/24] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/29] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -2376,7 +2709,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/24] kernels vs plain versions")
+    log("[3/29] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -2465,7 +2798,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/24] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/29] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -2512,7 +2845,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/24] forward timing ({name}; {smi})")
+    log(f"[5/29] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -2574,7 +2907,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/24] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/29] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -2618,7 +2951,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/24] training timing ({name}; {smi})")
+    log(f"[7/29] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -2640,7 +2973,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/24] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/29] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -2675,6 +3008,8 @@ def main() -> int:
                            smi)
     launches_stack, errs_stack = run_stack(torch, dev, kernels, culled,
                                            shade, shading, accel, smi)
+    launches_xla_culled = run_culled_xla(torch, dev, kernels, culled, shade,
+                                         shading, accel, smi)
     for k, v in errs_stack.items():
         errs[k] = max(errs[k], v)
     c3_dense = dense_cells["c3 primary"]
@@ -2728,7 +3063,8 @@ def main() -> int:
     library_ms = {"compact_mask": topk_ms}
     path_launches = {"render_c3_grid64": fwd_launches,
                      "train_step_c3_grid64": train_launches, **launches_4096,
-                     **launches_dense, **launches_xla, **launches_stack}
+                     **launches_dense, **launches_xla, **launches_stack,
+                     **launches_xla_culled}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",

@@ -7,9 +7,9 @@ plain PyTorch version of the same function beside it. On a CPU tensor a kernel
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or
 raises.
 
-The port covers the engines ``culled_pallas``, ``pallas`` (the dense
-kernel), ``xla`` (``auto``) and ``autodiff``, forward and backward, at any
-depth: ray generation, the tile-cone broad phase with its compaction kernel,
+The port covers the engines ``culled_pallas``, ``culled`` (its narrow
+phase in plain PyTorch), ``pallas`` (the dense kernel), ``xla`` (``auto``)
+and ``autodiff``, forward and backward, at any depth: ray generation, the tile-cone broad phase with its compaction kernel,
 the primary-hit kernel (shared-origin and per-ray modes, with the
 hot-primary launch) and the shadow-occlusion kernel, survivor-routed
 materials, the fused Phong shade kernel, the dense hit kernel, the bounce

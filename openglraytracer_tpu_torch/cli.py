@@ -12,6 +12,8 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
       --engine pallas --out c3.png      # the dense kernel engine, kernel 7
   python -m openglraytracer_tpu_torch.cli render --scene c4_mirror4096 \\
       --engine culled_pallas --child-cull --out c4m.png
+  python -m openglraytracer_tpu_torch.cli render --scene c5_grid4096 \\
+      --engine culled --out c5.png      # the XLA culled engine
   python -m openglraytracer_tpu_torch.cli render --scene c2_eight_spheres \\
       --depth 4 --bounce stack --out c2s.png   # the stack bounce engine
   python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
@@ -23,19 +25,22 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
 apply, plus ``--device`` (default ``cuda``; there is no silent fall back to
 the CPU), and ``render`` and ``fit`` ``--row-block``. The engines are the
 reference's, with its default ``auto`` (= ``xla``, plain PyTorch):
-``xla``, ``pallas`` (kernel 7), ``culled_pallas`` and, in ``render`` and
-``animate``, ``autodiff``, each at any depth. With ``culled_pallas`` the
-bounce children are traced densely on ``xla``, and on the culled path with
-a child spec sized from a measured bounce pass with ``--child-cull``.
+``xla``, ``pallas`` (kernel 7), ``culled`` (the culled narrow phase in
+plain PyTorch), ``culled_pallas`` and, in ``render`` and ``animate``,
+``autodiff``, each at any depth. With the culled engines the bounce
+children are traced densely on ``xla``, and on the culled path with a
+child spec sized from a measured bounce pass with ``--child-cull`` (with
+the reference's hot-primary budget on ``culled_pallas``, from the maximum
+counts on ``culled``, whose children have no hot-primary pass).
 ``render --bounce stack`` runs the stack bounce engine on every engine but
-``autodiff`` (which the reference rejects too); on ``culled_pallas`` its
+``autodiff`` (which the reference rejects too); on the culled engines its
 one spec for every step is sized by ``suggest_stack_cull_config`` (the
 reference's CLI passes the primary spec, whose lists deep bundles
 overflow). ``--time`` charges the reference's rays: the primary rays and
 a shadow ray per static shadow-casting light, per cast of the static
 bounce tree, whatever the engine. Flags for what this package does not do
-yet (the engine ``culled``, ``animate --gif``; PNG targets, soft, sharded
-and checkpointed fits) are rejected with a message.
+yet (``animate --gif``; PNG targets, soft, sharded and checkpointed fits)
+are rejected with a message.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import time
 import torch
 
 ENGINES = ["auto", "xla", "pallas", "culled", "culled_pallas"]
-PORTED = ("auto", "xla", "autodiff", "pallas", "culled_pallas")
+CULLED = ("culled", "culled_pallas")
 
 
 def _device(name: str) -> torch.device:
@@ -113,30 +118,23 @@ def _resolve_scene(args, device):
     return scene, cam, h, w, depth
 
 
-def _reject_engine(engine: str, what: str):
-    if engine not in PORTED:
-        raise SystemExit(f"--engine {engine} is not yet ported to "
-                         f"PyTorch/CUDA; this package {what} with --engine "
-                         f"{', '.join(PORTED)} (see ROADMAP.md)")
-
-
 def _check_row_block(args):
-    if args.row_block is not None and args.engine == "culled_pallas":
-        raise SystemExit("--row-block is not supported with --engine "
-                         "culled_pallas (the culled path is already "
+    if args.row_block is not None and args.engine in CULLED:
+        raise SystemExit(f"--row-block is not supported with --engine "
+                         f"{args.engine} (the culled path is already "
                          "tile-blocked); drop it or use --engine xla")
 
 
-def _reject_unported(args, depth: int):
-    _reject_engine(args.engine, "renders")
+def _check_render_flags(args, depth: int):
     if args.bounce == "stack" and args.engine == "autodiff":
-        raise SystemExit("--bounce stack supports --engine auto, xla, pallas "
-                         "and culled_pallas, not autodiff")
+        raise SystemExit("--bounce stack supports --engine auto, xla, "
+                         "pallas, culled and culled_pallas, not autodiff")
     _check_row_block(args)
-    if args.child_cull and args.engine != "culled_pallas":
-        raise SystemExit("--child-cull requires --engine culled_pallas (it "
-                         "sizes the culled bounce-child lists; --engine "
-                         f"{args.engine} traces children densely)")
+    if args.child_cull and args.engine not in CULLED:
+        raise SystemExit("--child-cull requires --engine culled or "
+                         "culled_pallas (it sizes the culled bounce-child "
+                         f"lists; --engine {args.engine} traces children "
+                         "densely)")
     if args.child_cull and args.bounce == "stack":
         raise SystemExit("--child-cull sizes the tree's bounce children; "
                          "--bounce stack traces every step with one spec "
@@ -189,20 +187,23 @@ def cmd_render(args):
     if args.time:
         _check_timing(device)
     scene, cam, h, w, depth = _resolve_scene(args, device)
-    _reject_unported(args, depth)
+    _check_render_flags(args, depth)
     shadow_lights = static_shadow_mask(scene)
     bounce_mask = static_bounce_mask(scene) if depth > 0 else (True, True)
     kwargs = dict(depth=depth, engine=args.engine, bounce_mask=bounce_mask,
                   shadow_lights=shadow_lights, row_block=args.row_block,
                   bounce=args.bounce)
-    if args.engine == "culled_pallas":
+    if args.engine in CULLED:
         kwargs["cull"] = _cull_spec(scene, cam, h, w, args.cull_tile,
                                     shadow_lights,
                                     stack=args.bounce == "stack")
     if args.child_cull:
         spec = kwargs["cull"]
-        cspec = suggest_child_cull_config(scene, cam, h, w, spec,
-                                          shadow_lights=shadow_lights)
+        # the hot-primary budget is kernel 2's; the children of 'culled'
+        # get lists sized from the maximum counts, which never truncate
+        cspec = suggest_child_cull_config(
+            scene, cam, h, w, spec, shadow_lights=shadow_lights,
+            hot_primary=args.engine == "culled_pallas")
         print("child cull: "
               + " ".join(f"{k}={v}" for k, v in
                          zip(("kp", "ks", "hot_m", "kb", "ksb", "hot_p"),
@@ -245,7 +246,6 @@ def _reject_unported_fit(args):
         if value:
             raise SystemExit(f"{flag}: {what} is not yet ported (see "
                              "ROADMAP.md)")
-    _reject_engine(args.engine, "fits")
     _check_row_block(args)
 
 
@@ -254,7 +254,7 @@ def cmd_fit(args):
     the target, perturb the spheres' centers and radii with noise from a
     torch.Generator seeded with 0, and fit back. The target and the fitted
     scene's --out are rendered with the default engine, as the reference
-    does; the fit runs --engine (culled_pallas children densely on
+    does; the fit runs --engine (a culled engine's children densely on
     'xla')."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
@@ -269,7 +269,7 @@ def cmd_fit(args):
     scene_true, cam = sphere_grid_scene(args.grid_side, seed=1,
                                         device=device)
     cull = None
-    if args.engine == "culled_pallas":
+    if args.engine in CULLED:
         if h % t or w % t:
             raise SystemExit(f"--cull-tile {t} must divide the fit "
                              f"resolution {w}x{h}")
@@ -307,16 +307,16 @@ def cmd_fit(args):
 
 def cmd_animate(args):
     """The reference's animated world, reference_frame(start_time + i /
-    fps) for i < frames, rendered to a PNG sequence. With culled_pallas one
-    cull spec (headroom 2) serves the moving sequence; each frame rechecks
-    it on the host and resizes it when it would overflow (never silent)."""
+    fps) for i < frames, rendered to a PNG sequence. With a culled engine
+    one cull spec (headroom 2) serves the moving sequence; each frame
+    rechecks it on the host and resizes it when it would overflow (never
+    silent)."""
     from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
     from openglraytracer_tpu_torch.utils.image import save_png
 
-    _reject_engine(args.engine, "animates")
     if args.gif:
         raise SystemExit("--gif is not yet ported (it needs PIL, which the "
                          "port does not depend on; see ROADMAP.md); the PNG "
@@ -324,7 +324,7 @@ def cmd_animate(args):
     device = _device(args.device)
     h, w = args.height, args.width
     cull = None
-    if args.engine == "culled_pallas":
+    if args.engine in CULLED:
         scene0, cam0 = reference_frame(args.start_time, device=device)
         cull = _cull_spec(scene0, cam0, h, w, args.cull_tile,
                           static_shadow_mask(scene0), headroom=2.0)
@@ -364,13 +364,12 @@ def main(argv=None):
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--engine", default="auto",
-                   choices=ENGINES + ["autodiff"],
-                   help="'culled' is not yet ported (rejected)")
+                   choices=ENGINES + ["autodiff"])
     r.add_argument("--cull-tile", type=int, default=32,
-                   help="pixel tile side of the culled engine")
+                   help="pixel tile side of the culled engines")
     r.add_argument("--child-cull", action="store_true",
                    help="cull the bounce children too (bounce cones; needs "
-                        "--engine culled_pallas and depth >= 1)")
+                        "--engine culled or culled_pallas and depth >= 1)")
     r.add_argument("--row-block", type=int, default=None,
                    help="dense engines: trace the image in blocks of this "
                         "many rows (bounds memory; must divide the height)")
@@ -407,8 +406,7 @@ def main(argv=None):
                    default="spheres.center,spheres.radius,materials.diffuse")
     f.add_argument("--sharded", action="store_true",
                    help="not yet ported (rejected)")
-    f.add_argument("--engine", default="auto", choices=ENGINES,
-                   help="'culled' is not yet ported (rejected)")
+    f.add_argument("--engine", default="auto", choices=ENGINES)
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
                    help="not yet ported (rejected)")
     f.add_argument("--cull-tile", type=int, default=32)
@@ -434,10 +432,9 @@ def main(argv=None):
     a.add_argument("--height", type=int, default=360)
     a.add_argument("--depth", type=int, default=0)
     a.add_argument("--engine", default="auto",
-                   choices=ENGINES + ["autodiff"],
-                   help="'culled' is not yet ported (rejected)")
+                   choices=ENGINES + ["autodiff"])
     a.add_argument("--cull-tile", type=int, default=8,
-                   help="pixel tile side of engine culled_pallas")
+                   help="pixel tile side of the culled engines")
     a.add_argument("--out-pattern", default="frame_{:04d}.png")
     a.add_argument("--gif", default=None,
                    help="not yet ported (rejected)")

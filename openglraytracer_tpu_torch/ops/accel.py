@@ -1,14 +1,17 @@
 """Broad-phase acceleration: tile-cone culling for primary, shadow and
-bounce rays.
+bounce rays, and the XLA culled engine 'culled'.
 
-Port of the parts of ``openglraytracer_tpu/ops/accel.py`` that engine
-``culled_pallas`` runs: the tile layout, the conservative cone tests (the
-bounce cones of secondary-ray bundles included), survivor compaction (the
-compaction kernel for wide masks), the survivor tables and records, the
-dense hot-tile shadow pass, survivor-routed material rows, the
-tile-structured analytic backward of the narrow phase (``_culled_bwd``) and
-the host-side sizing of the primary and bounce-child cull specs and the
-overflow recount.
+Port of ``openglraytracer_tpu/ops/accel.py``: the tile layout, the
+conservative cone tests (the bounce cones of secondary-ray bundles
+included), survivor compaction (the compaction kernel for wide masks), the
+survivor tables and records, survivor-routed material rows, the narrow
+phase of engine 'culled' in plain PyTorch (``culled_geometry``: the sphere
+quadratic and the box slab test over (tiles, survivors, pixels), its dense
+hot-tile shadow pass, ``culled_geometry_op`` and
+``bounce_culled_geometry_op``), the tile-structured analytic backward that
+both culled engines share (``_culled_bwd``, run by ``_CulledGeometryOp``)
+and the host-side sizing of the primary and bounce-child cull specs and
+the overflow recount.
 
   1. Partition the image into pixel tiles. All primary rays of a tile share
      the camera origin and span a narrow cone: axis = mean direction,
@@ -17,7 +20,8 @@ overflow recount.
      against every tile cone.
   3. Compact each tile's survivors to a static top-K list in ascending
      object order (first-object-wins ties are preserved) and scan only those
-     in the narrow phase (``ops/culled.py``).
+     in the narrow phase: here for engine 'culled', in ``ops/culled.py``'s
+     kernels for culled_pallas.
   4. Shadow rays get the same per light: apex at the light, the cone holds
      the tile's bounding box of shadow-ray origins.
 
@@ -34,11 +38,17 @@ import numpy as np
 import torch
 
 from openglraytracer_tpu_torch import kernels
-from openglraytracer_tpu_torch.models.scene import Scene
-from openglraytracer_tpu_torch.ops.geometry import (box_rotation,
+from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
+from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
+                                                    _with_leaves,
+                                                    box_rotation,
+                                                    component_dot, sum_dot,
                                                     winner_backward)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
-                                                     INF_T, Hit)
+                                                     INF_T, Hit, _dot3,
+                                                     _fold_chunk, _init_best,
+                                                     _safe_div, _safe_sqrt,
+                                                     plane_candidates)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS, material_table
 
 _BBOX_MARGIN = 1.0e-3  # fp slack when bounding shadow origins
@@ -298,6 +308,15 @@ def _segment_occluded(so_t, p_t, lpos, scx, scy, scz, sr, valid):
     return torch.any(blocked, dim=1)
 
 
+def _top_tiles(counts, m: int):
+    """Ids of the m largest counts, ties to the lower tile id (the order
+    the reference's top_k keeps): the hot tiles of a light."""
+    t_tiles = counts.shape[0]
+    order = torch.arange(t_tiles, 0, -1, device=counts.device)
+    _, ids = torch.topk(counts.long() * t_tiles + order - 1, m)
+    return ids
+
+
 # ---------------------------------------------------------------------------
 # Survivor tables and records
 # ---------------------------------------------------------------------------
@@ -464,7 +483,7 @@ def _scatter_winner_rows(contrib, surv_idx, j_local, n_obj: int):
 
 def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
                 tile_p: int, gt, gp, gn, need_rays: bool = False,
-                hot_pass: bool = False):
+                hot_pass: bool = False, dot=sum_dot):
     """Analytic winner-only backward of the culled narrow phase. Port of
     ``accel._culled_bwd`` (reused verbatim by the reference's
     ``culled_pallas_geometry_op``).
@@ -484,7 +503,9 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     pass rebuilds lists that can lose a winner: hot_pass says whether the
     forward ran one.
 
-    gt (R,), gp (R, 3), gn (R, 3): cotangents of hit.t, hit.p, hit.n.
+    gt (R,), gp (R, 3), gn (R, 3): cotangents of hit.t, hit.p, hit.n. dot:
+    the replay's row-wise dot product, geometry.component_dot for engine
+    'culled', whose forward rounds as the dense engine 'xla''s does.
     Returns (g_center (N, 3), g_radius (N,), g_mins, g_maxs, g_position,
     g_angles (M, 3), g_normal (P, 3), g_offset (P,), g_origins, g_dirs);
     the last two are None unless need_rays."""
@@ -520,7 +541,7 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
 
     g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
         scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
-        gt, gp, gn, need_rays, lost)
+        gt, gp, gn, need_rays, lost, dot)
 
     if n_sph:
         g_sph = _scatter_winner_rows(g_sph_r, aux.p_idx, aux.j_local, n_sph)
@@ -542,6 +563,588 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
 
 
 # ---------------------------------------------------------------------------
+# The XLA culled engine 'culled': the narrow phase in plain PyTorch over the
+# (tiles, survivors, pixels) layout
+# ---------------------------------------------------------------------------
+
+# The narrow phase's (T, K, P) temporaries are computed a block of tiles at
+# a time, at most this many elements a block: about ten of them are alive
+# at once, 256 MiB each in float32. At c5_grid4096 one unblocked (T, Kp, P)
+# float tensor is 1.2 GB and a shadow (T, Ks, P) one 2.1 GB, and the
+# max-sized lists of the c4_mirror4096 children reach (T, N, P), 17 GB.
+# Tiles are independent and the folds run over K within a tile, so the
+# result is the unblocked call's bit for bit.
+TILE_BLOCK_ELEMS = 1 << 26
+
+
+def _tile_blocks(n_tiles: int, per_tile: int):
+    """[start, stop) ranges covering n_tiles tiles of per_tile elements
+    each, at most TILE_BLOCK_ELEMS elements (and at least one tile) a
+    block."""
+    step = max(1, TILE_BLOCK_ELEMS // max(per_tile, 1))
+    return [(a, min(a + step, n_tiles)) for a in range(0, n_tiles, step)]
+
+
+def _box_slab_tkp(rows, b_valid, rox, roy, roz, rdx, rdy, rdz):
+    """Slab test in the (T, K, P) layout given local-space ray components
+    (each (T, K, P) or broadcastable); rows (T, K, >= 18) box table rows.
+    Mirrors intersect.box_candidates op for op. Returns (t (miss INF_T),
+    ok, inside, the slab boundaries (t1x, t1y, t1z, t2x, t2y, t2z))."""
+    one = torch.ones_like(rdx)
+    ivx = _safe_div(one, rdx)
+    ivy = _safe_div(one, rdy)
+    ivz = _safe_div(one, rdz)
+    tax = (rows[..., 0:1] - rox) * ivx                      # mins - ro
+    tay = (rows[..., 1:2] - roy) * ivy
+    taz = (rows[..., 2:3] - roz) * ivz
+    tbx = (rows[..., 3:4] - rox) * ivx                      # maxs - ro
+    tby = (rows[..., 4:5] - roy) * ivy
+    tbz = (rows[..., 5:6] - roz) * ivz
+    t1x, t2x = torch.minimum(tax, tbx), torch.maximum(tax, tbx)
+    t1y, t2y = torch.minimum(tay, tby), torch.maximum(tay, tby)
+    t1z, t2z = torch.minimum(taz, tbz), torch.maximum(taz, tbz)
+    t_near = torch.maximum(t1x, torch.maximum(t1y, t1z))
+    t_far = torch.minimum(t2x, torch.minimum(t2y, t2z))
+
+    ok = (t_near < t_far) & (t_far > 0.0) & b_valid[..., None]
+    inside = ok & (t_near < 0.0)
+    t = torch.where(inside, t_far, t_near)
+    ok = ok & (t > 0.0)
+    t = torch.where(ok, t, INF_T)
+    return t, ok, inside, (t1x, t1y, t1z, t2x, t2y, t2z)
+
+
+def _rot_tkp(rows, vx, vy, vz, transpose: bool):
+    """Rotate (T, K-or-1, P) vector components by each row's 3x3 (columns
+    9:18); transpose=True applies R^T (world -> local)."""
+    r = [rows[..., 9 + i:10 + i] for i in range(9)]         # (T, K, 1) each
+    if transpose:
+        return (r[0] * vx + r[3] * vy + r[6] * vz,
+                r[1] * vx + r[4] * vy + r[7] * vz,
+                r[2] * vx + r[5] * vy + r[8] * vz)
+    return (r[0] * vx + r[1] * vy + r[2] * vz,
+            r[3] * vx + r[4] * vy + r[5] * vz,
+            r[6] * vx + r[7] * vy + r[8] * vz)
+
+
+def _box_narrow(rows, b_valid, o0, dirs_t, origins_t=None):
+    """Box narrow phase over tile survivors: the shared origin o0 (3,), or
+    per-ray origins_t (T, P, 3) for bounce bundles; dirs_t (T, P, 3).
+    Returns per candidate (t, ok, inside, world normal (3 components)) in
+    the (T, Kb, P) layout, the normal picked as intersect.box_candidates
+    picks it (face by equality with the winning boundary, y before z)."""
+    if origins_t is None:
+        wx = (o0[0] - rows[..., 6])[..., None]              # (T, Kb, 1)
+        wy = (o0[1] - rows[..., 7])[..., None]
+        wz = (o0[2] - rows[..., 8])[..., None]
+    else:
+        wx = origins_t[..., 0][:, None, :] - rows[..., 6:7]  # (T, Kb, P)
+        wy = origins_t[..., 1][:, None, :] - rows[..., 7:8]
+        wz = origins_t[..., 2][:, None, :] - rows[..., 8:9]
+    rox, roy, roz = _rot_tkp(rows, wx, wy, wz, transpose=True)
+    dx = dirs_t[..., 0][:, None, :]                         # (T, 1, P)
+    dy = dirs_t[..., 1][:, None, :]
+    dz = dirs_t[..., 2][:, None, :]
+    rdx, rdy, rdz = _rot_tkp(rows, dx, dy, dz, transpose=True)
+
+    t, ok, inside, bounds = _box_slab_tkp(rows, b_valid, rox, roy, roz,
+                                          rdx, rdy, rdz)
+    _, t1y, t1z, _, t2y, t2z = bounds
+    by = torch.where(inside, t2y, t1y)
+    bz = torch.where(inside, t2z, t1z)
+    face_y = t == by
+    face_z = (~face_y) & (t == bz)
+    face_x = ~(face_y | face_z)
+    rd_face = torch.where(face_y, rdy, torch.where(face_z, rdz, rdx))
+    sgn = torch.where(rd_face > 0.0, -1.0, 1.0)
+    nlx = torch.where(face_x, sgn, 0.0)
+    nly = torch.where(face_y, sgn, 0.0)
+    nlz = torch.where(face_z, sgn, 0.0)
+    nwx, nwy, nwz = _rot_tkp(rows, nlx, nly, nlz, transpose=False)
+    okf = ok.to(t.dtype)
+    return t, ok, inside, (nwx * okf, nwy * okf, nwz * okf)
+
+
+def _box_segment_occluded(rows, b_valid, so_t, p_t, lpos):
+    """Box occlusion of the shadow segment: cast origin so_t (B, P, 3),
+    unnormalized direction light - p_t. Blocked iff the slab hit has t in
+    (0, 1), as the dense engine's box_candidates and t < 1. Returns (B, P)
+    bool."""
+    wx = so_t[..., 0][:, None, :] - rows[..., 6:7]          # (B, K, P)
+    wy = so_t[..., 1][:, None, :] - rows[..., 7:8]
+    wz = so_t[..., 2][:, None, :] - rows[..., 8:9]
+    rox, roy, roz = _rot_tkp(rows, wx, wy, wz, transpose=True)
+    tlx = (lpos[0] - p_t[..., 0])[:, None, :]
+    tly = (lpos[1] - p_t[..., 1])[:, None, :]
+    tlz = (lpos[2] - p_t[..., 2])[:, None, :]
+    rdx, rdy, rdz = _rot_tkp(rows, tlx, tly, tlz, transpose=True)
+    t, ok, _, _ = _box_slab_tkp(rows, b_valid, rox, roy, roz, rdx, rdy, rdz)
+    return torch.any(ok & (t < 1.0), dim=1)
+
+
+def _sphere_narrow(rows, valid, o0, dirs_t, origins_t=None):
+    """Sphere narrow phase over tile survivors, the reference's arithmetic
+    op for op (each op rounded once, the square root correctly rounded): a
+    reformulation, qa = 1 for unit directions say, rounds apart and flips
+    the sign of the discriminant on tangent grazes. rows (T, K, >= 4)
+    [c(3) r]; valid (T, K); o0 (3,) the shared origin, or origins_t
+    (T, P, 3) per ray; dirs_t (T, P, 3). Returns (t (T, K, P), INF_T where
+    nothing is hit, inside (T, K, P)). The (T, K, P) temporaries are
+    overwritten in place: the caller runs without autograd."""
+    cx, cy, cz, rad = rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3]
+    if origins_t is None:
+        ocx = (o0[0] - cx)[:, :, None]                      # (T, K, 1)
+        ocy = (o0[1] - cy)[:, :, None]
+        ocz = (o0[2] - cz)[:, :, None]
+    else:                    # (T, 1, P) - (T, K, 1) -> (T, K, P)
+        ocx = origins_t[..., 0][:, None, :] - cx[:, :, None]
+        ocy = origins_t[..., 1][:, None, :] - cy[:, :, None]
+        ocz = origins_t[..., 2][:, None, :] - cz[:, :, None]
+    qc = ocx * ocx + ocy * ocy + ocz * ocz - (rad * rad)[:, :, None]
+    dx = dirs_t[..., 0][:, None, :]                         # (T, 1, P)
+    dy = dirs_t[..., 1][:, None, :]
+    dz = dirs_t[..., 2][:, None, :]
+    qa = dx * dx + dy * dy + dz * dz                        # (T, 1, P)
+    qb = dx * ocx                                           # (T, K, P)
+    qb += dy * ocy
+    qb += dz * ocz
+    qb *= 2.0
+    del ocx, ocy, ocz
+    qd = qb * qb
+    qd -= 4.0 * qa * qc
+    del qc
+    ok = qd >= 0.0
+    ok &= qa > _DIV_EPS
+    ok &= valid[:, :, None]
+    sq = torch.where(ok, _safe_sqrt(qd), 0.0)
+    del qd
+    inv_2qa = _safe_div(0.5, qa)
+    qb.neg_()                                               # -qb
+    t_near = qb + sq
+    t_near *= inv_2qa                                       # t1
+    qb -= sq
+    qb *= inv_2qa                                           # t2
+    del sq
+    t_far = torch.maximum(t_near, qb)
+    torch.minimum(t_near, qb, out=t_near)
+    del qb
+    ok &= t_far >= 0.0
+    inside = t_near < 0.0
+    inside &= ok
+    t = torch.where(inside, t_far, t_near, out=t_near)
+    del t_far
+    ok &= t > 0.0
+    t.masked_fill_(~ok, INF_T)
+    return t, inside
+
+
+def _first_min_k(t):
+    """(min over axis 1, the first index attaining it) of (T, K, P)."""
+    k = t.shape[1]
+    tc = torch.amin(t, dim=1)                               # (T, P)
+    iota = torch.arange(k, dtype=torch.int32, device=t.device)[None, :, None]
+    j = torch.amin(torch.where(t == tc[:, None, :], iota, k), dim=1)
+    return tc, j
+
+
+def _take_kp(x, j):
+    """x (T, K, P) at slot j (T, P) -> (T, P); zero (False) where j is past
+    the list (no slot attains the minimum: a NaN candidate), as the
+    reference's one-hot sum gives."""
+    k = x.shape[1]
+    got = torch.gather(x, 1, j.clamp(max=k - 1).long()[:, None, :])[:, 0]
+    return got & (j < k) if got.dtype == torch.bool \
+        else torch.where(j < k, got, 0.0)
+
+
+def _take_rows(rows, j):
+    """rows (T, K, F) at slot j (T, P) -> (T, P, F); zero past the list."""
+    k, f = rows.shape[1], rows.shape[2]
+    idx = j.clamp(max=k - 1).long()[..., None].expand(-1, -1, f)
+    return torch.where((j < k)[..., None], torch.gather(rows, 1, idx), 0.0)
+
+
+@torch.no_grad()
+def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
+                    ks: int, shadow_lights: tuple | None = None,
+                    hot_m: int = 0, kb: int = 0, ksb: int = 0, active=None):
+    """Closest hit and all-light occlusion with tile-cone culling, the
+    narrow phase in plain PyTorch: engine 'culled'. Port of
+    ``accel.culled_geometry``. The kernel engine's counterpart is
+    ``ops/culled.py culled_geometry`` (culled_pallas).
+
+    origins, dirs (R, 3) in tile-major order (tile_image), R = T * tile_p;
+    every origin is the same point (primary pinhole rays) unless ``active``
+    is given; dirs unit. kp/ks sphere survivor caps, kb/ksb box caps (0 =
+    every box). shadow_lights: static per-light bools, False skips that
+    light's shadow pass (None = all cast). hot_m > 0: per light, the hot_m
+    tiles with the most sphere survivors test every sphere of the scene
+    (the reference's dense hot pass), so ks may be a quantile of the
+    counts.
+
+    active (R,) bool: secondary mode for bounce children: per-ray origins,
+    the bounce-cone broad phase (origin-box apex, Minkowski-expanded
+    objects; zero-direction rays, the refract() of total internal
+    reflection, cannot open a cone), and inactive rays forced to miss.
+    There is no hot-primary pass here: size child lists from the maximum
+    counts (suggest_child_cull_config(hot_primary=False)).
+
+    The narrow phase runs over (tiles, survivors, pixels), a block of
+    tiles at a time (TILE_BLOCK_ELEMS). Its winner: the minimum t, on a
+    tie the first survivor in ascending id order; a box wins only on a
+    strictly smaller t, a plane loses ties. Returns (Hit (R,), occluded
+    (R, L) bool, CullAux)."""
+    r_total = origins.shape[0]
+    t_tiles = r_total // tile_p
+    dtype, device = origins.dtype, origins.device
+    n_sph = scene.spheres.count
+    n_box = scene.boxes.count
+    n_lights = scene.lights.count
+    centers, radii = scene.spheres.center, scene.spheres.radius
+    shared = active is None
+    o0 = origins[0]
+    kb = min(kb, n_box) if kb > 0 else n_box
+    ksb = min(ksb, n_box) if ksb > 0 else n_box
+    zero_c = torch.zeros((t_tiles,), dtype=torch.int32, device=device)
+
+    def no_list():
+        return (torch.zeros((t_tiles, 0), dtype=torch.int32, device=device),
+                torch.zeros((t_tiles, 0), dtype=torch.bool, device=device),
+                zero_c)
+
+    # ---- broad phase: dense per-tile compaction
+    dirs_t = dirs.reshape(t_tiles, tile_p, 3)
+    origins_t = None if shared else origins.reshape(t_tiles, tile_p, 3)
+    if shared:
+        axis, cos_half = tile_cones(dirs_t)
+
+        def compact(c, r, k):
+            return _dense_compact(o0, axis, cos_half, c, r, k)
+    else:
+        act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
+        apex, axis, cos_half, expand, empty_t = bounce_cones(
+            origins_t, dirs_t, act.reshape(t_tiles, tile_p))
+
+        def compact(c, r, k):
+            mask = sphere_vs_cone(apex, axis, cos_half, c, r, expand=expand)
+            return compact_mask(mask & (~empty_t)[:, None], k)
+
+    if n_sph:
+        p_idx, p_valid, p_count = compact(centers, radii, kp)
+        rows = _gather_tile_rows(_sphere_table(scene), p_idx)  # (T, Kp, 6)
+    else:
+        p_idx, p_valid, p_count = no_list()
+    if n_box:
+        btab = _box_table(scene)
+        bc_bs, br_bs = box_bounding_spheres(scene)
+        b_idx, b_valid, b_count = compact(bc_bs, br_bs, kb)
+        brows = _gather_tile_rows(btab, b_idx)              # (T, Kb, 20)
+    else:
+        b_idx, b_valid, b_count = no_list()
+    kp_eff, kb_eff = p_idx.shape[-1], b_idx.shape[-1]
+
+    # ---- narrow phase, a block of tiles at a time: the sphere winner, then
+    # the box winner merged in global-id order (spheres precede boxes, so a
+    # box wins only on a strictly smaller t)
+    t_flat = torch.full((r_total,), INF_T, dtype=dtype, device=device)
+    n = torch.zeros((r_total, 3), dtype=dtype, device=device)
+    in_flat = torch.zeros((r_total,), dtype=torch.bool, device=device)
+    mat_flat = torch.zeros((r_total,), dtype=torch.int32, device=device)
+    gid_flat = torch.full((r_total,), -1, dtype=torch.int32, device=device)
+    j_local = torch.full((t_tiles, tile_p), -1, dtype=torch.int32,
+                         device=device)
+    jb_local = torch.full_like(j_local, -1)
+    for a, e in _tile_blocks(t_tiles, max(kp_eff, kb_eff) * tile_p):
+        ra, re = a * tile_p, e * tile_p
+        d_b = dirs_t[a:e]
+        o_b = None if shared else origins_t[a:e]
+        if n_sph:
+            t, inside = _sphere_narrow(rows[a:e], p_valid[a:e], o0, d_b, o_b)
+            tc, j = _first_min_k(t)
+            ic = _take_kp(inside, j)
+            del t, inside
+            win = _take_rows(rows[a:e], j)                     # (B, P, 6)
+            hit_s = tc < MISS_T
+            t_b = tc.reshape(-1)
+            in_b = ic.reshape(-1)
+            mat_b = win[..., 4].reshape(-1).to(torch.int32)
+            gid_b = win[..., 5].reshape(-1).to(torch.int32)
+            jl_b = torch.where(hit_s, j, -1)
+            # the sphere normal from the winning center, rounded as the
+            # dense engine 'xla' rounds it (intersect.closest_hit_sp:
+            # o - c + t d), as the reference's culled and dense engines
+            # share one formula: their children start alike
+            hs = hit_s.reshape(-1)
+            ts = torch.where(hs, t_b, 0.0)
+            u = (origins[ra:re] - win[..., 0:3].reshape(-1, 3)) \
+                + ts[:, None] * dirs[ra:re]
+            inv_len = torch.rsqrt(torch.clamp(
+                _dot3(u[:, 0], u[:, 1], u[:, 2], u[:, 0], u[:, 1], u[:, 2]),
+                min=_SQRT_EPS))
+            sgn = torch.where(in_b, -inv_len, inv_len) * hs.to(dtype)
+            n_b = u * sgn[:, None]
+        else:
+            t_b = t_flat[ra:re]
+            n_b, in_b = n[ra:re], in_flat[ra:re]
+            mat_b, gid_b, jl_b = mat_flat[ra:re], gid_flat[ra:re], \
+                j_local[a:e]
+        jbl_b = jb_local[a:e]
+        if n_box:
+            br = brows[a:e]
+            tb, _, insb, (nbx, nby, nbz) = _box_narrow(br, b_valid[a:e], o0,
+                                                       d_b, o_b)
+            tbc, jb = _first_min_k(tb)
+            icb = _take_kp(insb, jb).reshape(-1)
+            nb = torch.stack([_take_kp(x, jb).reshape(-1)
+                              for x in (nbx, nby, nbz)], dim=-1)
+            winb = _take_rows(br[..., 18:20], jb)              # (B, P, 2)
+            tb_flat = tbc.reshape(-1)
+            use_box = tb_flat < t_b
+            ub_t = use_box.reshape(e - a, tile_p)
+            t_b = torch.where(use_box, tb_flat, t_b)
+            n_b = torch.where(use_box[:, None], nb, n_b)
+            in_b = torch.where(use_box, icb, in_b)
+            mat_b = torch.where(use_box, winb[..., 0].reshape(-1).to(
+                torch.int32), mat_b)
+            gid_b = torch.where(use_box, winb[..., 1].reshape(-1).to(
+                torch.int32), gid_b)
+            jl_b = torch.where(ub_t, -1, jl_b)
+            jbl_b = torch.where(ub_t & (tbc < MISS_T), jb, -1)
+        t_flat[ra:re], n[ra:re], in_flat[ra:re] = t_b, n_b, in_b
+        mat_flat[ra:re], gid_flat[ra:re] = mat_b, gid_b
+        j_local[a:e], jb_local[a:e] = jl_b, jbl_b
+
+    # ---- planes: dense (a tiny count), merged with objects first on ties
+    pln = scene.planes
+    if pln.count:
+        tpl, npl, _ = plane_candidates(
+            origins, dirs, pln.normal, pln.offset,
+            torch.ones((pln.count,), dtype=torch.bool, device=device))
+        bp = _fold_chunk(_init_best(r_total, origins), tpl, npl,
+                         torch.zeros_like(tpl, dtype=torch.bool),
+                         pln.material_id, n_sph + n_box, 0)
+        sw = t_flat <= bp.t
+        t_flat = torch.where(sw, t_flat, bp.t)
+        n = torch.where(sw[:, None], n, bp.n)
+        in_flat = torch.where(sw, in_flat, bp.inside)
+        mat_flat = torch.where(sw, mat_flat, bp.material_id)
+        gid_flat = torch.where(sw, gid_flat, bp.obj_id)
+        sw_t = sw.reshape(t_tiles, tile_p)
+        j_local = torch.where(sw_t, j_local, -1)
+        jb_local = torch.where(sw_t, jb_local, -1)
+
+    if not shared:
+        # inactive secondary rays are misses (their colors carry no bounce
+        # weight; the miss keeps them out of the shadow cones below)
+        t_flat = torch.where(active, t_flat, INF_T)
+        act_full = active.reshape(t_tiles, tile_p)
+        j_local = torch.where(act_full, j_local, -1)
+        jb_local = torch.where(act_full, jb_local, -1)
+
+    hit_mask = t_flat < MISS_T
+    t_for_p = torch.where(hit_mask, t_flat, 0.0)
+    p = origins + t_for_p[:, None] * dirs
+    hit = Hit(t=t_flat, p=p, n=n, inside=in_flat & hit_mask,
+              material_id=torch.where(hit_mask, mat_flat, 0),
+              obj_id=torch.where(hit_mask, gid_flat, -1), hit=hit_mask)
+
+    # ---- shadows: per light, a cone from the light over each tile's box of
+    # hit points; sphere and box occluders through their survivor lists, the
+    # hot_m tiles with the most sphere survivors over every sphere
+    shadow_org = hit.p + hit.n * SHADOW_EPS
+    so_t = shadow_org.reshape(t_tiles, tile_p, 3)
+    p_t = hit.p.reshape(t_tiles, tile_p, 3)
+    occ_cols, s_counts, s_overflow, sb_counts, sb_overflow = \
+        [], [], [], [], []
+    zero_o = torch.zeros((), dtype=torch.int32, device=device)
+    for li in range(n_lights):
+        if shadow_lights is not None and not shadow_lights[li]:
+            occ_cols.append(torch.zeros((r_total,), dtype=torch.bool,
+                                        device=device))
+            s_counts.append(zero_c)
+            s_overflow.append(zero_o)
+            sb_counts.append(zero_c)
+            sb_overflow.append(zero_o)
+            continue
+        lpos = scene.lights.position[li]
+        occ_t = torch.zeros((t_tiles, tile_p), dtype=torch.bool,
+                            device=device)
+        axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
+            shadow_org, hit_mask, tile_p, lpos)
+        if n_sph:
+            s_idx, s_valid, s_count = _dense_compact(
+                lpos, axis_s, cos_s, centers, radii, ks, max_dist=max_d,
+                tile_valid=~empty_s)
+            s_counts.append(s_count)
+            srows = _gather_tile_rows(torch.cat([centers, radii[:, None]],
+                                                -1), s_idx)
+            for a, e in _tile_blocks(t_tiles, s_idx.shape[-1] * tile_p):
+                sr = srows[a:e]
+                occ_t[a:e] = _segment_occluded(
+                    so_t[a:e], p_t[a:e], lpos, sr[..., 0], sr[..., 1],
+                    sr[..., 2], sr[..., 3], s_valid[a:e])
+            if hot_m > 0:
+                # the hot tiles test every sphere, so ks need only cover
+                # the other tiles
+                hot_ids = _top_tiles(s_count, hot_m)
+                every = torch.ones((1, n_sph), dtype=torch.bool,
+                                   device=device)
+                occ_h = torch.cat([_segment_occluded(
+                    so_t[ids], p_t[ids], lpos, centers[None, :, 0],
+                    centers[None, :, 1], centers[None, :, 2],
+                    radii[None, :], every)
+                    for ids in (hot_ids[a:e] for a, e in _tile_blocks(
+                        hot_ids.shape[0], n_sph * tile_p))])
+                occ_t = occ_t.index_copy(0, hot_ids, occ_h)
+                is_hot = torch.zeros((t_tiles,), dtype=torch.bool,
+                                     device=device).index_fill(0, hot_ids,
+                                                               True)
+                # cold tiles above ks dropped occluders: never silent
+                s_overflow.append(torch.sum((s_count > ks) & ~is_hot,
+                                            dtype=torch.int32))
+            else:
+                s_overflow.append(torch.sum(s_count > ks, dtype=torch.int32))
+        else:
+            s_counts.append(zero_c)
+            s_overflow.append(zero_o)
+        if n_box:
+            sb_idx, sb_valid, sb_cnt = _dense_compact(
+                lpos, axis_s, cos_s, bc_bs, br_bs, ksb, max_dist=max_d,
+                tile_valid=~empty_s)
+            sbrows = _gather_tile_rows(btab, sb_idx)
+            for a, e in _tile_blocks(t_tiles, sb_idx.shape[-1] * tile_p):
+                occ_t[a:e] |= _box_segment_occluded(
+                    sbrows[a:e], sb_valid[a:e], so_t[a:e], p_t[a:e], lpos)
+            sb_counts.append(sb_cnt)
+            sb_overflow.append(torch.sum(sb_cnt > ksb, dtype=torch.int32))
+        else:
+            sb_counts.append(zero_c)
+            sb_overflow.append(zero_o)
+        occ = occ_t.reshape(-1)
+        if pln.count:
+            tpl, _, _ = plane_candidates(
+                shadow_org, lpos[None, :] - hit.p, pln.normal, pln.offset,
+                torch.ones((pln.count,), dtype=torch.bool, device=device),
+                with_normals=False)
+            occ = occ | torch.any(tpl < 1.0, dim=-1)
+        occ_cols.append(occ)
+
+    occluded = (torch.stack(occ_cols, dim=-1) if n_lights
+                else torch.zeros((r_total, 0), dtype=torch.bool,
+                                 device=device))
+
+    def stack_or(xs, shape):
+        return (torch.stack(xs) if n_lights
+                else torch.zeros(shape, dtype=torch.int32, device=device))
+
+    aux = CullAux(p_idx=p_idx, p_valid=p_valid, p_count=p_count,
+                  s_count=stack_or(s_counts, (0, t_tiles)),
+                  s_overflow=stack_or(s_overflow, (0,)),
+                  j_local=j_local,
+                  b_idx=b_idx, b_valid=b_valid, b_count=b_count,
+                  sb_count=stack_or(sb_counts, (0, t_tiles)),
+                  sb_overflow=stack_or(sb_overflow, (0,)),
+                  jb_local=jb_local)
+    return hit, occluded, aux
+
+
+# ---------------------------------------------------------------------------
+# The differentiable ops: a culled engine's forward, the analytic winner
+# backward
+# ---------------------------------------------------------------------------
+
+class _CulledGeometryOp(torch.autograd.Function):
+    """The differentiable op of both culled engines. Forward: the engine's
+    geometry(scene, origins, dirs, active) -> (Hit, occluded, CullAux),
+    run without autograd (this module's culled_geometry for 'culled',
+    ops/culled.py's for culled_pallas). Backward: _culled_bwd. Takes the
+    forward, the scene (for its non-differentiable columns), tile_p,
+    whether the forward ran the hot-primary pass (kernel 2's, which
+    rebuilds winner lists), the replay's dot product, the active mask of
+    secondary mode (None in shared mode; it gets no cotangent), the
+    geometry leaves of
+    _GEOMETRY_LEAVES and the rays; returns the Hit fields, the occlusion
+    and the CullAux fields, of which only t, p and n are
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, geometry, scene, tile_p, hot_pass, dot, active,
+                *tensors):
+        leaves, (origins, dirs) = tensors[:-2], tensors[-2:]
+        scene = _with_leaves(scene, leaves)
+        hit, occ, aux = geometry(scene, origins, dirs, active)
+        ctx.mark_non_differentiable(*hit[3:], occ, *aux)
+        ctx.save_for_backward(*tensors, hit.inside, hit.obj_id, hit.hit,
+                              aux.p_idx, aux.j_local, aux.b_idx,
+                              aux.jb_local)
+        ctx.scene, ctx.tile_p, ctx.hot_pass, ctx.dot = (scene, tile_p,
+                                                        hot_pass, dot)
+        return (*hit, occ, *aux)
+
+    @staticmethod
+    def backward(ctx, gt, gp, gn, *_):
+        saved = ctx.saved_tensors
+        n_in = len(_GEOMETRY_LEAVES) + 2
+        leaves, (origins, dirs) = saved[:n_in - 2], saved[n_in - 2:n_in]
+        inside, obj_id, hit_mask, p_idx, j_local, b_idx, jb_local = \
+            saved[n_in:]
+        scene = _with_leaves(ctx.scene, leaves)
+        hit = Hit(t=None, p=None, n=None, inside=inside, material_id=None,
+                  obj_id=obj_id, hit=hit_mask)
+        aux = CullAux(**{f: None for f in CullAux._fields})._replace(
+            p_idx=p_idx, j_local=j_local, b_idx=b_idx, jb_local=jb_local)
+        need = ctx.needs_input_grad[6:]
+        grads = _culled_bwd(scene, origins, dirs, hit, aux, ctx.tile_p,
+                            gt, gp, gn, need_rays=any(need[-2:]),
+                            hot_pass=ctx.hot_pass, dot=ctx.dot)
+        return (None,) * 6 + tuple(g if want else None
+                                   for g, want in zip(grads, need))
+
+
+def _apply_op(geometry, scene: Scene, origins, dirs, tile_p: int,
+              active=None, hot_pass: bool = False, dot=sum_dot):
+    """(Hit, occluded, CullAux) of geometry(scene, origins, dirs, active)
+    with the analytic winner backward (_CulledGeometryOp)."""
+    leaves = [getattr(getattr(scene, part), field)
+              for part, field in _GEOMETRY_LEAVES]
+    out = _CulledGeometryOp.apply(geometry, scene, tile_p, hot_pass, dot,
+                                  active, *leaves, origins, dirs)
+    return (Hit(*out[:_N_HIT]), out[_N_HIT], CullAux(*out[_N_HIT + 1:]))
+
+
+def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
+                       ks: int, shadow_lights: tuple | None = None,
+                       hot_m: int = 0, kb: int = 0, ksb: int = 0):
+    """culled_geometry (engine 'culled') with the analytic backward of the
+    reference's ``accel.culled_geometry_op``: gradients of hit.t, hit.p and
+    hit.n flow to the spheres' center and radius, the boxes' mins, maxs,
+    position and angles, the planes' normal and offset, and the rays. The
+    winner replay sums its dot products as the forward does
+    (geometry.component_dot), as the dense engine 'xla''s replay does.
+    Arguments and results as culled_geometry."""
+    return _apply_op(
+        lambda s, o, d, _act: culled_geometry(s, o, d, tile_p, kp, ks,
+                                              shadow_lights, hot_m, kb, ksb),
+        scene, origins, dirs, tile_p, dot=component_dot)
+
+
+def bounce_culled_geometry_op(scene: Scene, origins, dirs, active,
+                              tile_p: int, kp: int, ks: int,
+                              shadow_lights: tuple | None = None,
+                              hot_m: int = 0, kb: int = 0, ksb: int = 0):
+    """culled_geometry in secondary mode (per-ray origins, the active mask;
+    no hot-primary pass) with the same analytic backward, which never
+    assumed a shared origin: the reference's
+    ``accel.bounce_culled_geometry_op``, the bounce children of engine
+    'culled'. active gets no cotangent."""
+    return _apply_op(
+        lambda s, o, d, act: culled_geometry(s, o, d, tile_p, kp, ks,
+                                             shadow_lights, hot_m, kb, ksb,
+                                             active=act),
+        scene, origins, dirs, tile_p, active, dot=component_dot)
+
+
+# ---------------------------------------------------------------------------
 # Host-side K sizing
 # ---------------------------------------------------------------------------
 
@@ -553,10 +1156,8 @@ def cull_counts(scene: Scene, camera, height: int, width: int,
 
     Two passes: (1) primary-cone mask sums, (2) a narrow-phase pass at the
     just-measured kp — shadows disabled — to get hit positions, from which
-    the per-light shadow-cone mask sums follow. The hit pass is this
-    package's own narrow phase (``ops/culled.py``: the primary-hit kernel
-    on a CUDA device, its plain version on the CPU)."""
-    from openglraytracer_tpu_torch.ops.culled import culled_geometry
+    the per-light shadow-cone mask sums follow. The hit pass is engine
+    'culled''s culled_geometry, as in the reference."""
     from openglraytracer_tpu_torch.ops.raygen import generate_rays
 
     th, tw = tile
@@ -611,6 +1212,30 @@ def cull_counts(scene: Scene, camera, height: int, width: int,
     s_count = torch.stack(cols) if cols else empty
     sb_count = torch.stack(bcols) if bcols else empty
     return p_count, s_count, pb_count, sb_count
+
+
+def suggest_cull_sizes(scene: Scene, camera, height: int, width: int,
+                       tile=(32, 32), headroom: float = 1.5,
+                       min_k: int = 8,
+                       shadow_lights: tuple | None = None) -> tuple[int, int]:
+    """(kp, ks) with headroom over the observed maximum survivor counts,
+    rounded up to a multiple of 8 and clipped to N. Lights that
+    shadow_lights disables (default: static_shadow_mask) do not size ks.
+    Sphere sizes only: box lists stay dense (use suggest_cull_config for
+    box-aware specs). Runs on the host: call it once, outside a frame."""
+    if shadow_lights is None:
+        from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
+        shadow_lights = static_shadow_mask(scene)
+    p_count, s_count, _, _ = (x.cpu().numpy() for x in cull_counts(
+        scene, camera, height, width, tile, shadow_lights))
+    n = int(scene.spheres.count)
+
+    def size(c):
+        k = int(np.ceil(float(np.max(c)) * headroom))
+        return max(min_k, min(n, -(-k // 8) * 8))
+
+    ks = size(s_count) if s_count.size else min_k
+    return size(p_count), ks
 
 
 def check_cull_overflow(scene: Scene, camera, height: int, width: int,
@@ -765,9 +1390,9 @@ def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
     sb_count (L, T), w_count (T,), wb_count (T,)).
 
     Counts are measured at bounce level 1; deeper levels reuse the spec, and
-    their overflow counters report any level that outgrows it."""
+    their overflow counters report any level that outgrows it. The hit
+    passes are engine 'culled''s culled_geometry, as in the reference."""
     from openglraytracer_tpu_torch.models.scene import AIR_IOR
-    from openglraytracer_tpu_torch.ops.culled import culled_geometry
     from openglraytracer_tpu_torch.ops.raygen import generate_rays
     from openglraytracer_tpu_torch.ops.render import BOUNCE_EPS
     from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
@@ -884,15 +1509,21 @@ def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
 
 def suggest_child_cull_config(scene: Scene, camera, height: int, width: int,
                               cull, headroom: float = 1.5, min_k: int = 8,
-                              shadow_lights: tuple | None = None):
-    """Cull spec ((th, tw), kp, ks, hot_m, kb, ksb, hot_p) of the bounce
-    children of a culled trace: measure the bounce-bundle survivor counts
-    (bounce_cull_counts) and size them as the primary spec is sized, with Kp
-    a quantile cap plus a budget of hot_p over-cap tiles for kernel 2's hot
-    launch (the reference's hot_primary=True, the sizing of its culled_pallas
-    children). ``cull`` is the parent spec, whose tile the children inherit
-    (they keep the parent's tile-major ray order). Runs on the host: call it
-    once, outside a frame."""
+                              shadow_lights: tuple | None = None,
+                              hot_primary: bool = True):
+    """Cull spec of the bounce children of a culled trace: measure the
+    bounce-bundle survivor counts
+    (bounce_cull_counts) and size them as the primary spec is sized.
+    ``cull`` is the parent spec, whose tile the children inherit (they keep
+    the parent's tile-major ray order).
+
+    hot_primary=True (the default, the sizing of culled_pallas children):
+    ((th, tw), kp, ks, hot_m, kb, ksb, hot_p), Kp a quantile cap plus a
+    budget of hot_p over-cap tiles for kernel 2's hot launch.
+    hot_primary=False, for the children of engine 'culled'
+    (accel.bounce_culled_geometry_op, which has no hot-primary pass): a
+    spec of suggest_cull_config's form, Kp from the maximum count, so that
+    no list truncates. Runs on the host: call it once, outside a frame."""
     if shadow_lights is None:
         from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
         shadow_lights = static_shadow_mask(scene)
@@ -900,7 +1531,7 @@ def suggest_child_cull_config(scene: Scene, camera, height: int, width: int,
     p_count, s_count, pb_count, sb_count, w_count, _ = bounce_cull_counts(
         scene, camera, height, width, cull, shadow_lights)
     return _spec_from_counts(scene, p_count, s_count, pb_count, sb_count,
-                             tile, headroom, min_k, hot_primary=True,
+                             tile, headroom, min_k, hot_primary=hot_primary,
                              w_count=w_count)
 
 

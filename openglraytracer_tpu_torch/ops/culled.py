@@ -47,12 +47,13 @@ from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.accel import (
     CullAux,
+    _apply_op,
     _box_table,
-    _culled_bwd,
     _dense_compact,
     _gather_tile_rows,
     _segment_occluded,
     _sphere_table,
+    _top_tiles,
     bounce_cones,
     box_bounding_spheres,
     compact_mask,
@@ -60,8 +61,6 @@ from openglraytracer_tpu_torch.ops.accel import (
     sphere_vs_cone,
     tile_cones,
 )
-from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
-                                                    _with_leaves)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit, _fma,
                                                      _inv_safe)
@@ -552,15 +551,6 @@ def _shadow_box_rows(scene: Scene, sb_idx, sb_valid):
     return _pad_cols(out, BOX_COLS)
 
 
-def _top_tiles(counts, m: int):
-    """Ids of the m largest counts, ties to the lower tile id (the order
-    the reference's top_k keeps)."""
-    t_tiles = counts.shape[0]
-    order = torch.arange(t_tiles, 0, -1, device=counts.device)
-    _, ids = torch.topk(counts.long() * t_tiles + order - 1, m)
-    return ids
-
-
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -866,58 +856,9 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
 
 
 # ---------------------------------------------------------------------------
-# Differentiable op: forward on kernels A and B, analytic winner backward
+# Differentiable ops: forward on kernels A (2) and B, the analytic winner
+# backward of ops/accel.py
 # ---------------------------------------------------------------------------
-
-class _CulledGeometryOp(torch.autograd.Function):
-    """Forward: culled_geometry. Backward: accel._culled_bwd. Takes the
-    scene (for its non-differentiable columns), the static arguments of
-    culled_geometry (hot_p last), the active mask of secondary mode (None
-    in shared mode; it gets no cotangent), the geometry leaves of
-    _GEOMETRY_LEAVES and the rays; returns the Hit fields, the occlusion
-    and the CullAux fields, of which only t, p and n are differentiable."""
-
-    @staticmethod
-    def forward(ctx, scene, static, active, *tensors):
-        leaves, (origins, dirs) = tensors[:-2], tensors[-2:]
-        scene = _with_leaves(scene, leaves)
-        hit, occ, aux = culled_geometry(scene, origins, dirs, *static[:7],
-                                        active=active,
-                                        hot_p=static[7])
-        ctx.mark_non_differentiable(*hit[3:], occ, *aux)
-        ctx.save_for_backward(*tensors, hit.inside, hit.obj_id, hit.hit,
-                              aux.p_idx, aux.j_local, aux.b_idx,
-                              aux.jb_local)
-        ctx.scene, ctx.tile_p, ctx.hot_pass = scene, static[0], static[7] > 0
-        return (*hit, occ, *aux)
-
-    @staticmethod
-    def backward(ctx, gt, gp, gn, *_):
-        saved = ctx.saved_tensors
-        n_in = len(_GEOMETRY_LEAVES) + 2
-        leaves, (origins, dirs) = saved[:n_in - 2], saved[n_in - 2:n_in]
-        inside, obj_id, hit_mask, p_idx, j_local, b_idx, jb_local = \
-            saved[n_in:]
-        scene = _with_leaves(ctx.scene, leaves)
-        hit = Hit(t=None, p=None, n=None, inside=inside, material_id=None,
-                  obj_id=obj_id, hit=hit_mask)
-        aux = CullAux(**{f: None for f in CullAux._fields})._replace(
-            p_idx=p_idx, j_local=j_local, b_idx=b_idx, jb_local=jb_local)
-        need = ctx.needs_input_grad[3:]
-        grads = _culled_bwd(scene, origins, dirs, hit, aux, ctx.tile_p,
-                            gt, gp, gn, need_rays=any(need[-2:]),
-                            hot_pass=ctx.hot_pass)
-        return (None, None, None, *(g if want else None
-                                    for g, want in zip(grads, need)))
-
-
-def _apply_op(scene, origins, dirs, static, active):
-    leaves = [getattr(getattr(scene, part), field)
-              for part, field in _GEOMETRY_LEAVES]
-    out = _CulledGeometryOp.apply(scene, static, active, *leaves, origins,
-                                  dirs)
-    return (Hit(*out[:_N_HIT]), out[_N_HIT], CullAux(*out[_N_HIT + 1:]))
-
 
 def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
                        ks: int, shadow_lights: tuple | None = None,
@@ -927,9 +868,10 @@ def culled_geometry_op(scene: Scene, origins, dirs, tile_p: int, kp: int,
     to the spheres' center and radius, the boxes' mins, maxs, position and
     angles, the planes' normal and offset, and the rays. Arguments and
     results as culled_geometry."""
-    return _apply_op(scene, origins, dirs,
-                     (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb, 0),
-                     None)
+    return _apply_op(
+        lambda s, o, d, _act: culled_geometry(s, o, d, tile_p, kp, ks,
+                                              shadow_lights, hot_m, kb, ksb),
+        scene, origins, dirs, tile_p)
 
 
 def bounce_culled_geometry_op(scene: Scene, origins, dirs, active,
@@ -943,6 +885,8 @@ def bounce_culled_geometry_op(scene: Scene, origins, dirs, active,
     children's origins and directions flow back to the parent's hit points
     and normals. The reference's ``bounce_culled_pallas_geometry_op``;
     active gets no cotangent."""
-    return _apply_op(scene, origins, dirs,
-                     (tile_p, kp, ks, shadow_lights, hot_m, kb, ksb, hot_p),
-                     active)
+    return _apply_op(
+        lambda s, o, d, act: culled_geometry(s, o, d, tile_p, kp, ks,
+                                             shadow_lights, hot_m, kb, ksb,
+                                             active=act, hot_p=hot_p),
+        scene, origins, dirs, tile_p, active, hot_pass=hot_p > 0)

@@ -17,8 +17,9 @@ from openglraytracer_tpu_torch.models.scene import Camera
 from openglraytracer_tpu_torch.ops.transforms import camera_matrices
 
 
-def pixel_ndc(height: int, width: int, dtype=torch.float32, device="cpu"):
-    """Per-pixel NDC xy coords, shape (H, W) each."""
+def pixel_ndc(height: int, width: int, dtype=torch.float32, device="cuda"):
+    """Per-pixel NDC xy coords, shape (H, W) each, on ``device`` (the GPU
+    unless asked otherwise, as every builder of the port)."""
     half_w = width // 2
     half_h = height // 2
     px = torch.arange(width, dtype=dtype, device=device)

@@ -1,6 +1,6 @@
 """The renderer: ``render(scene, camera) -> image`` for the dense engines
-'xla' ('auto'), 'autodiff' and 'pallas', and the culled engine
-culled_pallas.
+'xla' ('auto'), 'autodiff' and 'pallas', and the culled engines 'culled'
+and culled_pallas.
 
 Port of ``openglraytracer_tpu/ops/render.py`` (``trace_rays``,
 ``trace_rays_fast``, ``pick_tracer``, ``render``, ``_apply_bounces``,
@@ -25,15 +25,21 @@ The engines, named for the reference's contracts:
     by autograd straight through it: the gradient reference.
   * ``pallas``, the dense kernel engine: as ``xla``, with the geometry in
     one kernel (kernel 7, ops/dense.py).
-  * ``culled_pallas``: the cone broad phase, then the survivor-list
+  * ``culled``, the XLA culled engine: the cone broad phase, then the
+    survivor-list narrow phase in plain PyTorch (ops/accel.py
+    ``culled_geometry``; the compaction kernel for masks of 1024 objects
+    or more), shaded by ``phong_shade_lit``, rays in tile-major order. Its
+    bounce children take the secondary-ray culled path with ``child_cull``
+    (bounce cones, no hot-primary pass: size the child spec with
+    ``suggest_child_cull_config(hot_primary=False)``), and are traced
+    densely on ``xla`` without it.
+  * ``culled_pallas``: the same broad phase, then the survivor-list
     narrow-phase kernels, then the fused shade kernel (ops/culled.py,
-    ops/shade.py), rays in tile-major order. Its bounce children take the
-    secondary-ray culled path with ``child_cull`` (bounce cones, kernel 2
-    with its hot launch, kernel B) and are shaded by ``phong_shade_lit``;
-    without ``child_cull`` they are traced densely on ``xla``.
-
-The engine 'culled' (the XLA culled engine) is not ported (see
-ROADMAP.md): it raises NotImplementedError.
+    ops/shade.py; ``fused_shade=False`` shades with ``phong_shade_lit``).
+    Its bounce children take the secondary-ray culled path with
+    ``child_cull`` (bounce cones, kernel 2 with its hot launch, kernel B)
+    and are shaded by ``phong_shade_lit``; without ``child_cull`` they are
+    traced densely on ``xla``.
 
 Bounces (depth > 0) run, with ``bounce='tree'`` (the default), the
 reference's static tree unroll: each level's reflection and refraction
@@ -43,8 +49,9 @@ children are traced for all rays and blended
 a step over the tree's static depth-first schedule, the blend linearised
 into a running weighted sum, each step under ``torch.utils.checkpoint``
 when autograd records, so that a backward holds O(depth) rays, not the
-tree's every node. On culled_pallas every step takes the secondary-ray
-culled path with one spec (``accel.suggest_stack_cull_config``).
+tree's every node. On the culled engines every step takes the
+secondary-ray culled path with one spec
+(``accel.suggest_stack_cull_config``).
 ``mirror_only`` traces the reflection chain alone (``trace_rays_mirror``)
 on the dense engines.
 
@@ -63,13 +70,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from openglraytracer_tpu_torch.models.scene import AIR_IOR, Camera, Scene
+from openglraytracer_tpu_torch.ops import accel, culled
 from openglraytracer_tpu_torch.ops.accel import (cull_hot_p,
                                                  cull_overflow_count,
                                                  culled_material_rows,
                                                  parse_cull_spec, tile_image,
                                                  untile_image)
-from openglraytracer_tpu_torch.ops.culled import (bounce_culled_geometry_op,
-                                                  culled_geometry_op)
 from openglraytracer_tpu_torch.ops.dense import geometry_op
 from openglraytracer_tpu_torch.ops.intersect import closest_hit
 from openglraytracer_tpu_torch.ops.raygen import generate_rays
@@ -82,10 +88,12 @@ from openglraytracer_tpu_torch.ops.shading import (gather_materials,
                                                    static_shadow_mask)
 from openglraytracer_tpu_torch.ops.transforms import reflect, refract
 
-CULLED = "culled_pallas"
+# the culled engines: the narrow phase in plain PyTorch, and in kernels
+CULLED_PALLAS = "culled_pallas"
+CULLED = ("culled", CULLED_PALLAS)
 # the dense engines (every ray against every object, no cull spec), then
-# the culled one
-ENGINES = ("auto", "xla", "autodiff", "pallas", CULLED)
+# the culled ones
+ENGINES = ("auto", "xla", "autodiff", "pallas") + CULLED
 BOUNCE_EPS = 1.0e-3  # reflection/refraction origin offset along the normal
 
 
@@ -139,33 +147,42 @@ def _apply_bounces(scene: Scene, dirs, hit, color, depth: int, recurse,
 
 def _trace_child_culled(scene: Scene, origins, dirs, active, depth: int,
                         child_cull: tuple, shadow_lights: tuple | None,
-                        bounce_mask: tuple):
+                        bounce_mask: tuple, pallas: bool):
     """One bounce level through the secondary-ray culled path (bounce-cone
-    broad phase, kernel 2 with its hot launch, kernel B, survivor-routed
-    materials, plain-torch shade), recursing into deeper levels with the
-    same child spec. child_cull = (tile_p, kp, ks, hot_m, kb, ksb, hot_p).
-    Returns (colors (R, 3), overflow summed over this level and below)."""
+    broad phase, survivor-list narrow phase, survivor-routed materials,
+    plain-torch shade), recursing into deeper levels with the same child
+    spec. child_cull = (tile_p, kp, ks, hot_m, kb, ksb[, hot_p]). pallas:
+    the narrow phase on kernel 2 (with its hot launch over the hot_p
+    budget) and kernel B; else engine 'culled''s plain-PyTorch narrow
+    phase, which has no hot-primary pass (hot_p is not used). Returns
+    (colors (R, 3), overflow summed over this level and below)."""
     tile_p, kp, ks, hot_m, kb, ksb = parse_cull_spec(child_cull)
-    hit, occ, aux = bounce_culled_geometry_op(
-        scene, origins, dirs, active, tile_p, kp, ks, shadow_lights, hot_m,
-        kb, ksb, hot_p=cull_hot_p(child_cull))
+    if pallas:
+        hit, occ, aux = culled.bounce_culled_geometry_op(
+            scene, origins, dirs, active, tile_p, kp, ks, shadow_lights,
+            hot_m, kb, ksb, hot_p=cull_hot_p(child_cull))
+    else:
+        hit, occ, aux = accel.bounce_culled_geometry_op(
+            scene, origins, dirs, active, tile_p, kp, ks, shadow_lights,
+            hot_m, kb, ksb)
     mat_rows = culled_material_rows(scene, hit, aux, tile_p)
     color = phong_shade_lit(scene, dirs, hit, occ, mat_rows=mat_rows)
     color, ovf = _culled_bounces(scene, dirs, hit, color, depth, mat_rows,
                                  child_cull, shadow_lights, bounce_mask,
-                                 cull_overflow_count(aux))
+                                 pallas, cull_overflow_count(aux))
     return torch.where(hit.hit[:, None], color, 0.0), ovf
 
 
 def _culled_bounces(scene: Scene, dirs, hit, color, depth: int, mat_rows,
                     child_cull: tuple | None, shadow_lights: tuple | None,
-                    bounce_mask: tuple, ovf=None, chunk_size: int = 512):
+                    bounce_mask: tuple, pallas: bool, ovf=None,
+                    chunk_size: int = 512):
     """The bounce levels below a culled trace (none at depth 0), blended
-    into color: the children through _trace_child_culled, or with
-    child_cull None densely on engine 'xla' (chunk_size objects a chunk),
-    as the reference does. Returns (color, ovf plus every culled child
-    level's overflow); ovf None counts only the children's (None when no
-    culled child was traced)."""
+    into color: the children through _trace_child_culled (on the kernels
+    with pallas), or with child_cull None densely on engine 'xla'
+    (chunk_size objects a chunk), as the reference does. Returns (color,
+    ovf plus every culled child level's overflow); ovf None counts only the
+    children's (None when no culled child was traced)."""
     ovfs = [] if ovf is None else [ovf]
 
     def recurse(o, d, dd, act):
@@ -173,7 +190,8 @@ def _culled_bounces(scene: Scene, dirs, hit, color, depth: int, mat_rows,
             return _trace_dense(scene, o, d, dd, "xla", chunk_size,
                                 shadow_lights, bounce_mask)
         c, child_ovf = _trace_child_culled(scene, o, d, act, dd, child_cull,
-                                           shadow_lights, bounce_mask)
+                                           shadow_lights, bounce_mask,
+                                           pallas)
         ovfs.append(child_ovf)
         return c
 
@@ -209,7 +227,8 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     shadow_lights: tuple | None = None,
                     with_cull_stats: bool = False,
                     bounce_mask: tuple | None = None,
-                    child_cull: tuple | None = None):
+                    child_cull: tuple | None = None,
+                    fused_shade: bool = True):
     """Trace rays (R, 3) and shade them, with depth > 0 the bounce children,
     with the analytic winner backward.
 
@@ -217,37 +236,47 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
     reference) and 'pallas': any rays; the dense geometry (plain PyTorch in
     chunks of chunk_size objects, or kernel 7), phong_shade_lit, children
     through the same engine; cull and child_cull are not used.
-    engine 'culled_pallas': tile-major rays sharing one origin; culled
-    narrow phase, survivor-routed materials, fused shade. cull = (tile_p,
+    engines 'culled' and 'culled_pallas': tile-major rays sharing one
+    origin; the culled narrow phase (plain PyTorch, or the kernels),
+    survivor-routed materials, then on culled_pallas with fused_shade (the
+    default) the fused shade kernel, else phong_shade_lit. cull = (tile_p,
     kp, ks[, hot_m[, kb, ksb]]); child_cull = (tile_p, kp, ks, hot_m, kb,
-    ksb[, hot_p]) traces the bounce children on the culled path, None
-    traces them densely on 'xla'.
+    ksb[, hot_p]) traces the bounce children on the same engine's culled
+    path ('culled' has no hot-primary pass and ignores hot_p), None traces
+    them densely on 'xla'.
 
-    shadow_lights: static per-light bools (engines 'xla' and
-    culled_pallas; kernel 7 casts every light); None casts every light.
+    shadow_lights: static per-light bools (engines 'xla' and the culled
+    ones; kernel 7 casts every light); None casts every light.
     bounce_mask: static (has_refl, has_refr); None reads the material table
     on the host (static_bounce_mask). Returns colors (R, 3), black on
     misses, and with with_cull_stats also a device int32 scalar counting
     (tile, list) slots that overflowed their static K over every culled
     level (always 0 for the dense engines, which drop nothing)."""
     _check_engine(engine)
-    if engine != CULLED:
+    if engine not in CULLED:
         return _trace_dense(scene, origins, dirs, depth, engine, chunk_size,
                             shadow_lights, bounce_mask, with_cull_stats)
     if cull is None:
         raise ValueError(
             f"engine='{engine}' needs cull=(tile_p, kp, ks[, hot_m[, kb, "
             "ksb]])")
+    pallas = engine == CULLED_PALLAS
     tile_p, kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
-    hit, occ, aux = culled_geometry_op(scene, origins, dirs, tile_p, kp, ks,
-                                       shadow_lights, hot_m, kb, ksb)
+    geometry_op_ = (culled.culled_geometry_op if pallas
+                    else accel.culled_geometry_op)
+    hit, occ, aux = geometry_op_(scene, origins, dirs, tile_p, kp, ks,
+                                 shadow_lights, hot_m, kb, ksb)
     mat_rows = culled_material_rows(scene, hit, aux, tile_p)
-    color = shade_fused(scene, dirs, hit, occ, mat_rows)
+    if pallas and fused_shade:
+        color = shade_fused(scene, dirs, hit, occ, mat_rows)
+    else:
+        color = phong_shade_lit(scene, dirs, hit, occ, mat_rows=mat_rows)
     if depth > 0 and bounce_mask is None:
         bounce_mask = static_bounce_mask(scene)
     color, child_ovf = _culled_bounces(scene, dirs, hit, color, depth,
                                        mat_rows, child_cull, shadow_lights,
-                                       bounce_mask, chunk_size=chunk_size)
+                                       bounce_mask, pallas,
+                                       chunk_size=chunk_size)
     color = torch.where(hit.hit[:, None], color, 0.0)
     if with_cull_stats:
         ovf = cull_overflow_count(aux)
@@ -295,7 +324,7 @@ def pick_tracer(scene: Scene, engine: str = "auto",
     scene is unused, as in the reference's signature (the tracer takes its
     own)."""
     _check_engine(engine)
-    if engine == CULLED:
+    if engine in CULLED:
         raise ValueError(f"pick_tracer: engine '{engine}' needs a cull "
                          "spec; call trace_rays_fast or render with cull")
     if engine == "autodiff":
@@ -436,23 +465,27 @@ def trace_rays_stack(scene: Scene, origins, dirs, depth: int,
     trace_rays_fast cast.
 
     engine 'xla' ('auto') or 'pallas' (kernel 7) with cull None: the dense
-    geometry_op and phong_shade_lit, as the tree. engine 'culled_pallas'
-    with cull = (tile_p, kp, ks, hot_m, kb, ksb, hot_p): every step, the
-    root included, takes the secondary-ray culled path (bounce cones over
-    the step's live rays, kernel 2 cold and, on the hot_p budget, hot,
-    kernel B, survivor-routed materials); rays in tile-major order, which
-    every step keeps. Size the spec with accel.suggest_stack_cull_config.
+    geometry_op and phong_shade_lit, as the tree. engines 'culled' and
+    'culled_pallas' with cull = (tile_p, kp, ks, hot_m, kb, ksb, hot_p):
+    every step, the root included, takes the secondary-ray culled path
+    (bounce cones over the step's live rays, survivor-routed materials):
+    on culled_pallas kernel 2 cold and, on the hot_p budget, hot, and
+    kernel B; on 'culled' the plain-PyTorch narrow phase, which has no
+    hot-primary pass (hot_p is not used, and a list the deep bundles
+    outgrow is counted as overflow). Rays in tile-major order, which every
+    step keeps. Size the spec with accel.suggest_stack_cull_config.
     with_cull_stats: also return the overflow summed over every step (a
     device int32 scalar, 0 on the dense engines). Under autograd each step
     runs under torch.utils.checkpoint and is recomputed in the backward."""
     _check_engine(engine)
     if engine == "autodiff":
         raise ValueError("trace_rays_stack supports engines 'xla' ('auto'), "
-                         "'pallas' and, with cull, 'culled_pallas'; not "
-                         "'autodiff'")
-    if (cull is not None) != (engine == CULLED):
+                         "'pallas' and, with cull, 'culled' and "
+                         "'culled_pallas'; not 'autodiff'")
+    if (cull is not None) != (engine in CULLED):
         raise ValueError(f"engine '{engine}' with cull={cull}: a cull spec "
-                         "goes with engine 'culled_pallas' and only with it")
+                         "goes with engines 'culled' and 'culled_pallas' "
+                         "and only with them")
     if bounce_mask is None:
         bounce_mask = static_bounce_mask(scene)
     has_refl, has_refr = bounce_mask
@@ -461,12 +494,16 @@ def trace_rays_stack(scene: Scene, origins, dirs, depth: int,
         tile_p, kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
         if isinstance(tile_p, tuple):
             tile_p = tile_p[0] * tile_p[1]
-        hot_p = cull_hot_p(cull)
+        if engine == CULLED_PALLAS:
+            bounce_op = functools.partial(culled.bounce_culled_geometry_op,
+                                          hot_p=cull_hot_p(cull))
+        else:
+            bounce_op = accel.bounce_culled_geometry_op
 
         def cast(o, d, w):
-            hit, occ, aux = bounce_culled_geometry_op(
+            hit, occ, aux = bounce_op(
                 scene, o, d, w[:, 0] > 0.0, tile_p, kp, ks, shadow_lights,
-                hot_m, kb, ksb, hot_p=hot_p)
+                hot_m, kb, ksb)
             mat_rows = culled_material_rows(scene, hit, aux, tile_p)
             color = phong_shade_lit(scene, d, hit, occ, mat_rows=mat_rows)
             return (torch.where(hit.hit[:, None], color, 0.0), hit,
@@ -550,21 +587,25 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
            with_cull_stats: bool = False, device=None,
            bounce_mask: tuple | None = None,
            child_cull: tuple | None = None, bounce: str = "tree",
-           mirror_only: bool = False):
+           mirror_only: bool = False, fused_shade: bool = True):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
 
     The dense engines ('auto' = 'xla', the default; 'autodiff'; 'pallas')
     trace the rays in raster order, at any depth, with no cull spec:
     chunk_size objects a chunk ('xla', 'autodiff'), and with row_block the
     image in blocks of row_block rows (it must divide height), which bounds
-    the memory of a trace. engine 'culled_pallas' needs cull = ((tile_h,
-    tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it with
-    ops/accel.suggest_cull_config (counts above K drop objects and are
-    reported through with_cull_stats) — and takes no row_block (it is
-    tile-blocked already). At depth > 0 its children are traced on the
-    culled path with child_cull = ((tile_h, tile_w), kp, ks, hot_m, kb,
-    ksb[, hot_p]) with the parent's tile, sized by
-    ops/accel.suggest_child_cull_config, and densely on 'xla' without it.
+    the memory of a trace. The culled engines 'culled' and 'culled_pallas'
+    need cull = ((tile_h, tile_w), kp, ks[, hot_m[, kb, ksb]]) — size it
+    with ops/accel.suggest_cull_config (counts above K drop objects and
+    are reported through with_cull_stats) — and take no row_block (they
+    are tile-blocked already). At depth > 0 their children are traced on
+    the culled path with child_cull = ((tile_h, tile_w), kp, ks, hot_m,
+    kb, ksb[, hot_p]) with the parent's tile, sized by
+    ops/accel.suggest_child_cull_config (with hot_primary=False for
+    'culled', whose children have no hot-primary pass), and densely on
+    'xla' without it. fused_shade: culled_pallas shades its primary rays
+    with the fused shade kernel (the default), or with phong_shade_lit;
+    'culled' always with phong_shade_lit.
     shadow_lights and bounce_mask: static masks; None reads the light
     (material) table on the host, which waits for the device — pass them
     to keep the frame sync-free ('pallas' and 'autodiff' cast every light
@@ -574,32 +615,32 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
 
     bounce: 'tree' (the static unroll) or 'stack' (trace_rays_stack: one
     cast a tree node in depth-first order, O(depth) rays held in a
-    backward) on 'auto', 'xla', 'pallas' and culled_pallas, not
-    'autodiff'. On culled_pallas the stack traces every step, the root
-    included, on the secondary-ray path with the one spec cull = ((tile_h,
-    tile_w), kp, ks, hot_m, kb, ksb, hot_p) of
-    ops/accel.suggest_stack_cull_config; child_cull is not used there.
-    mirror_only: the dense engines trace the reflection chain alone
+    backward) on every engine but 'autodiff'. On the culled engines the
+    stack traces every step, the root included, on the secondary-ray path
+    with the one spec cull = ((tile_h, tile_w), kp, ks, hot_m, kb, ksb,
+    hot_p) of ops/accel.suggest_stack_cull_config; child_cull is not used
+    there. mirror_only: the dense engines trace the reflection chain alone
     (trace_rays_mirror, through closest_hit and phong_shade whatever the
-    engine, refraction ignored); culled_pallas ignores it, as the reference
-    does."""
+    engine, refraction ignored); the culled engines ignore it, as the
+    reference does."""
     _check_engine(engine)
     if bounce not in ("tree", "stack"):
         raise ValueError(f"bounce '{bounce}': 'tree' or 'stack'")
     stack = bounce == "stack" and not mirror_only
     if stack and engine == "autodiff":
         raise ValueError("bounce='stack' supports engines 'auto', 'xla', "
-                         "'pallas' and 'culled_pallas', not 'autodiff'")
+                         "'pallas', 'culled' and 'culled_pallas', not "
+                         "'autodiff'")
     device = (torch.device(device) if device is not None
               else camera.position.device)
     _check_device(scene, camera, device)
-    if shadow_lights is None and engine in ("auto", "xla", CULLED):
+    if shadow_lights is None and engine in ("auto", "xla") + CULLED:
         shadow_lights = static_shadow_mask(scene)
     if bounce_mask is None:
         bounce_mask = static_bounce_mask(scene) if depth > 0 \
             else (True, True)
     origins, dirs = generate_rays(camera, height, width)
-    if engine != CULLED:
+    if engine not in CULLED:
         if stack:
             def tracer(s, o, d, depth, chunk_size=512):
                 return trace_rays_stack(s, o, d, depth, chunk_size=chunk_size,
@@ -662,7 +703,8 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
                               cull=(th * tw, kp, ks, hot_m, kb, ksb),
                               shadow_lights=shadow_lights,
                               with_cull_stats=with_cull_stats,
-                              bounce_mask=bounce_mask, child_cull=cc)
+                              bounce_mask=bounce_mask, child_cull=cc,
+                              fused_shade=fused_shade)
     if with_cull_stats:
         colors, ovf = out
         return untile_image(colors, height, width, th, tw), ovf

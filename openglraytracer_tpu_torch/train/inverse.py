@@ -4,9 +4,9 @@ descent.
 Port of ``openglraytracer_tpu/train/inverse.py`` for the single-device fit
 on the hard engines: the dense engines ``'auto'`` (= ``'xla'``, the
 default), ``'xla'``, ``'autodiff'`` and ``'pallas'`` at any depth, with no
-cull spec; and ``culled_pallas`` with a cull spec, its bounce children on
-the culled path with a child spec (``FitConfig.child_cull``) and densely on
-``'xla'`` without one. Trainable leaves are chosen by
+cull spec; and the culled engines ``'culled'`` and ``culled_pallas`` with a
+cull spec, their bounce children on the culled path with a child spec
+(``FitConfig.child_cull``) and densely on ``'xla'`` without one. Trainable leaves are chosen by
 dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
 a render, and its gradient runs through the shade's backward and the
@@ -71,9 +71,11 @@ class FitConfig:
     trainable: tuple = DEFAULT_TRAINABLE
     log_every: int = 10
     engine: str = "auto"    # 'auto' | 'xla' | 'autodiff' | 'pallas' |
-    # 'culled_pallas'
-    # culled_pallas only: ((th, tw), kp, ks[, hot_m[, kb, ksb]]), and the
-    # bounce-child spec (children traced densely on 'xla' without it)
+    # 'culled' | 'culled_pallas'
+    # the culled engines only: ((th, tw), kp, ks[, hot_m[, kb, ksb]]), and
+    # the bounce-child spec (children traced densely on 'xla' without it;
+    # size it with suggest_child_cull_config(hot_primary=False) for
+    # 'culled')
     cull: tuple | None = None
     child_cull: tuple | None = None
     row_block: int | None = None    # dense engines: bound a trace's memory
@@ -101,10 +103,10 @@ def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
         raise NotImplementedError(
             f"engine '{cfg.engine}' is not yet ported; fit with one of "
             f"{ENGINES} (see ROADMAP.md)")
-    if cfg.engine == CULLED and cfg.cull is None:
+    if cfg.engine in CULLED and cfg.cull is None:
         raise ValueError(f"engine '{cfg.engine}' needs FitConfig.cull; size "
                          "it with ops/accel.suggest_cull_config")
-    if cfg.engine == CULLED and cfg.row_block is not None:
+    if cfg.engine in CULLED and cfg.row_block is not None:
         raise ValueError(f"row_block is not supported with engine "
                          f"'{cfg.engine}' (the culled path is already "
                          "tile-blocked)")

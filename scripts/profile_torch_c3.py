@@ -3,9 +3,10 @@ device time.
 
     python scripts/profile_torch_c3.py [--scene c1_sphere_plane|
         c2_eight_spheres|c3_grid64|c4_mirror|c5_grid4096|c4_mirror4096|
-        animated_obb|glass_obb|glass4096] [--engine culled_pallas|pallas|
-        xla] [--depth D] [--bounce tree|stack] [--frames 5] [--train]
-        [--ops] [--out-dir DIR]
+        animated_obb|glass_obb|glass4096|glass1024] [--engine
+        culled_pallas|culled|pallas|xla] [--child-cull] [--depth D]
+        [--bounce tree|stack] [--frames 5] [--train] [--ops]
+        [--out-dir DIR]
 
 Renders the scene (c1_sphere_plane: 256x256, depth 0; c2_eight_spheres:
 512x512, depth 0; c3_grid64: 1024x1024, depth 0, 64x64 tiles; c4_mirror:
@@ -17,10 +18,16 @@ glass_obb: the same world at 1024x1024, depth 4, the reference's
 glass_stack_depth4 row; glass4096: glass_grid_scene(), 4096 glass spheres,
 1024x1024, depth 4, 32x32 tiles, the reference's glass4096_stack_culled
 row, whose stack spec is suggest_stack_cull_config with headroom 2 and
-Ks = N; --depth overrides the depth; --bounce stack runs the stack bounce
-engine, frames only) with engine culled_pallas or a dense engine (pallas,
-kernel 7, or xla, plain PyTorch; no cull spec, children through the same
-engine) on the GPU under torch.profiler — or, with --train, runs its
+Ks = N; glass1024: glass_grid_scene(32), 1024 glass spheres, 256x256,
+depth 4, 32x32 tiles, the same spec, chip_smoke.py's stack cell on
+'culled'; --depth overrides the depth; --bounce stack runs the stack bounce
+engine, frames only) with a culled engine (culled_pallas, the kernels, or
+culled, the narrow phase in plain PyTorch; the bounce children culled with
+--child-cull, sized with suggest_child_cull_config(hot_primary=False) on
+culled, and on culled_pallas always on c4_mirror4096, the reference's row;
+else traced densely on 'xla') or a dense engine (pallas, kernel 7, or xla,
+plain PyTorch; no cull spec, children through the same engine) on the GPU
+under torch.profiler — or, with --train, runs its
 training step (forward, backward and an SGD step of mean(img^2) with
 respect to spheres.center, spheres.radius and materials.diffuse, and for
 animated_obb also boxes.position and boxes.angles) — and prints the device
@@ -32,8 +39,8 @@ it; median of 5) and its peak device memory
 (torch.cuda.max_memory_allocated). With --out-dir it also writes the
 Chrome trace there.
 c1_sphere_plane, c2_eight_spheres, animated_obb and glass_obb take only
-the dense engines, c5_grid4096, c4_mirror4096 and glass4096 only
-culled_pallas.
+the dense engines, c5_grid4096, c4_mirror4096, glass4096 and glass1024
+only the culled ones.
 """
 
 from __future__ import annotations
@@ -52,9 +59,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # (None: dense engines only)
 TILES = {"c1_sphere_plane": None, "c2_eight_spheres": None, "c3_grid64": 64,
          "c4_mirror": 64, "c5_grid4096": 32, "c4_mirror4096": 32,
-         "animated_obb": None, "glass_obb": None, "glass4096": 32}
-# the scenes whose benchmark row culls the bounce children too
+         "animated_obb": None, "glass_obb": None, "glass4096": 32,
+         "glass1024": 32}
+# the scenes whose culled_pallas benchmark row culls the bounce children
 CHILD_CULL = ("c4_mirror4096",)
+CULLED = ("culled_pallas", "culled")
 OBB_TIME = 1.2
 OBB_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse",
                  "boxes.position", "boxes.angles")
@@ -76,7 +85,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scene", default="c3_grid64", choices=list(TILES))
     p.add_argument("--engine", default="culled_pallas",
-                   choices=["culled_pallas", "pallas", "xla"])
+                   choices=["culled_pallas", "culled", "pallas", "xla"])
+    p.add_argument("--child-cull", action="store_true",
+                   help="cull the bounce children (a culled engine)")
     p.add_argument("--depth", type=int, default=None,
                    help="overrides the scene's depth")
     p.add_argument("--bounce", default="tree", choices=["tree", "stack"])
@@ -92,7 +103,9 @@ def main(argv=None):
         raise SystemExit("needs a CUDA device")
 
     dev = torch.device("cuda", 0)
-    dense = args.engine != "culled_pallas"
+    dense = args.engine not in CULLED
+    if args.child_cull and dense:
+        raise SystemExit("--child-cull needs a culled engine")
     if args.train and args.bounce == "stack":
         raise SystemExit("--bounce stack profiles frames only")
     if args.scene == "animated_obb":
@@ -103,9 +116,11 @@ def main(argv=None):
         scene, cam = reference_frame(OBB_TIME, device=dev)
         h, w, depth = 1024, 1024, 4
         trainable = OBB_TRAINABLE
-    elif args.scene == "glass4096":
-        scene, cam = glass_grid_scene(device=dev)
-        h, w, depth = 1024, 1024, 4
+    elif args.scene in ("glass4096", "glass1024"):
+        big = args.scene == "glass4096"
+        scene, cam = glass_grid_scene(64 if big else 32, device=dev)
+        h = w = 1024 if big else 256
+        depth = 4
         trainable = OBB_TRAINABLE[:3]
     else:
         builder, h, w, depth = BENCH_CONFIGS[args.scene]
@@ -114,8 +129,8 @@ def main(argv=None):
     if args.depth is not None:
         depth = args.depth
     if dense and args.scene in ("c5_grid4096", "c4_mirror4096",
-                                "glass4096"):
-        raise SystemExit(f"{args.scene} takes only --engine culled_pallas")
+                                "glass4096", "glass1024"):
+        raise SystemExit(f"{args.scene} takes only a culled engine")
     tile = TILES[args.scene]
     if not dense and tile is None:
         raise SystemExit(f"{args.scene} takes only the dense engines")
@@ -124,14 +139,16 @@ def main(argv=None):
     if not dense and args.bounce == "stack":
         spec = suggest_stack_cull_config(scene, cam, h, w, (tile, tile),
                                          headroom=2.0, shadow_lights=lights)
-        if args.scene == "glass4096":       # dense shadow lists, Ks = N
+        if args.scene.startswith("glass"):  # dense shadow lists, Ks = N
             spec = spec[:2] + (int(scene.spheres.count), 0) + spec[4:]
     elif not dense:
         spec = suggest_cull_config(scene, cam, h, w, (tile, tile),
                                    shadow_lights=lights)
-        child = (suggest_child_cull_config(scene, cam, h, w, spec,
-                                           shadow_lights=lights)
-                 if depth and args.scene in CHILD_CULL else None)
+        if depth and (args.child_cull or (args.engine == "culled_pallas"
+                                          and args.scene in CHILD_CULL)):
+            child = suggest_child_cull_config(
+                scene, cam, h, w, spec, shadow_lights=lights,
+                hot_primary=args.engine == "culled_pallas")
     bmask = static_bounce_mask(scene) if depth else (True, True)
 
     if args.train:

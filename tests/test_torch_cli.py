@@ -80,14 +80,18 @@ def test_kernel_argument_checks():
 
 
 def test_render_rejects_unported_paths():
-    """The XLA culled engine is not ported; the culled engine needs a cull
-    spec and takes no row blocks; row blocks must divide the height."""
+    """An engine the package does not know raises; the culled engines
+    need a cull spec and take no row blocks; row blocks must divide the
+    height."""
     scene, cam = sphere_grid_scene(2, device="cpu")
     spec = ((8, 8), 8, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(scene, cam, 16, 16, engine="culled", cull=spec)
-    with pytest.raises(ValueError, match="cull"):
-        render(scene, cam, 16, 16, engine="culled_pallas")
+        render(scene, cam, 16, 16, engine="soft", cull=spec)
+    for engine in ("culled", "culled_pallas"):
+        with pytest.raises(ValueError, match="cull"):
+            render(scene, cam, 16, 16, engine=engine)
+    with pytest.raises(ValueError, match="row_block"):
+        render(scene, cam, 16, 16, engine="culled", cull=spec, row_block=8)
     with pytest.raises(ValueError, match="row_block"):
         render(scene, cam, 16, 16, engine="culled_pallas", cull=spec,
                row_block=8)
@@ -141,7 +145,8 @@ def test_cli_render_cpu_writes_png(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--child-cull"], ["--engine", "autodiff", "--bounce", "stack"],
     ["--engine", "culled_pallas", "--cull-tile", "24"], ["--time"],
-    ["--engine", "pallas", "--child-cull"], ["--engine", "culled"]])
+    ["--engine", "pallas", "--child-cull"],
+    ["--engine", "culled", "--row-block", "8"]])
 def test_cli_rejects_unserved_flags(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["render", "--scene", "c1_sphere_plane", "--width", "32",
@@ -236,7 +241,8 @@ def test_cli_fit_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--target", "t.png"], ["--scene", "s.json"], ["--soft", "0.3,0.3"],
-    ["--sharded"], ["--checkpoint-dir", "ckpt"], ["--engine", "culled"]])
+    ["--sharded"], ["--checkpoint-dir", "ckpt"],
+    ["--engine", "culled", "--checkpoint-dir", "ckpt"]])
 def test_cli_fit_rejects_unported(flags):
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
@@ -283,7 +289,7 @@ def test_cli_animate_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--gif", "x.gif"], ["--engine", "culled"]])
+    ["--gif", "x.gif"], ["--engine", "culled", "--gif", "x.gif"]])
 def test_cli_animate_rejects_unported(flags, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["animate", "--frames", "1", "--width", "32", "--height",

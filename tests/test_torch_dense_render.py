@@ -156,7 +156,7 @@ def test_dense_engine_needs_no_cull_spec():
     """The dense engines ('pallas', 'xla', 'auto', the default, and
     'autodiff') take no cull spec at any depth; the culled engine still
     needs one (its children do not: without a child spec they are traced
-    on 'xla'); the XLA culled engine is not ported."""
+    on 'xla'), and so does the XLA culled engine 'culled'."""
     scene, cam = reference_frame(0.8)
     tc = to_torch_camera(cam)
     for engine in ("pallas", "xla", "auto", "autodiff"):
@@ -166,7 +166,7 @@ def test_dense_engine_needs_no_cull_spec():
     with pytest.raises(ValueError, match="cull"):
         tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W,
                                                 engine="culled_pallas"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cull"):
         tinv.make_train_step(tc, tinv.FitConfig(height=H, width=W,
                                                 engine="culled"))
 
@@ -174,8 +174,8 @@ def test_dense_engine_needs_no_cull_spec():
 def test_pick_tracer():
     """pick_tracer returns the reference's tracers: 'pallas' and 'xla' as
     trace_rays_fast traces them, 'auto' (the default) as 'xla', 'autodiff'
-    as trace_rays; the culled engines need a cull spec, and 'culled' is not
-    ported."""
+    as trace_rays; the culled engines, 'culled' and culled_pallas, need a
+    cull spec."""
     scene, cam = reference_frame(0.8)
     ts = to_torch_scene(scene)
     o, d = to_torch(*_flat_rays(cam))
@@ -191,5 +191,5 @@ def test_pick_tracer():
                            t_render_mod.trace_rays_fast(ts, o, d, 1))
     with pytest.raises(ValueError, match="cull"):
         t_render_mod.pick_tracer(ts, "culled_pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cull"):
         t_render_mod.pick_tracer(ts, "culled")

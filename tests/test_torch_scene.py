@@ -41,7 +41,8 @@ def test_builders_bit_equal(name):
 
 def test_builders_and_loaders_default_to_cuda():
     """Every public function of the port that builds or loads a scene, a
-    camera or part of a scene puts it on the GPU unless asked otherwise,
+    camera, part of a scene or a camera's pixel grid (ops/raygen.py) puts
+    it on the GPU unless asked otherwise,
     as the JAX package's builders put theirs on its default device. Found
     by inspecting each signature. Without a card a default call raises:
     it never falls back to the CPU."""
@@ -49,7 +50,7 @@ def test_builders_and_loaders_default_to_cuda():
 
     from openglraytracer_tpu_torch.models import animated as ta
     found = {}
-    for mod in (tb, ts, ta):
+    for mod in (tb, ts, ta, tr):
         for name, fn in vars(mod).items():
             if (name.startswith("_") or not inspect.isfunction(fn)
                     or fn.__module__ != mod.__name__):
@@ -66,11 +67,14 @@ def test_builders_and_loaders_default_to_cuda():
             "reference_scene", "reference_camera", "reference_frame",
             "scene_from_numpy", "camera_from_numpy", "scene_from_dict",
             "camera_from_dict", "load_scene_camera", "make_camera",
-            "make_materials", "make_lights"} <= short, sorted(short)
+            "make_materials", "make_lights", "pixel_ndc"} <= short, \
+        sorted(short)
     assert {k: v for k, v in found.items() if v != "cuda"} == {}
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             tb.sphere_grid_scene(2)
+        with pytest.raises((AssertionError, RuntimeError)):
+            tr.pixel_ndc(4, 4)
 
 
 def test_scene_from_numpy_is_exact():
@@ -150,7 +154,7 @@ def test_pixel_ndc_integer_division(hw):
     """NDC from integer half sizes, odd sizes included: exact."""
     h, w = hw
     jx, jy = jr.pixel_ndc(h, w)
-    tx, ty = tr.pixel_ndc(h, w)
+    tx, ty = tr.pixel_ndc(h, w, device="cpu")
     np.testing.assert_array_equal(np_(tx), np_(jx))
     np.testing.assert_array_equal(np_(ty), np_(jy))
 
