@@ -25,7 +25,9 @@ culled_pallas). Engine 'culled' (the XLA culled engine: the culled narrow
 phase in plain PyTorch, kernel 6 on masks of 1024 objects or more): the
 reference's rows c3_grid64_culled_xla, c5_grid4096_culled_xla,
 c4_mirror4096_xlachild and c4_mirror4096_densechild, and the stack on
-'culled' (a 1024-sphere glass grid). Every call names its engine. It
+'culled' (a 1024-sphere glass grid). The training extras: the reference's
+config 5 fit on c5's scene, its soft multi-view step and its checkpointed
+hard stage, and remat on 'autodiff'. Every call names its engine. It
 exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
@@ -170,6 +172,26 @@ exits non-zero on any failure. Phases:
      it and the image and gradients against the culled_pallas stack
      reported (the glass grid's centers' gradient is singular, see 24),
      frame and step timed
+ 30. the training extras, the reference's config 5 fit
+     (scripts/c5_fit_acceptance.py, ported as scripts/c5_fit_torch.py) on
+     c5's scene (4096 spheres): its soft multi-view step (3 views orbited
+     0 and +-45 degrees, train/inverse.make_train_step with FitConfig.soft
+     and a tuple of soft specs from suggest_soft_cull, headroom 2) at
+     512x512 (16x16 tiles, bw 0.5, gamma 0.6) and 2048x2048 (32x32 tiles,
+     bw 0.09, gamma 0.1): kernel 6 launched 3 times a step (one soft mask
+     a view) and equal to its plain version on every mask, no overflow,
+     3 windows of chained steps under set_sync_debug_mode("error"), the
+     step's device time and its peak memory above the resident, kernel 6
+     timed on a soft mask beside its plain version and its bound; on one
+     view at 512x512, over the 4x4 middle tiles, the culled soft image and
+     gradients against the dense soft pass and the plain compaction
+ 31. a checkpointed hard stage: the reference's final stage (engine
+     'culled', suggest_cull_config(hot=False, headroom 2), 2048x2048):
+     an uninterrupted fit, a fit saving every 2 steps and a fresh fit from
+     the same directory that restores the saved step, runs only the rest
+     and ends at the uninterrupted fit's parameters bit for bit (torch's
+     deterministic algorithms on); then c3 'autodiff' with remat off and
+     on: equal gradients, step time and peak memory reported
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
 launch name: its time, its plain version's, its bound (the least time the
@@ -301,6 +323,26 @@ XLA_ROW_BLOCK = 256
 # table at once, and those float32 sums of millions of rays differ by
 # 3.5e-3 of max|g| at c5); the other engine's reported
 XLA_HELD_GRADS = {"spheres": "'xla'", "materials": "culled_pallas"}
+# the training extras (phases 30-31), the reference's config 5 fit
+# (scripts/c5_fit_acceptance.py): the soft step's cells, the first and last
+# of its soft stages, as (res, tile side, bw, gamma, geo lr, photo lr, the
+# steps counted, which warm the timing, the steps a timing window holds; a
+# 2048x2048 step takes 7.3 s on the H100); the view, size and cut
+# of middle tiles where the culled soft pass is held to the dense one and to
+# the plain compaction; the culled pass keeps every sphere above the alpha
+# cut, so it equals the dense pass to rounding (1.2e-7 on the image, 3e-6
+# of max|g|, measured on the CPU)
+SOFT_CELLS = ((512, 16, 0.50, 0.60, 1.2e-2, 3.0e-2, 2, 1),
+              (2048, 32, 0.09, 0.10, 2.0e-3, 6.0e-3, 1, 1))
+SOFT_CHECK_RES, SOFT_CHECK_SIDE = 512, 4
+SOFT_DENSE_ATOL, SOFT_DENSE_GRAD_TOL = 1e-5, 1e-4
+# the checkpointed hard stage: (steps uninterrupted, steps of the first run,
+# checkpoint_every); the fresh fit resumes to the first number (a step
+# takes 2.7 s at 2048x2048 under torch's deterministic algorithms)
+CKPT_STEPS = (4, 2, 2)
+# remat on 'autodiff': the same ops recomputed; the gathers' backward adds
+# may run in another order on the card
+REMAT_TOL = 1e-6
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
@@ -1085,7 +1127,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/29] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/31] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1125,7 +1167,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/29] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/31] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1234,7 +1276,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/29] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/31] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1283,7 +1325,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/29] timing, forward and training step ({smi})")
+    log(f"[12/31] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1421,7 +1463,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/29] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/31] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1534,7 +1576,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/29] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/31] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1603,7 +1645,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/29] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/31] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1637,7 +1679,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/29] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/31] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1700,7 +1742,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/29] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/31] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1837,7 +1879,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 18. 'xla' against kernel 7
     t0 = time.perf_counter()
-    log("[18/29] engine 'xla' (plain PyTorch) against engine 'pallas' "
+    log("[18/31] engine 'xla' (plain PyTorch) against engine 'pallas' "
         "(kernel 7) and 'auto', full size")
     for cfg, pth in paths.items():
         kernels.LAUNCHES.clear()
@@ -1870,7 +1912,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                                      (64, 64), shadow_lights=c4m["lights"])
     c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
         ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
-    log(f"[19/29] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+    log(f"[19/31] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
         f"spec {spec}, no child spec (children on 'xla'); shadow lights "
         f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
     kernels.LAUNCHES.clear()
@@ -1942,7 +1984,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 20. the reference's rows on 'auto'
     t0 = time.perf_counter()
-    log(f"[20/29] engine 'auto': frame and training step timing ({smi})")
+    log(f"[20/31] engine 'auto': frame and training step timing ({smi})")
     for cfg in ("c1_sphere_plane", "c2_eight_spheres",
                 "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
         pth = paths[cfg]
@@ -1969,7 +2011,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 21. 'autodiff' against the analytic backward
     t0 = time.perf_counter()
-    log("[21/29] engine 'autodiff' (autograd through the chunked scan) "
+    log("[21/31] engine 'autodiff' (autograd through the chunked scan) "
         "against 'xla' (the analytic backward): gradients of mean(img^2)")
     cells = {f"animated_obb_720p_depth{d}": paths[
         f"animated_obb_720p_depth{d}"] for d in (0, 1)}
@@ -2067,7 +2109,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     check(bm == (True, True), f"the glass world's bounce mask is {bm}")
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[22/29] glass_stack_depth4: reference_frame({OBB_TIME}) at "
+    log(f"[22/31] glass_stack_depth4: reference_frame({OBB_TIME}) at "
         f"{w}x{h}, depth {STACK_DEPTH} ({n_steps} casts a pixel), shadow "
         f"lights {sm}; engines 'xla' and 'pallas', stack against tree; "
         f"{n_rays} rays/frame ({smi})")
@@ -2163,7 +2205,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
         want["primary_hit_hot"] = n_steps
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[23/29] glass4096_stack_culled: glass_grid_scene() ({n} glass "
+    log(f"[23/31] glass4096_stack_culled: glass_grid_scene() ({n} glass "
         f"spheres), {w}x{h}, depth {STACK_DEPTH}, engine culled_pallas, "
         f"bounce 'stack', spec {spec}, shadow lights {sm}; launches a frame "
         f"by the code: {want}; {n_rays} rays/frame")
@@ -2300,7 +2342,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     spec = ((STACK_TILE, STACK_TILE), n, n, 0, 0, 0)
     sm = shading.static_shadow_mask(scene)
     bm = shading.static_bounce_mask(scene)
-    log(f"[24/29] culled stack gradients: glass_grid_scene({side}) ({n} "
+    log(f"[24/31] culled stack gradients: glass_grid_scene({side}) ({n} "
         f"spheres), {gh}x{gh}, depth {gdepth}, spec {spec} (no list can "
         f"overflow), culled_pallas against its plain versions, 'pallas' "
         f"and 'xla'; then render(mirror_only=True) on c4_mirror")
@@ -2508,7 +2550,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
         kw = dict(depth=depth, shadow_lights=lights, bounce_mask=bmask)
         n_rays = rays_per_frame(h, w, scene.lights.count, depth,
                                 shadow_lights=lights, bounce_mask=bmask)
-        log(f"[{25 + i}/29] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
+        log(f"[{25 + i}/31] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
             f"'culled', spec {spec}"
             + (f", child spec {child} (hot_primary=False; culled_pallas's "
                f"{ref_child})" if child else "")
@@ -2594,7 +2636,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
     n_rays = rays_per_frame(hw, hw, scene.lights.count, depth,
                             shadow_lights=sm)
     trainable = ("spheres.center", "materials.diffuse")
-    log(f"[29/29] the stack on 'culled': glass_grid_scene({side}) ({n} "
+    log(f"[29/31] the stack on 'culled': glass_grid_scene({side}) ({n} "
         f"glass spheres), {hw}x{hw}, depth {depth} ({n_steps} casts a "
         f"pixel), bounce mask {bm}, spec {spec}; kernel 6 a frame by the "
         f"code: {want}, twice that a forward+backward (each step is "
@@ -2656,6 +2698,326 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
     return launches
 
 
+def _c5_fit_script():
+    """scripts/c5_fit_torch.py as a module: its curriculum constants, its
+    orbited cameras and its optimizer."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts" / "c5_fit_torch.py"
+    spec = importlib.util.spec_from_file_location("c5_fit_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _perturbed(torch, scene, dev):
+    """The c5 fit's starting scene: centers, radii and diffuse colors
+    perturbed with noise from a torch.Generator seeded with 0, as
+    scripts/c5_fit_torch.py perturbs them."""
+    gen = torch.Generator().manual_seed(0)
+    sph, mats = scene.spheres, scene.materials
+
+    def noise(x):
+        return torch.randn(x.shape, generator=gen).to(dev)
+    return scene._replace(
+        spheres=sph._replace(
+            center=sph.center + 0.1 * noise(sph.center),
+            radius=torch.clamp(sph.radius + 0.05 * noise(sph.radius),
+                               min=0.1)),
+        materials=mats._replace(diffuse=torch.clamp(
+            mats.diffuse + 0.3 * noise(mats.diffuse), 0.0, 1.0)))
+
+
+def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
+                        smi, lib_dir):
+    """Phases 30-31: the reference's config 5 fit (BASELINE.json config 5,
+    scripts/c5_fit_acceptance.py) at full width, 4096 spheres. 30: the soft
+    multi-view step (three orbited views) at 512x512 and 2048x2048, kernel
+    6 launched as counted and equal to its plain version on every mask,
+    timed with its device time and memory; on one view at 512x512 the
+    culled soft forward and its gradients against the dense soft pass and
+    the plain compaction. 31: the hard stage's engine and spec at
+    2048x2048, a checkpointed fit resumed by a fresh fit equal to an
+    uninterrupted one bit for bit; and c3 'autodiff' with remat on and
+    off. Returns (the per-path launch counts, kernel 6's soft cells)."""
+    import shutil
+    from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
+                                                           sphere_grid_scene)
+    from openglraytracer_tpu_torch.ops.soft import (soft_render,
+                                                    suggest_soft_cull)
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig, fit,
+                                                         get_path,
+                                                         make_train_step)
+    c5fit = _c5_fit_script()
+    launches, cells = {}, {}
+    scene_true, cam = sphere_grid_scene(64, seed=1, device=dev)
+    scene_init = _perturbed(torch, scene_true, dev)
+    cams = tuple(c5fit.orbit_camera(cam, v) for v in c5fit.SOFT_VIEWS)
+    trainable = c5fit.TRAINABLE
+    # the camera inverse's LU and the rays' arithmetic run on the card: on
+    # the CPU's camera matrices both equal the CPU's (which equal the
+    # reference's, tests/test_torch_scene.py) bit for bit; end to end the
+    # rays also take the card's float32 tan, sin and cos, an ulp off the
+    # CPU's at places, which a far camera magnifies (reported)
+    from openglraytracer_tpu_torch.ops import raygen
+    from openglraytracer_tpu_torch.ops.transforms import inv4
+    ray_err = 0.0
+    for c in cams:
+        on_cpu = c._replace(**{k: v.cpu() for k, v in c._asdict().items()})
+        mats = raygen.camera_matrices(on_cpu)
+        want = raygen.generate_rays(on_cpu, 512, 512)[1]
+        proj, view = mats[0], mats[1]
+        pv = proj[:, 0:1] * view[0:1, :]
+        for k in range(1, 4):
+            pv = pv + proj[:, k:k + 1] * view[k:k + 1, :]
+        check(torch.equal(inv4(pv.to(dev)).cpu(), mats[2]),
+              "the camera inverse on the card differs from the CPU's")
+        real = raygen.camera_matrices
+        raygen.camera_matrices = lambda cam_: tuple(m.to(dev) for m in mats)
+        try:
+            same = raygen.generate_rays(c, 512, 512)[1].cpu()
+        finally:
+            raygen.camera_matrices = real
+        check(torch.equal(same, want), "the card's ray arithmetic differs "
+              "from the CPU's on the same camera matrices")
+        got = raygen.generate_rays(c, 512, 512)[1].cpu()
+        ray_err = max(ray_err, float((got - want).abs().max()))
+    log(f"  on the CPU's camera matrices the card's camera inverse and rays "
+        f"of the {len(cams)} views at 512x512 equal the CPU's bit for bit; "
+        f"end to end, with the card's trig, {ray_err:.3e} off (reported)")
+
+    # ---- 30. the soft multi-view step
+    for res, tile, bw, gamma, geo_lr, photo_lr, n_steps, frames in SOFT_CELLS:
+        t0 = time.perf_counter()
+        cell = f"c5_soft_{res}"
+        culls = tuple(suggest_soft_cull(scene_true, c, res, res,
+                                        (tile, tile), bw, headroom=2.0)
+                      for c in cams)
+        with torch.no_grad():
+            target = torch.stack([
+                soft_render(scene_true, c, res, res, bw=bw, gamma=gamma,
+                            cull=cu) for c, cu in zip(cams, culls)])
+        cfg = FitConfig(height=res, width=res, trainable=trainable,
+                        soft=(bw, gamma), cull=culls)
+        init_fn, step_fn = make_train_step(
+            cams, cfg, optimizer=c5fit.make_optimizer(100, geo_lr, photo_lr))
+        params, opt = init_fn(scene_init)
+        want = {"compact_mask": len(cams)}
+        log(f"[30/31] {cell}: sphere_grid_scene(64), {res}x{res}, "
+            f"{tile}x{tile} tiles, bw {bw}, gamma {gamma}, views "
+            f"{c5fit.SOFT_VIEWS}, soft specs {culls} "
+            f"(suggest_soft_cull, headroom 2); kernel 6 a step by the code: "
+            f"{want}; setup {time.perf_counter() - t0:.1f} s ({smi})")
+        with Capture(culled, shade, accel) as cap:
+            kernels.LAUNCHES.clear()
+            outs = [step_fn(params, opt, scene_init, target)
+                    for _ in range(n_steps)]
+            torch.cuda.synchronize()
+            got = dict(kernels.LAUNCHES)
+        launches[f"train_step_{cell}"] = got
+        ovfs = [int(o[3]) for o in outs]
+        losses = [float(o[2]) for o in outs]
+        log(f"  launches over {n_steps} steps: {got}; losses {losses}; "
+            f"overflow {ovfs}")
+        check(got == {k: v * n_steps for k, v in want.items()},
+              f"{cell}: launches {got}, want {n_steps} x {want}")
+        check(all(o == 0 for o in ovfs), f"{cell}: soft cull overflow")
+        check(all(v == v and abs(v) < float("inf") for v in losses),
+              f"{cell}: non-finite loss")
+        masks = cap.calls[:len(cams)]
+        for mask, k in masks:
+            ki, kv, kc = accel.compact_mask(mask, k)
+            pi, pv, pc = accel.compact_mask_plain(mask, k)
+            check(torch.equal(kv, pv) and torch.equal(kc, pc)
+                  and torch.equal(ki * kv, pi * pv)
+                  and not bool(ki[~kv].any()),
+                  f"{cell}: kernel 6 disagrees with its plain version on a "
+                  f"{tuple(mask.shape)} mask")
+        log(f"  kernel 6 equal to its plain version on the first step's "
+            f"{len(masks)} masks {[tuple(m.shape) for m, _ in masks]}")
+        del outs, cap
+        timing = time_cell(torch, cell, "soft step (3 views)",
+                           lambda: step_fn(params, opt, scene_init, target),
+                           3, len(cams) * res * res, warm=0, windows=3,
+                           frames=frames, dev_reps=1)
+        mask, k = masks[0]
+        with torch.no_grad():
+            ms = in_turns(torch, lambda: accel.compact_mask(mask, k),
+                          None)[0]
+            plain_ms = device_ms(torch, accel.compact_mask_plain, (mask, k))
+            b_ms, b_by, _, _ = bound(torch, "compact_mask",
+                                     accel.compact_mask, (mask, k))
+        cells[cell] = dict(mask=list(mask.shape), k=k, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           launches_per_step=want["compact_mask"],
+                           step_device_ms=timing["device_ms"],
+                           step_median_ms=timing["median_ms"],
+                           step_peak_gib_above=timing["call_gib"])
+        log(f"  kernel 6 on the soft {tuple(mask.shape)} mask: {ms:.4f} ms, "
+            f"plain version {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+        del params, opt, masks, mask
+        if res == SOFT_CHECK_RES:
+            soft_culled_vs_dense(torch, scene_init, cams[0], culls[0], bw,
+                                 gamma, trainable, culled, shade, shading,
+                                 accel, cell)
+        log(f"  phase 30 ({cell}): {time.perf_counter() - t0:.1f} s")
+
+    # ---- 31. the checkpointed hard stage, and remat
+    t0 = time.perf_counter()
+    res, _, geo_lr, photo_lr = c5fit.HARD_STAGE
+    cull = accel.suggest_cull_config(scene_true, cam, res, res, (32, 32),
+                                     headroom=2.0, hot=False)
+    with torch.no_grad():
+        target = render(scene_true, cam, res, res, engine="culled",
+                        cull=cull)
+    ckdir = lib_dir / "ckpt_phase31"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    n_all, n_first, every = CKPT_STEPS
+    log(f"[31/31] checkpointed hard stage: sphere_grid_scene(64), "
+        f"{res}x{res}, engine 'culled', spec {cull} (hot=False, headroom "
+        f"2); {n_all} steps uninterrupted, then {n_first} steps saving "
+        f"every {every} and a fresh fit to {n_all} from {ckdir.name}/; "
+        f"torch deterministic algorithms on ({smi})")
+
+    def run(steps, ckpt=None):
+        cfg = FitConfig(height=res, width=res, steps=steps,
+                        trainable=trainable, engine="culled", cull=cull,
+                        checkpoint_dir=ckpt, checkpoint_every=every,
+                        log_every=1)
+        kernels.LAUNCHES.clear()
+        fitted, losses = fit(scene_init, target, cam, cfg,
+                             optimizer=c5fit.make_optimizer(
+                                 n_all, geo_lr, photo_lr))
+        torch.cuda.synchronize()
+        return fitted, losses, dict(kernels.LAUNCHES)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t1 = time.perf_counter()
+        fit_u, loss_u, got_u = run(n_all)
+        u_s = time.perf_counter() - t1
+        fit_a, loss_a, _ = run(n_first, str(ckdir))
+        saved = sorted(p.name for p in ckdir.iterdir())
+        fit_b, loss_b, got_b = run(n_all, str(ckdir))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches["fit_c5_culled_uninterrupted"] = got_u
+    launches["fit_c5_culled_resumed"] = got_b
+    log(f"  uninterrupted: {n_all} steps in {u_s:.1f} s, losses "
+        f"{[(s, round(v, 8)) for s, v in loss_u]}, launches {got_u}")
+    log(f"  first run: losses {[(s, round(v, 8)) for s, v in loss_a]}; "
+        f"saved {saved}")
+    log(f"  resumed: logged steps {[s for s, _ in loss_b]}, losses "
+        f"{[(s, round(v, 8)) for s, v in loss_b]}, launches {got_b}")
+    check(saved == [f"ckpt_{s:09d}.pt" for s in range(every, n_first + 1,
+                                                       every)],
+          f"checkpoints saved {saved}")
+    check([s for s, _ in loss_b] == list(range(n_first, n_all)),
+          "the resumed fit must restore the saved step and run only the "
+          "remainder")
+    check(got_b == {"compact_mask": got_u["compact_mask"] * (n_all - n_first)
+                    // n_all},
+          f"resumed launches {got_b} against {got_u} over {n_all} steps")
+    for k in trainable:
+        a, b = get_path(fit_b, k), get_path(fit_u, k)
+        log(f"  {k}: resumed vs uninterrupted max |diff| "
+            f"{float((a - b).abs().max()):.3e}")
+        check(torch.equal(a, b), f"the resumed fit's {k} differs from the "
+              "uninterrupted fit's")
+    log(f"  the resumed fit's parameters equal the uninterrupted fit's bit "
+        f"for bit; its losses {[round(v, 8) for _, v in loss_b]} against "
+        f"{[round(v, 8) for s, v in loss_u if s >= n_first]}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del target, fit_u, fit_a, fit_b
+
+    # remat on c3 'autodiff'
+    builder, h, w, _ = BENCH_CONFIGS["c3_grid64"]
+    scene, c3cam = builder(device=dev)
+    zero = torch.zeros((h, w, 3), device=dev)
+    grads, timings = {}, {}
+    for remat in (False, True):
+        cfg = FitConfig(height=h, width=w, engine="autodiff", remat=remat,
+                        trainable=DEFAULT_TRAINABLE)
+        init_fn, step_fn = make_train_step(
+            c3cam, cfg, optimizer=lambda ps: torch.optim.SGD(ps, lr=STEP_LR))
+        params, opt = init_fn(scene)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step_fn(params, opt, scene, zero)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads[remat] = {k: v.grad.clone() for k, v in params.items()}
+        timings[remat] = time_cell(
+            torch, "c3_grid64 autodiff", f"step, remat={remat}",
+            lambda: step_fn(params, opt, scene, zero), 3, h * w, warm=1,
+            windows=2, frames=2, dev_reps=1)
+        del params, opt
+    for k in grads[False]:
+        a, b = grads[True][k], grads[False][k]
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        log(f"  grad {k}: remat on vs off max |diff| {err:.3e} "
+            f"({err / max(scale, 1e-30):.2e} of max |g|), equal "
+            f"{torch.equal(a, b)}")
+        check(err <= REMAT_TOL * scale, f"remat changes the gradient of {k}")
+    off, on = timings[False], timings[True]
+    log(f"  remat: peak above the resident {off['call_gib']:.3f} -> "
+        f"{on['call_gib']:.3f} GiB, step device time {off['device_ms']:.4f}"
+        f" -> {on['device_ms']:.4f} ms")
+    check(on["call_gib"] < off["call_gib"],
+          "remat must lower the 'autodiff' step's peak memory")
+    log(f"  phase 31: {time.perf_counter() - t0:.1f} s")
+    return launches, cells
+
+
+def soft_culled_vs_dense(torch, scene, cam, cull, bw, gamma, trainable,
+                         culled, shade, shading, accel, cell):
+    """One view's soft forward and gradients (of mean(img^2)) over the
+    SOFT_CHECK_SIDE x SOFT_CHECK_SIDE tiles at the middle of the image: the culled pass
+    (kernel 6) against the dense pass over every sphere (within
+    SOFT_DENSE_ATOL and SOFT_DENSE_GRAD_TOL * max|g|: culling drops only
+    spheres below the sigmoid's reach) and against the plain compaction
+    (the image bit for bit, the gradients within GRAD_TOL * max|g|: the
+    survivor gathers' backward adds in an order that changes per run)."""
+    from openglraytracer_tpu_torch.ops.accel import tile_image
+    from openglraytracer_tpu_torch.ops.raygen import generate_rays
+    from openglraytracer_tpu_torch.ops.soft import soft_render_rays
+    (th, tw), _ = cull
+    o, d = generate_rays(cam, SOFT_CHECK_RES, SOFT_CHECK_RES)
+    o, d = (tile_image(x, th, tw) for x in (o, d))
+    # the side x side tiles at the middle of the image, still tile-major
+    n, side = SOFT_CHECK_RES // tw, SOFT_CHECK_SIDE
+    ids = torch.tensor([(n // 2 - side // 2 + r) * n + n // 2 - side // 2 + c
+                        for r in range(side) for c in range(side)],
+                       device=o.device)
+    o, d = o[ids].reshape(-1, 3), d[ids].reshape(-1, 3)
+
+    def one(c):
+        s, params = train_scene(scene, trainable)
+        img = soft_render_rays(s, o, d, bw=bw, gamma=gamma, cull=c)
+        torch.mean(torch.square(img)).backward()
+        return img.detach(), {kk: v.grad for kk, v in params.items()}
+
+    kernels_img, kernels_g = one(cull)
+    dense_img, dense_g = one(None)
+    with PlainVersions(culled, shade, shading, accel):
+        plain_img, plain_g = one(cull)
+    err = float((kernels_img - dense_img).abs().max())
+    log(f"  {cell} one view, {SOFT_CHECK_SIDE ** 2} middle tiles ({o.shape[0]} rays): "
+        f"culled vs dense image max |diff| {err:.3e} (atol "
+        f"{SOFT_DENSE_ATOL}); vs the plain compaction equal "
+        f"{torch.equal(kernels_img, plain_img)}")
+    check(err <= SOFT_DENSE_ATOL, f"{cell}: culled soft image vs dense")
+    check(torch.equal(kernels_img, plain_img),
+          f"{cell}: the soft image differs with the plain compaction")
+    compare_grads(torch, cell, kernels_g, dense_g, "culled - dense",
+                  tol=SOFT_DENSE_GRAD_TOL)
+    compare_grads(torch, cell, kernels_g, plain_g,
+                  "kernel 6 - plain compaction")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2688,7 +3050,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/29] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/31] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -2696,7 +3058,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/29] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/31] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -2709,7 +3071,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/29] kernels vs plain versions")
+    log("[3/31] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -2798,7 +3160,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/29] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/31] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -2845,7 +3207,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/29] forward timing ({name}; {smi})")
+    log(f"[5/31] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -2907,7 +3269,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/29] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/31] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -2951,7 +3313,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/29] training timing ({name}; {smi})")
+    log(f"[7/31] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -2973,7 +3335,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/29] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/31] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -3010,6 +3372,9 @@ def main() -> int:
                                            shade, shading, accel, smi)
     launches_xla_culled = run_culled_xla(torch, dev, kernels, culled, shade,
                                          shading, accel, smi)
+    launches_extras, soft_cells = run_training_extras(
+        torch, dev, kernels, culled, shade, shading, accel, smi,
+        lib_path.parent)
     for k, v in errs_stack.items():
         errs[k] = max(errs[k], v)
     c3_dense = dense_cells["c3 primary"]
@@ -3064,7 +3429,7 @@ def main() -> int:
     path_launches = {"render_c3_grid64": fwd_launches,
                      "train_step_c3_grid64": train_launches, **launches_4096,
                      **launches_dense, **launches_xla, **launches_stack,
-                     **launches_xla_culled}
+                     **launches_xla_culled, **launches_extras}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
@@ -3104,6 +3469,8 @@ def main() -> int:
                             for lv, c in shadow_cells.items()}
         if k == "shadow_occlusion_hot":
             row["cells"] = {lv: c[k] for lv, c in shadow_cells.items()}
+        if k == "compact_mask":
+            row["cells"] = soft_cells
         rows.append(row)
         log(f"  {k}: {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
             f"({100 * b_ms / row['ms']:.0f}% of it; {nbytes / 1e6:.1f} MB "

@@ -38,8 +38,10 @@ one spec for every step is sized by ``suggest_stack_cull_config`` (the
 reference's CLI passes the primary spec, whose lists deep bundles
 overflow). ``--time`` charges the reference's rays: the primary rays and
 a shadow ray per static shadow-casting light, per cast of the static
-bounce tree, whatever the engine. Flags for what this package does not do
-yet (``animate --gif``; PNG targets, soft, sharded and checkpointed fits)
+bounce tree, whatever the engine. ``fit --soft BW,GAMMA`` runs the
+soft-coverage fit against a soft render of the true scene, and
+``--checkpoint-dir`` saves and resumes the fit there. Flags for what this
+package does not do yet (``animate --gif``; PNG targets and sharded fits)
 are rejected with a message.
 """
 
@@ -238,15 +240,29 @@ def _reject_unported_fit(args):
                          "(they need utils/image.load_png, slice 9 of "
                          "ROADMAP.md); the default synthetic fit needs "
                          "neither")
-    for flag, value, what in (
-            ("--soft", args.soft, "the soft-coverage forward (slice 7)"),
-            ("--sharded", args.sharded, "the tile-sharded fit (slice 8)"),
-            ("--checkpoint-dir", args.checkpoint_dir,
-             "checkpoints (slice 7)")):
-        if value:
-            raise SystemExit(f"{flag}: {what} is not yet ported (see "
-                             "ROADMAP.md)")
+    if args.sharded:
+        raise SystemExit("--sharded: the tile-sharded fit (slice 8) is not "
+                         "yet ported (see ROADMAP.md)")
     _check_row_block(args)
+
+
+def _soft_spec(args, scene, cam, h, w):
+    """--soft BW,GAMMA: ((bw, gamma), the soft cull spec sized with
+    headroom 2 and printed), with the reference's checks."""
+    from openglraytracer_tpu_torch.ops.soft import suggest_soft_cull
+    try:
+        bw, gamma = (float(x) for x in args.soft.split(","))
+    except ValueError:
+        raise SystemExit(f"--soft wants BW,GAMMA (got {args.soft!r})")
+    if args.engine not in ("auto",):
+        raise SystemExit("--soft replaces the hard engine; drop --engine")
+    t = args.cull_tile
+    if h % t or w % t:
+        raise SystemExit(f"--cull-tile {t} must divide the fit "
+                         f"resolution {w}x{h}")
+    cull = suggest_soft_cull(scene, cam, h, w, (t, t), bw, headroom=2.0)
+    print(f"soft cull: {cull}")
+    return (bw, gamma), cull
 
 
 def cmd_fit(args):
@@ -255,7 +271,11 @@ def cmd_fit(args):
     torch.Generator seeded with 0, and fit back. The target and the fitted
     scene's --out are rendered with the default engine, as the reference
     does; the fit runs --engine (a culled engine's children densely on
-    'xla')."""
+    'xla'). With --soft the target is the soft render of the true scene at
+    the same (bw, gamma), so the true scene is the exact optimum, and the
+    fit runs the soft forward. --checkpoint-dir saves a checkpoint every
+    100 steps (FitConfig's default, as the reference) and resumes from the
+    newest one there."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
     from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
@@ -277,8 +297,16 @@ def cmd_fit(args):
         cull = suggest_cull_config(scene_true, cam, h, w, (t, t),
                                    headroom=2.0)
         print(f"cull: {cull}")
+    soft = None
+    if args.soft:
+        soft, cull = _soft_spec(args, scene_true, cam, h, w)
     with torch.no_grad():
-        target = render(scene_true, cam, h, w, depth=args.depth)
+        if soft is not None:
+            from openglraytracer_tpu_torch.ops.soft import soft_render
+            target = soft_render(scene_true, cam, h, w, bw=soft[0],
+                                 gamma=soft[1], cull=cull)
+        else:
+            target = render(scene_true, cam, h, w, depth=args.depth)
     gen = torch.Generator().manual_seed(0)
     sph = scene_true.spheres
     noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
@@ -290,10 +318,14 @@ def cmd_fit(args):
     cfg = FitConfig(height=h, width=w, depth=args.depth, steps=args.steps,
                     learning_rate=args.lr, engine=args.engine,
                     trainable=tuple(args.trainable.split(",")), cull=cull,
-                    row_block=args.row_block)
+                    row_block=args.row_block, soft=soft,
+                    checkpoint_dir=args.checkpoint_dir)
     t0 = time.time()
     with _profiled(args.profile_dir, device):
         fitted, losses = fit(scene_init, target, cam, cfg)
+    if not losses:
+        raise SystemExit(f"fit: the checkpoint in {args.checkpoint_dir} is "
+                         f"at or past --steps {args.steps}; nothing to run")
     print(f"fit: {len(losses)} logged losses, first {losses[0][1]:.3e}, "
           f"final {losses[-1][1]:.3e}, {time.time() - t0:.1f}s")
     if args.save_scene:
@@ -408,12 +440,16 @@ def main(argv=None):
                    help="not yet ported (rejected)")
     f.add_argument("--engine", default="auto", choices=ENGINES)
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
-                   help="not yet ported (rejected)")
+                   help="soft-coverage forward for silhouette-aware "
+                        "geometry fitting (ops/soft.py): e.g. --soft "
+                        "0.05,0.2; the target is soft-rendered at the same "
+                        "constants")
     f.add_argument("--cull-tile", type=int, default=32)
     f.add_argument("--row-block", type=int, default=None,
                    help="dense engines: render in blocks of this many rows")
     f.add_argument("--checkpoint-dir", default=None,
-                   help="not yet ported (rejected)")
+                   help="save the fit's checkpoints here and resume from "
+                        "the newest one")
     f.add_argument("--out", default=None,
                    help="write the fitted scene's render here (PNG)")
     f.add_argument("--save-scene", default=None,

@@ -62,9 +62,10 @@ from openglraytracer_tpu_torch.ops.accel import (
     tile_cones,
 )
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
-                                                     INF_T, Hit, _fma,
+                                                     INF_T, Hit,
                                                      _inv_safe)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS
+from openglraytracer_tpu_torch.ops.transforms import _fma
 
 SPH_COLS, BOX_COLS, PLN_COLS = 8, 24, 16
 
@@ -472,10 +473,16 @@ def _pad_cols(x, width: int):
 
 
 def _primary_sphere_rows(scene: Scene, o0, p_idx, p_valid):
-    """(T, Kp, 8) kernel rows from the survivor lists: oc, qc precomputed."""
+    """(T, Kp, 8) kernel rows from the survivor lists: oc, qc precomputed.
+    qc = |oc|^2 - r^2 with the squares summed by fused multiply-adds in
+    axis order, as XLA's CPU compiler contracts the reference's jitted
+    jnp.sum(oc * oc, axis=-1) (rounded op by op, qc flips the sign of the
+    discriminant on tangent grazes at 4096 spheres)."""
     rows = _gather_tile_rows(_sphere_table(scene), p_idx)   # (T, Kp, 6)
     oc = o0[None, None, :] - rows[..., 0:3]
-    qc = torch.sum(oc * oc, dim=-1) - rows[..., 3] * rows[..., 3]
+    ocx, ocy, ocz = oc[..., 0], oc[..., 1], oc[..., 2]
+    qc = _fma(ocz, ocz, _fma(ocy, ocy, ocx * ocx)) \
+        - rows[..., 3] * rows[..., 3]
     return torch.cat([
         oc, qc[..., None], rows[..., 4:6],
         p_valid.to(rows.dtype)[..., None],

@@ -50,11 +50,12 @@ from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
                                                     component_dot, sum_dot,
                                                     winner_backward)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
-                                                     INF_T, Hit, _fma,
+                                                     INF_T, Hit,
                                                      _inv_safe, closest_hit,
                                                      closest_hit_sp,
                                                      shadow_occlusion_sp)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS
+from openglraytracer_tpu_torch.ops.transforms import _fma
 
 SPH_COLS, BOX_COLS, PLN_COLS, LIGHT_COLS = 4, 18, 4, 3
 

@@ -18,18 +18,20 @@ degenerate rays.
 
 Object ids: spheres occupy [0, N), boxes [N, N+M), planes [N+M, N+M+P) in
 the global index space. The constants, ``Hit`` and the helpers
-``_safe_div``, ``_inv_safe``, ``_fma``, ``_safe_normalize``, ``_rot_apply``
-and ``_rot_apply_t`` also serve the culled and dense kernel engines
+``_safe_div``, ``_inv_safe``, ``_safe_normalize``, ``_rot_apply`` and
+``_rot_apply_t`` also serve the culled and dense kernel engines
 (``ops/culled.py``, ``ops/dense.py``) and their winner replay
-(``ops/geometry.py``); ``_inv_safe`` and ``_fma`` are the kernels'
-reciprocal and ``fmaf`` as their plain versions compute them.
+(``ops/geometry.py``); ``_inv_safe`` is the kernels' reciprocal as their
+plain versions compute it (and ``transforms._fma`` their ``fmaf``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
@@ -63,13 +65,6 @@ def _inv_safe(x):
     xs = torch.where(torch.abs(x) < _DIV_EPS,
                      torch.where(x < 0, -_DIV_EPS, _DIV_EPS), x)
     return 1.0 / xs
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once, as the kernel's fmaf: the float32 product is
-    exact in float64, so only the sum rounds (the float64 -> float32 double
-    rounding differs from fmaf on a tie, about once in 2^29)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _safe_sqrt(x):
@@ -337,13 +332,37 @@ def _valid(count, padded, device):
                    padded, False)
 
 
-def closest_hit(scene: Scene, origins, dirs, chunk_size: int = 512) -> Hit:
+def maybe_checkpoint(fn, *args):
+    """fn(*args), under torch.utils.checkpoint while autograd records: the
+    call keeps only its inputs and recomputes itself in the backward (its
+    kernels launch again there). Nothing in a trace draws random numbers,
+    so no RNG state is kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _remat(fn, remat: bool):
+    """fn, or with remat fn under maybe_checkpoint (the reference's
+    jax.checkpoint of each object chunk)."""
+    return functools.partial(maybe_checkpoint, fn) if remat else fn
+
+
+def closest_hit(scene: Scene, origins, dirs, chunk_size: int = 512,
+                remat: bool = False) -> Hit:
     """Closest collision over every object of the scene, as a chunked
     running minimum. origins, dirs: (R, 3). Returns a Hit of (R,)-shaped
     fields: t = INF_T, p = the origin, n = 0, material 0 and obj_id -1 on a
-    miss (a hit needs t < MISS_T)."""
+    miss (a hit needs t < MISS_T). remat: while autograd records, each
+    sphere and box chunk runs under torch.utils.checkpoint, so a backward
+    holds the running best, not every chunk's (R, C) candidates."""
     r = origins.shape[0]
     best = _init_best(r, origins)
+
+    def sph_chunk(best, c, rad, v, m, s):
+        t, n, inside = sphere_candidates(origins, dirs, c, rad, v)
+        return _fold_chunk(best, t, n, inside, m, 0, s)
 
     sph = scene.spheres
     if sph.count:
@@ -352,11 +371,10 @@ def closest_hit(scene: Scene, origins, dirs, chunk_size: int = 512) -> Hit:
         radius = _pad_to(sph.radius, padded)
         mat = _pad_to(sph.material_id, padded)
         valid = _valid(sph.count, padded, origins.device)
+        fold = _remat(sph_chunk, remat)
         for s in range(0, padded, csize):
             sl = slice(s, s + csize)
-            t, n, inside = sphere_candidates(origins, dirs, center[sl],
-                                             radius[sl], valid[sl])
-            best = _fold_chunk(best, t, n, inside, mat[sl], 0, s)
+            best = fold(best, center[sl], radius[sl], valid[sl], mat[sl], s)
 
     box = scene.boxes
     if box.count:
@@ -367,11 +385,16 @@ def closest_hit(scene: Scene, origins, dirs, chunk_size: int = 512) -> Hit:
         pos = _pad_to(box.position, padded)
         mat = _pad_to(box.material_id, padded)
         valid = _valid(box.count, padded, origins.device)
+
+        def box_chunk(best, mn, mx, ps, rt, v, m, s):
+            t, n, inside = box_candidates(origins, dirs, mn, mx, ps, rt, v)
+            return _fold_chunk(best, t, n, inside, m, sph.count, s)
+
+        fold = _remat(box_chunk, remat)
         for s in range(0, padded, csize):
             sl = slice(s, s + csize)
-            t, n, inside = box_candidates(origins, dirs, mins[sl], maxs[sl],
-                                          pos[sl], rot[sl], valid[sl])
-            best = _fold_chunk(best, t, n, inside, mat[sl], sph.count, s)
+            best = fold(best, mins[sl], maxs[sl], pos[sl], rot[sl],
+                        valid[sl], mat[sl], s)
 
     pln = scene.planes
     if pln.count:
@@ -539,12 +562,18 @@ def shadow_occlusion_sp(scene: Scene, shadow_org, to_lights,
 
 
 def any_hit(scene: Scene, origins, dirs, max_t: float = 1.0,
-            chunk_size: int = 512):
+            chunk_size: int = 512, remat: bool = False):
     """Occlusion query: does any object meet the ray at 0 < t < max_t?
     With the unnormalized surface -> light segment and max_t = 1 this is
-    the reference's shadow predicate. Returns (R,) bool."""
+    the reference's shadow predicate. Returns (R,) bool. remat: each sphere
+    chunk under torch.utils.checkpoint while autograd records, as the
+    reference's."""
     occluded = torch.zeros((origins.shape[0],), dtype=torch.bool,
                            device=origins.device)
+
+    def sph_chunk(occ, c, rad, v):
+        blocked = sphere_blocked(origins, dirs, c, rad, v, max_t=max_t)
+        return occ | torch.any(blocked, dim=-1)
 
     sph = scene.spheres
     if sph.count:
@@ -552,11 +581,10 @@ def any_hit(scene: Scene, origins, dirs, max_t: float = 1.0,
         center = _pad_to(sph.center, padded)
         radius = _pad_to(sph.radius, padded)
         valid = _valid(sph.count, padded, origins.device)
+        fold = _remat(sph_chunk, remat)
         for s in range(0, padded, csize):
             sl = slice(s, s + csize)
-            blocked = sphere_blocked(origins, dirs, center[sl], radius[sl],
-                                     valid[sl], max_t=max_t)
-            occluded = occluded | torch.any(blocked, dim=-1)
+            occluded = fold(occluded, center[sl], radius[sl], valid[sl])
 
     box = scene.boxes
     if box.count:

@@ -67,7 +67,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from openglraytracer_tpu_torch.models.scene import AIR_IOR, Camera, Scene
 from openglraytracer_tpu_torch.ops import accel, culled
@@ -77,7 +76,8 @@ from openglraytracer_tpu_torch.ops.accel import (cull_hot_p,
                                                  parse_cull_spec, tile_image,
                                                  untile_image)
 from openglraytracer_tpu_torch.ops.dense import geometry_op
-from openglraytracer_tpu_torch.ops.intersect import closest_hit
+from openglraytracer_tpu_torch.ops.intersect import (closest_hit,
+                                                     maybe_checkpoint)
 from openglraytracer_tpu_torch.ops.raygen import generate_rays
 from openglraytracer_tpu_torch.ops.shade import shade_fused
 from openglraytracer_tpu_torch.ops.shading import (gather_materials,
@@ -202,21 +202,25 @@ def _culled_bounces(scene: Scene, dirs, hit, color, depth: int, mat_rows,
 
 
 def trace_rays(scene: Scene, origins, dirs, depth: int = 0,
-               chunk_size: int = 512, bounce_mask: tuple | None = None):
+               chunk_size: int = 512, remat: bool = False,
+               bounce_mask: tuple | None = None):
     """Engine 'autodiff': trace rays (R, 3) through closest_hit and
     phong_shade (every light casts its shadow ray), with depth > 0 the
     bounce children, differentiated by autograd straight through the
     chunked object scan. Returns colors (R, 3), black on misses.
+    remat: each object chunk under torch.utils.checkpoint while autograd
+    records (memory for recompute; the same values and gradients).
     bounce_mask None reads the material table on the host."""
     if bounce_mask is None:
         bounce_mask = static_bounce_mask(scene)
-    hit = closest_hit(scene, origins, dirs, chunk_size=chunk_size)
-    color = phong_shade(scene, dirs, hit, chunk_size=chunk_size)
+    hit = closest_hit(scene, origins, dirs, chunk_size=chunk_size,
+                      remat=remat)
+    color = phong_shade(scene, dirs, hit, chunk_size=chunk_size, remat=remat)
     if depth > 0:
         color = _apply_bounces(
             scene, dirs, hit, color, depth,
             lambda o, d, dd, _act: trace_rays(scene, o, d, dd, chunk_size,
-                                              bounce_mask),
+                                              remat, bounce_mask),
             bounce_mask)
     return torch.where(hit.hit[:, None], color, 0.0)
 
@@ -315,7 +319,8 @@ def pick_tracer(scene: Scene, engine: str = "auto",
                 shadow_lights: tuple | None = None,
                 bounce_mask: tuple | None = None):
     """The trace function of a dense engine: tracer(scene, origins, dirs,
-    depth=0, chunk_size=512) -> colors.
+    depth=0, chunk_size=512, remat=False) -> colors (remat reaches the
+    chunk scan of 'autodiff' only, as in the reference).
       'auto'     -> 'xla'
       'xla'      -> plain PyTorch forward and the analytic O(R) backward
       'pallas'   -> kernel 7 forward and the same analytic backward
@@ -328,12 +333,13 @@ def pick_tracer(scene: Scene, engine: str = "auto",
         raise ValueError(f"pick_tracer: engine '{engine}' needs a cull "
                          "spec; call trace_rays_fast or render with cull")
     if engine == "autodiff":
-        return lambda s, o, d, depth=0, chunk_size=512: trace_rays(
-            s, o, d, depth, chunk_size=chunk_size, bounce_mask=bounce_mask)
+        return lambda s, o, d, depth=0, chunk_size=512, remat=False: \
+            trace_rays(s, o, d, depth, chunk_size=chunk_size, remat=remat,
+                       bounce_mask=bounce_mask)
     engine = "xla" if engine == "auto" else engine
-    return lambda s, o, d, depth=0, chunk_size=512: trace_rays_fast(
-        s, o, d, depth, chunk_size=chunk_size, engine=engine,
-        shadow_lights=shadow_lights, bounce_mask=bounce_mask)
+    return lambda s, o, d, depth=0, chunk_size=512, remat=False: \
+        trace_rays_fast(s, o, d, depth, chunk_size=chunk_size, engine=engine,
+                        shadow_lights=shadow_lights, bounce_mask=bounce_mask)
 
 
 def _dfs_schedule(depth: int):
@@ -368,17 +374,6 @@ def _chain_schedule(depth: int, refl_branch: bool):
     if refl_branch:
         return [(-1, level) for level in range(depth + 1)]
     return [(-1, 0)] + [(level - 1, level) for level in range(1, depth + 1)]
-
-
-def _maybe_checkpoint(fn, *args):
-    """fn(*args), under torch.utils.checkpoint while autograd records: the
-    step keeps only its inputs and recomputes itself in the backward (its
-    kernels launch again there). Nothing in a trace draws random numbers,
-    so no RNG state is kept."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return fn(*args)
 
 
 def _stack_node(scene: Scene, cast, refl: bool, refr: bool, o, d, w):
@@ -433,7 +428,7 @@ def _trace_schedule(scene: Scene, origins, dirs, depth: int, cast,
     for src, level in steps:
         o, d, w = carry if src < 0 else stack[src]
         leaf = level >= depth
-        contrib, carry, stack[level], step_ovf = _maybe_checkpoint(
+        contrib, carry, stack[level], step_ovf = maybe_checkpoint(
             lambda o, d, w, leaf=leaf: _stack_node(
                 scene, cast, has_refl and not leaf, has_refr and not leaf,
                 o, d, w), o, d, w)
@@ -534,13 +529,13 @@ def trace_rays_stack(scene: Scene, origins, dirs, depth: int,
     return (colors, ovf) if with_cull_stats else colors
 
 
-def _mirror_step(scene: Scene, chunk_size: int, last: bool, o, d,
-                 throughput, accum):
+def _mirror_step(scene: Scene, chunk_size: int, remat: bool, last: bool, o,
+                 d, throughput, accum):
     """One level of trace_rays_mirror: (o, d, throughput, accum) of the
     next level; a ray that does not reflect keeps its origin and
     direction, at throughput 0."""
-    hit = closest_hit(scene, o, d, chunk_size=chunk_size)
-    phong = phong_shade(scene, d, hit, chunk_size=chunk_size)
+    hit = closest_hit(scene, o, d, chunk_size=chunk_size, remat=remat)
+    phong = phong_shade(scene, d, hit, chunk_size=chunk_size, remat=remat)
     phong = torch.where(hit.hit[:, None], phong, 0.0)
     refl = torch.index_select(scene.materials.reflectivity, 0,
                               hit.material_id)
@@ -558,16 +553,17 @@ def trace_rays_mirror(scene: Scene, origins, dirs, depth: int,
     through closest_hit and phong_shade (every light casts): each level
     adds throughput (1 - rho') phong and passes throughput rho' on. Equal
     to the tree when no material is transparent; refraction is ignored.
-    remat: while autograd records, run each step under
-    torch.utils.checkpoint. Returns colors (R, 3)."""
+    remat (the default, as in the reference): while autograd records, run
+    each step, and each object chunk in it, under torch.utils.checkpoint.
+    Returns colors (R, 3)."""
     r = origins.shape[0]
     carry = (origins, dirs,
              torch.ones((r, 1), dtype=origins.dtype, device=origins.device),
              torch.zeros((r, 3), dtype=origins.dtype, device=origins.device))
     for level in range(depth + 1):
-        step = functools.partial(_mirror_step, scene, chunk_size,
+        step = functools.partial(_mirror_step, scene, chunk_size, remat,
                                  level >= depth)
-        carry = (_maybe_checkpoint(step, *carry) if remat
+        carry = (maybe_checkpoint(step, *carry) if remat
                  else step(*carry))
     return carry[3]
 
@@ -581,14 +577,19 @@ def _check_device(scene: Scene, camera: Camera, device: torch.device):
 
 
 def render(scene: Scene, camera: Camera, height: int, width: int,
-           depth: int = 0, chunk_size: int = 512,
-           row_block: int | None = None, engine: str = "auto",
-           cull: tuple | None = None, shadow_lights: tuple | None = None,
-           with_cull_stats: bool = False, device=None,
-           bounce_mask: tuple | None = None,
-           child_cull: tuple | None = None, bounce: str = "tree",
-           mirror_only: bool = False, fused_shade: bool = True):
+           depth: int = 0, chunk_size: int = 512, remat: bool = False,
+           row_block: int | None = None, mirror_only: bool = False,
+           engine: str = "auto", cull: tuple | None = None,
+           shadow_lights: tuple | None = None, bounce: str = "tree",
+           with_cull_stats: bool = False, bounce_mask: tuple | None = None,
+           child_cull: tuple | None = None, fused_shade: bool = True,
+           device=None):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
+    The parameters are the reference's, in its order, with ``device``
+    last. remat: on 'autodiff' and mirror_only, each object chunk (and
+    mirror step) runs under torch.utils.checkpoint while autograd records,
+    trading memory for recompute; the analytic-backward engines keep O(R)
+    residuals already and ignore it, as in the reference.
 
     The dense engines ('auto' = 'xla', the default; 'autodiff'; 'pallas')
     trace the rays in raster order, at any depth, with no cull spec:
@@ -642,27 +643,26 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     origins, dirs = generate_rays(camera, height, width)
     if engine not in CULLED:
         if stack:
-            def tracer(s, o, d, depth, chunk_size=512):
+            def tracer(s, o, d, depth, chunk_size=512, remat=False):
                 return trace_rays_stack(s, o, d, depth, chunk_size=chunk_size,
                                         engine=engine,
                                         shadow_lights=shadow_lights,
                                         bounce_mask=bounce_mask)
         elif mirror_only:
-            def tracer(s, o, d, depth, chunk_size=512):
-                return trace_rays_mirror(s, o, d, depth,
-                                         chunk_size=chunk_size, remat=False)
+            tracer = trace_rays_mirror
         else:
             tracer = pick_tracer(scene, engine, shadow_lights, bounce_mask)
         o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
         if row_block is None or row_block >= height:
-            colors = tracer(scene, o, d, depth, chunk_size=chunk_size)
+            colors = tracer(scene, o, d, depth, chunk_size=chunk_size,
+                            remat=remat)
         else:
             if height % row_block:
                 raise ValueError(f"row_block {row_block} must divide the "
                                  f"height {height}")
             n = row_block * width
             colors = torch.cat([tracer(scene, o[i:i + n], d[i:i + n], depth,
-                                       chunk_size=chunk_size)
+                                       chunk_size=chunk_size, remat=remat)
                                 for i in range(0, o.shape[0], n)])
         img = colors.reshape(height, width, 3)
         if with_cull_stats:     # the dense engines drop no object

@@ -138,12 +138,13 @@ def phong_shade_lit(scene: Scene, dirs, hit: Hit, occluded, mat_rows=None):
                       occluded)
 
 
-def shadow_masks(scene: Scene, hit: Hit, chunk_size: int = 512):
+def shadow_masks(scene: Scene, hit: Hit, chunk_size: int = 512,
+                 remat: bool = False):
     """Per-light occlusion (R, L) bool (True = in shadow): an any_hit
     query per light along the segment from p + 0.01 n to the light."""
     shadow_org = hit.p + hit.n * SHADOW_EPS
     cols = [any_hit(scene, shadow_org, scene.lights.position[j] - hit.p,
-                    max_t=1.0, chunk_size=chunk_size)
+                    max_t=1.0, chunk_size=chunk_size, remat=remat)
             for j in range(scene.lights.count)]
     if not cols:
         return torch.zeros((hit.p.shape[0], 0), dtype=torch.bool,
@@ -151,8 +152,9 @@ def shadow_masks(scene: Scene, hit: Hit, chunk_size: int = 512):
     return torch.stack(cols, dim=-1)
 
 
-def phong_shade(scene: Scene, dirs, hit: Hit, chunk_size: int = 512):
+def phong_shade(scene: Scene, dirs, hit: Hit, chunk_size: int = 512,
+                remat: bool = False):
     """ADS Phong (R, 3) of each ray's hit with its shadow queries (every
     light casts); finite but meaningless on misses (the caller masks)."""
-    occluded = shadow_masks(scene, hit, chunk_size=chunk_size)
+    occluded = shadow_masks(scene, hit, chunk_size=chunk_size, remat=remat)
     return phong_shade_lit(scene, dirs, hit, occluded)

@@ -5,11 +5,11 @@ camera matrices, batched euler rotations, reflect and refract). Matrices
 multiply column vectors, ``M @ v``, exactly as the reference GLSL does.
 
 The camera matrices are computed on the camera's device once per frame. The
-inverse view-projection is formed in closed form, inverse(view) @
-inverse(proj), instead of the reference's general 4x4 inverse: the view is a
-rigid transform and the projection has a fixed sparsity pattern, and a
-general inverse on a CUDA device may wait for the host to check its pivots,
-which a frame must not do.
+inverse view-projection is the reference's float32 ``jnp.linalg.inv``
+rounded op for op (``inv4``: the LU with partial pivoting, then the two
+triangular solves, as its LAPACK and BLAS run them), in plain tensor ops: a
+library inverse on a CUDA device may wait for the host to check its
+pivots, which a frame must not do, and rounds otherwise.
 """
 
 from __future__ import annotations
@@ -40,22 +40,6 @@ def perspective_matrix(v_fov, aspect, near, far):
         torch.stack([z, q, z, z]),
         torch.stack([z, z, b, c]),
         torch.stack([z, z, -one, z]),
-    ])
-
-
-def _inverse_perspective(v_fov, aspect, near, far):
-    """Closed-form inverse of perspective_matrix."""
-    q = 1.0 / torch.tan(DEG_TO_RAD * 0.5 * v_fov)
-    a = q / aspect
-    b = (near + far) / (near - far)
-    c = (2.0 * near * far) / (near - far)
-    z = torch.zeros_like(q)
-    one = torch.ones_like(q)
-    return torch.stack([
-        torch.stack([1.0 / a, z, z, z]),
-        torch.stack([z, 1.0 / q, z, z]),
-        torch.stack([z, z, z, -one]),
-        torch.stack([z, z, 1.0 / c, b / c]),
     ])
 
 
@@ -139,17 +123,81 @@ def view_matrix(position, angles):
     return torch.cat([top, bottom], dim=0)
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once, as fmaf (on a tie of the float64 -> float32
+    rounding, about once in 2^29, an ulp apart): the product of float32
+    values is exact in float64, so the float64 sum rounds only once."""
+    return torch.addcmul(c.double(), a, b).to(c.dtype)
+
+
+def inv4(m):
+    """Inverse of a float32 4x4 as the JAX package's ``jnp.linalg.inv``
+    computes it on the CPU, through its BLAS (OpenBLAS): the left-looking
+    LU of getf2, one column at a time (the rows above the diagonal by
+    forward substitution, each row less its dot product fused from the
+    last term back; the rows below it less a fused multiply-add chain from
+    the first; partial pivoting on the first largest |entry|, the column
+    scaled by the pivot's reciprocal), then the solve of P^T L U X = I
+    column-oriented, with fused multiply-adds and each diagonal applied as
+    its reciprocal. Bit for bit on every camera of the builders, the OBB
+    world's and orbited ones, and on random matrices (the tests); only a
+    tie of the float64 -> float32 rounding of a fused multiply-add can
+    differ. Sync-free: the pivots stay on the device and
+    rows move by index. A fused multiply-add takes one float64 operand
+    (``addcmul`` promotes the others inside its kernel): its product is
+    exact there, and only the sum rounds."""
+    ar = torch.arange(4, device=m.device)
+    a, perm = m, ar
+    for j in range(4):
+        col = a[:, j]
+        u = [col[0:1]]                            # U: forward substitution
+        for r in range(1, j):
+            acc = a[r:r + 1, r - 1] * u[r - 1]
+            for k in range(r - 2, -1, -1):
+                acc = torch.addcmul(acc, a[r:r + 1, k], u[k].double()).float()
+            u.append(col[r:r + 1] - acc)
+        low = col[j:]
+        if j:                                     # L and the diagonal
+            acc = a[j:, 0] * u[0]
+            for k in range(1, j):
+                acc = torch.addcmul(acc, a[j:, k], u[k].double()).float()
+            low = low - acc
+        if j == 3:                                # one row left: no pivot
+            c = torch.cat(u + [low])
+        else:
+            p = j + torch.argmax(torch.abs(low))
+            sw = torch.where(ar == j, p, torch.where(ar == p, j, ar))
+            c = torch.cat(u[:j] + [low])[sw]
+            a, perm = a[sw], perm[sw]
+            c = torch.cat([c[:j + 1], c[j + 1:] * torch.reciprocal(c[j])])
+        a = torch.cat([a[:, :j], c[:, None], a[:, j + 1:]], dim=1)
+    a64 = a.double()
+    x = (perm[:, None] == ar[None, :]).to(m.dtype)    # P I
+    for k in range(3):                                # unit lower
+        t = torch.addcmul(x[k + 1:], a64[k + 1:, k:k + 1], x[k:k + 1],
+                          value=-1.0).float()
+        x = torch.cat([x[:k + 1], t])
+    for k in range(3, -1, -1):                        # upper
+        rk = x[k:k + 1] * torch.reciprocal(a[k, k])
+        if k:
+            t = torch.addcmul(x[:k], a64[:k, k:k + 1], rk,
+                              value=-1.0).float()
+            x = torch.cat([t, rk, x[k + 1:]])
+        else:
+            x = torch.cat([rk, x[1:]])
+    return x
+
+
 def camera_matrices(cam: Camera):
     """(proj, view, inverse(proj @ view)) — computed once per frame."""
     proj = perspective_matrix(cam.v_fov, cam.aspect, cam.near, cam.far)
     view = view_matrix(cam.position, cam.angles)
-    rot = _camera_rotation(cam.angles)
-    inv_view = torch.cat([
-        torch.cat([rot, cam.position[:, None]], dim=1),
-        torch.eye(4, dtype=rot.dtype, device=rot.device)[3:]], dim=0)
-    inv_proj = _inverse_perspective(cam.v_fov, cam.aspect, cam.near,
-                                    cam.far)
-    return proj, view, inv_view @ inv_proj
+    # proj @ view as a sum of outer products in order, each op rounded
+    # once: the reference's 4x4 product rounds so (a library matmul need not)
+    pv = proj[:, 0:1] * view[0:1, :]
+    for k in range(1, 4):
+        pv = pv + proj[:, k:k + 1] * view[k:k + 1, :]
+    return proj, view, inv4(pv)
 
 
 def reflect(d, n):

@@ -6,7 +6,13 @@ on the hard engines: the dense engines ``'auto'`` (= ``'xla'``, the
 default), ``'xla'``, ``'autodiff'`` and ``'pallas'`` at any depth, with no
 cull spec; and the culled engines ``'culled'`` and ``culled_pallas`` with a
 cull spec, their bounce children on the culled path with a child spec
-(``FitConfig.child_cull``) and densely on ``'xla'`` without one. Trainable leaves are chosen by
+(``FitConfig.child_cull``) and densely on ``'xla'`` without one. With
+``FitConfig.soft`` = (bw, gamma) the fit runs the soft-coverage forward
+(ops/soft.py) instead, over one camera or a tuple of cameras (multi-view,
+the targets stacked (V, H, W, 3), the loss the mean of the per-view MSEs).
+``fit`` saves a checkpoint every ``checkpoint_every`` steps into
+``checkpoint_dir`` and resumes from the newest one there
+(utils/checkpoint.py). Trainable leaves are chosen by
 dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
 a render, and its gradient runs through the shade's backward and the
@@ -15,8 +21,7 @@ the place of optax: parameters are leaf tensors updated in place by the
 optimizer.
 
 Not ported yet (see ROADMAP.md), and rejected with a message: the
-tile-sharded fit (``mesh``, slice 8), and the soft-coverage forward
-(``soft``), checkpoints (``checkpoint_dir``) and ``remat`` (slice 7).
+tile-sharded fit (``mesh``, slice 8).
 """
 
 from __future__ import annotations
@@ -66,39 +71,50 @@ class FitConfig:
     width: int = 256
     depth: int = 0
     chunk_size: int = 512
+    remat: bool = False     # render's remat ('autodiff': chunk checkpoints)
     steps: int = 200
     learning_rate: float = 1.0e-2
     trainable: tuple = DEFAULT_TRAINABLE
     log_every: int = 10
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 100
     engine: str = "auto"    # 'auto' | 'xla' | 'autodiff' | 'pallas' |
     # 'culled' | 'culled_pallas'
     # the culled engines only: ((th, tw), kp, ks[, hot_m[, kb, ksb]]), and
     # the bounce-child spec (children traced densely on 'xla' without it;
     # size it with suggest_child_cull_config(hot_primary=False) for
-    # 'culled')
+    # 'culled'). With soft, cull is the soft spec ((th, tw), k) of
+    # soft.suggest_soft_cull (None: the dense soft pass), a tuple of them
+    # for a multi-view fit
     cull: tuple | None = None
     child_cull: tuple | None = None
     row_block: int | None = None    # dense engines: bound a trace's memory
     log_path: str | None = None     # JSONL sink for fit()'s MetricsLogger
-    # not ported yet: setting any of these raises (see ROADMAP.md)
-    checkpoint_dir: str | None = None
-    remat: bool = False
+    # (bw, gamma): the soft-coverage forward (ops/soft.py) instead of the
+    # hard engines; engine, depth and child_cull are then not used
     soft: tuple | None = None
 
 
-def _reject_unported(cfg: FitConfig, camera, mesh) -> None:
+def _multi_view(camera) -> bool:
+    """A tuple or list of cameras. Camera is itself a NamedTuple, so a bare
+    isinstance(tuple) check would take every single camera for several."""
+    return isinstance(camera, (list, tuple)) and not isinstance(camera,
+                                                                Camera)
+
+
+def _check_config(cfg: FitConfig, camera, mesh) -> None:
+    if cfg.soft is not None and mesh is not None:
+        raise ValueError("soft fit stages run unsharded (they are the "
+                         "coarse curriculum stages); pass mesh=None")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the tile-sharded fit is not yet ported (slice 8 of "
             "ROADMAP.md); fit on one device with mesh=None")
-    for name in ("soft", "checkpoint_dir", "remat"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"FitConfig.{name} is not yet ported (slice 7 of "
-                "ROADMAP.md)")
-    if isinstance(camera, (list, tuple)) and not isinstance(camera, Camera):
+    if _multi_view(camera) and cfg.soft is None:
         raise ValueError("multi-view fitting is a soft-stage feature "
                          "(hard cull specs are single-camera)")
+    if cfg.soft is not None:
+        return
     if cfg.engine not in ENGINES:
         raise NotImplementedError(
             f"engine '{cfg.engine}' is not yet ported; fit with one of "
@@ -130,8 +146,12 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     cull_overflow): one forward, backward and optimizer step on the
     device, updating params in place. loss is a detached device scalar and
     cull_overflow a device int32 scalar counting dropped-object events of
-    this step's culled broad phase; step_fn never waits for the device."""
-    _reject_unported(cfg, camera, mesh)
+    this step's culled broad phase (the soft one's, summed over the
+    views); step_fn never waits for the device. With cfg.soft, camera may
+    be a tuple of cameras, cfg.cull then the matching tuple of soft specs
+    and target (V, H, W, 3)."""
+    _check_config(cfg, camera, mesh)
+    multi_view = _multi_view(camera)
     lights_trainable = any(p.startswith("lights.") for p in cfg.trainable)
     bounce_trainable = any(p in ("materials.reflectivity",
                                  "materials.transparency", "materials")
@@ -153,17 +173,36 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
                   for p, x in extract_params(scene, cfg.trainable).items()}
         return params, make_opt(list(params.values()))
 
+    def soft_loss(scene: Scene, target):
+        from openglraytracer_tpu_torch.ops.soft import soft_render
+        bw, gamma = cfg.soft
+        cams = tuple(camera) if multi_view else (camera,)
+        culls = tuple(cfg.cull) if multi_view else (cfg.cull,)
+        tgts = target if multi_view else target[None]
+        loss, ovf = 0.0, None
+        for v in range(len(cams)):
+            img, o = soft_render(scene, cams[v], cfg.height, cfg.width,
+                                 bw=bw, gamma=gamma, cull=culls[v],
+                                 with_cull_stats=True)
+            loss = loss + torch.mean(torch.square(img - tgts[v]))
+            ovf = o if ovf is None else ovf + o
+        return loss / len(cams), ovf
+
     def step_fn(params, opt, scene: Scene, target):
         opt.zero_grad(set_to_none=True)
-        img, ovf = render(apply_params(scene, params), camera, cfg.height,
-                          cfg.width, depth=cfg.depth,
-                          chunk_size=cfg.chunk_size, row_block=cfg.row_block,
-                          engine=cfg.engine, cull=cfg.cull,
-                          child_cull=cfg.child_cull,
-                          shadow_lights=state["shadow_lights"],
-                          bounce_mask=state["bounce_mask"],
-                          with_cull_stats=True)
-        loss = torch.mean(torch.square(img - target))
+        scene = apply_params(scene, params)
+        if cfg.soft is not None:
+            loss, ovf = soft_loss(scene, target)
+        else:
+            img, ovf = render(scene, camera, cfg.height, cfg.width,
+                              depth=cfg.depth, chunk_size=cfg.chunk_size,
+                              remat=cfg.remat, row_block=cfg.row_block,
+                              engine=cfg.engine, cull=cfg.cull,
+                              child_cull=cfg.child_cull,
+                              shadow_lights=state["shadow_lights"],
+                              bounce_mask=state["bounce_mask"],
+                              with_cull_stats=True)
+            loss = torch.mean(torch.square(img - target))
         loss.backward()
         opt.step()
         return params, opt, loss.detach(), ovf
@@ -178,12 +217,18 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
     list of (step, loss) at the log points.
 
     The host waits for the device only at log points (every
-    cfg.log_every steps and the last). A device-side running maximum of
-    the per-step overflow counter covers every step between them; when it
-    fired, the loop recounts the survivors for the current parameters and
-    logs the resize suggestion."""
+    cfg.log_every steps and the last) and at checkpoints. A device-side
+    running maximum of the per-step overflow counter covers every step
+    between them; when it fired, the loop recounts the survivors for the
+    current parameters and logs the resize suggestion (hard engines).
+
+    With cfg.checkpoint_dir, fit first restores the newest checkpoint there
+    (parameters, optimizer state, step) and runs only the steps after it,
+    then saves {params, optimizer, step} after every cfg.checkpoint_every
+    steps (utils/checkpoint.py keeps the newest three)."""
     from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
     from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
+    from openglraytracer_tpu_torch.utils import checkpoint as ckpt_util
     from openglraytracer_tpu_torch.utils.metrics import (MetricsLogger,
                                                          rays_per_frame)
 
@@ -193,6 +238,16 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
     device = scene_init.spheres.center.device
     target = torch.as_tensor(target, device=device)
 
+    start = 0
+    if cfg.checkpoint_dir:
+        restored = ckpt_util.restore_latest(cfg.checkpoint_dir, device)
+        if restored is not None:
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.copy_(restored["params"][k])
+            opt.load_state_dict(restored["optimizer"])
+            start = int(restored["step"])
+
     logger = MetricsLogger("fit", path=cfg.log_path)
     losses = []
     rays = rays_per_frame(cfg.height, cfg.width, scene_init.lights.count,
@@ -201,7 +256,7 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
                                        if cfg.depth > 0 else (True, True)))
     t_last, rays_logged = time.perf_counter(), 0
     ovf_running = torch.zeros((), dtype=torch.int32, device=device)
-    for step in range(cfg.steps):
+    for step in range(start, cfg.steps):
         params, opt, loss, ovf = step_fn(params, opt, scene_init, target)
         ovf_running = torch.maximum(ovf_running, ovf)
         rays_logged += rays
@@ -216,10 +271,12 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
                 callback(step, lv)
             n_ovf = int(ovf_running)
             if n_ovf > 0:
-                with torch.no_grad():
-                    detail = check_cull_overflow(
-                        apply_params(scene_init, params), camera,
-                        cfg.height, cfg.width, cfg.cull)
+                detail = None
+                if cfg.cull is not None and cfg.soft is None:
+                    with torch.no_grad():
+                        detail = check_cull_overflow(
+                            apply_params(scene_init, params), camera,
+                            cfg.height, cfg.width, cfg.cull)
                 logger.log(step=step, cull_overflow_events=n_ovf,
                            cull_overflow=detail)
                 logging.getLogger(__name__).warning(
@@ -227,6 +284,13 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
                     "(objects were dropped); at step %d the suggestion is "
                     "%s", n_ovf, step, detail)
                 ovf_running = torch.zeros_like(ovf_running)
+        if cfg.checkpoint_dir and cfg.checkpoint_every and \
+                (step + 1) % cfg.checkpoint_every == 0:
+            ckpt_util.save(cfg.checkpoint_dir,
+                           {"params": {k: v.detach()
+                                       for k, v in params.items()},
+                            "optimizer": opt.state_dict(),
+                            "step": step + 1}, step + 1)
     fitted = apply_params(scene_init,
                           {k: v.detach() for k, v in params.items()})
     return fitted, losses

@@ -49,3 +49,17 @@ def assert_same_aux(aux_j, aux_t):
             valid = np_(aux_j.p_valid if f == "p_idx" else aux_j.b_valid)
             a, b = a * valid, b * valid
         np.testing.assert_array_equal(b, a, err_msg=f"CullAux.{f}")
+
+
+def jitted_sphere_rows(monkeypatch):
+    """Run the JAX package's culled_pallas row packer (pallas_culled.
+    _primary_sphere_rows) jitted, as its render runs it, also where a test
+    traces the reference eagerly: XLA then sums qc = |oc|^2 with fused
+    multiply-adds, which the port's rows do (at 4096 spheres the sum
+    rounded op by op flips tangent grazes, tests/test_torch_c5_faults.py).
+    The rest of the eager trace is unchanged."""
+    import jax
+    from openglraytracer_tpu.ops import pallas_culled
+    monkeypatch.setattr(pallas_culled, "_primary_sphere_rows",
+                        jax.jit(pallas_culled._primary_sphere_rows))
+

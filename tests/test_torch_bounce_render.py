@@ -22,7 +22,14 @@ from openglraytracer_tpu.train import inverse as jinv
 from openglraytracer_tpu_torch.ops import render as t_render_mod
 from openglraytracer_tpu_torch.train import inverse as tinv
 
-from _torch_helpers import np_, to_torch, to_torch_camera, to_torch_scene
+from _torch_helpers import (jitted_sphere_rows, np_, to_torch, to_torch_camera,
+                            to_torch_scene)
+
+
+@pytest.fixture(autouse=True)
+def _reference_rows_as_jitted(monkeypatch):
+    jitted_sphere_rows(monkeypatch)
+
 
 TILE = (16, 16)
 H, W = 48, 64

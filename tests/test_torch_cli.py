@@ -240,14 +240,52 @@ def test_cli_fit_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--target", "t.png"], ["--scene", "s.json"], ["--soft", "0.3,0.3"],
-    ["--sharded"], ["--checkpoint-dir", "ckpt"],
-    ["--engine", "culled", "--checkpoint-dir", "ckpt"]])
+    ["--target", "t.png"], ["--scene", "s.json"], ["--sharded"]])
 def test_cli_fit_rejects_unported(flags):
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
                   "32", "--height", "32", "--steps", "1"] + flags)
     assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+
+
+@pytest.mark.parametrize("flags", [
+    ["--soft", "0.3,0.3"], ["--checkpoint-dir", "ckpt"],
+    ["--engine", "culled", "--checkpoint-dir", "ckpt"]])
+def test_cli_fit_soft_and_checkpoints(tmp_path, capsys, flags):
+    """fit --soft BW,GAMMA sizes and prints the soft spec and fits the soft
+    forward against a soft target; --checkpoint-dir saves at step 100 (the
+    reference's checkpoint_every) and a second run resumes there and runs
+    only the steps after it."""
+    flags = [str(tmp_path / f) if f == "ckpt" else f for f in flags]
+    base = ["fit", "--device", "cpu", "--grid-side", "2", "--width", "16",
+            "--height", "16", "--cull-tile", "16"]
+    steps = "5" if "--soft" in flags else "100"
+    cli.main(base + ["--steps", steps] + flags)
+    printed = capsys.readouterr().out
+    line = next(x for x in printed.splitlines() if x.startswith("fit:"))
+    first, final = (float(line.split(w)[1].split(",")[0])
+                    for w in (" first ", " final "))
+    assert final < first
+    if "--soft" in flags:
+        assert "soft cull: ((16, 16), 4)" in printed
+        return
+    ckpt = tmp_path / "ckpt"
+    assert [p.name for p in ckpt.iterdir()] == ["ckpt_000000100.pt"]
+    cli.main(base + ["--steps", "103"] + flags)
+    records = [json.loads(x) for x in capsys.readouterr().err.splitlines()
+               if x.startswith('{"name": "fit"')]
+    assert [r["step"] for r in records] == [100, 102]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--soft", "0.3"], "BW,GAMMA"),
+    (["--soft", "0.3,0.3", "--engine", "culled"], "drop --engine"),
+    (["--soft", "0.3,0.3", "--sharded"], "ROADMAP"),
+    (["--soft", "0.3,0.3", "--cull-tile", "24"], "must divide")])
+def test_cli_fit_soft_checks(flags, message):
+    with pytest.raises(SystemExit, match=message):
+        cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
+                  "32", "--height", "32", "--steps", "1"] + flags)
 
 
 def test_cli_fit_checks_the_tile(tmp_path):

@@ -806,3 +806,70 @@ def test_culled_xla_agrees_with_culled_pallas(dev, which):
         scale = float(g.abs().max())
         assert scale > 0.0
         assert float((grads["culled"][k] - g).abs().max()) <= 1e-3 * scale
+
+
+def test_raygen_on_the_card_equals_the_cpu(dev, monkeypatch):
+    """On the CPU's camera matrices of c5's camera, the card's camera
+    inverse (its pivots on the device, sync-free) and its rays equal the
+    CPU's bit for bit. (End to end the card's float32 trig may round the
+    view an ulp apart, which the far camera magnifies: 4e-5 on the H100.)"""
+    from openglraytracer_tpu_torch.ops import raygen
+    from openglraytracer_tpu_torch.ops.transforms import inv4
+    _, cam = sphere_grid_scene(64, device="cpu")
+    mats = raygen.camera_matrices(cam)
+    proj, view = mats[0], mats[1]
+    pv = proj[:, 0:1] * view[0:1, :]
+    for k in range(1, 4):
+        pv = pv + proj[:, k:k + 1] * view[k:k + 1, :]
+    cam_d = cam._replace(**{k: v.to(dev) for k, v in cam._asdict().items()})
+    want = raygen.generate_rays(cam, 256, 256)[1]
+    monkeypatch.setattr(raygen, "camera_matrices",
+                        lambda c: tuple(m.to(dev) for m in mats))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inv_dev = inv4(pv.to(dev))
+        d_dev = raygen.generate_rays(cam_d, 256, 256)[1]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(inv_dev.cpu(), mats[2])
+    assert torch.equal(d_dev.cpu(), want)
+
+
+def test_soft_step_launches_the_compaction_kernel(dev):
+    """A soft render of a 1024-sphere grid at 128x128 with 16x16 tiles
+    launches kernel 6 once and equals its render through the plain
+    compaction; a two-view soft fit step launches it twice, sync-free,
+    with no overflow."""
+    from openglraytracer_tpu_torch.ops.soft import (soft_render,
+                                                    suggest_soft_cull)
+    scene, cam = sphere_grid_scene(32, device=dev)
+    spec = suggest_soft_cull(scene, cam, 128, 128, (16, 16), 0.3)
+    kernels.LAUNCHES.clear()
+    with torch.no_grad():
+        img = soft_render(scene, cam, 128, 128, bw=0.3, gamma=0.3,
+                          cull=spec)
+    assert dict(kernels.LAUNCHES) == {"compact_mask": 1}
+    real = accel.compact_mask
+    accel.compact_mask = accel.compact_mask_plain
+    try:
+        with torch.no_grad():
+            img_p = soft_render(scene, cam, 128, 128, bw=0.3, gamma=0.3,
+                                cull=spec)
+    finally:
+        accel.compact_mask = real
+    assert torch.equal(img, img_p)
+    cfg = inverse.FitConfig(height=128, width=128, soft=(0.3, 0.3),
+                            cull=(spec, spec))
+    init_fn, step_fn = inverse.make_train_step((cam, cam), cfg)
+    params, opt = init_fn(scene)
+    target = torch.stack([img, img])
+    step_fn(params, opt, scene, target)
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, loss, ovf = step_fn(params, opt, scene, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert dict(kernels.LAUNCHES) == {"compact_mask": 2}
+    assert int(ovf) == 0 and bool(torch.isfinite(loss))

@@ -23,8 +23,14 @@ from openglraytracer_tpu_torch.ops.raygen import generate_rays as t_rays
 from openglraytracer_tpu_torch.ops.render import render as t_render
 from openglraytracer_tpu_torch.ops.shade import phong_fused
 
-from _torch_helpers import (assert_same_aux, np_, to_torch, to_torch_camera,
-                            to_torch_scene)
+from _torch_helpers import (assert_same_aux, jitted_sphere_rows, np_, to_torch,
+                            to_torch_camera, to_torch_scene)
+
+
+@pytest.fixture(autouse=True)
+def _reference_rows_as_jitted(monkeypatch):
+    jitted_sphere_rows(monkeypatch)
+
 
 TILE = (16, 16)
 TILE_P = TILE[0] * TILE[1]

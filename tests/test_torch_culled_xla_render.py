@@ -36,7 +36,14 @@ from openglraytracer_tpu_torch.ops import accel as ta
 from openglraytracer_tpu_torch.ops import render as tr
 from openglraytracer_tpu_torch.train import inverse as tinv
 
-from _torch_helpers import np_, to_torch_camera, to_torch_scene
+from _torch_helpers import (jitted_sphere_rows, np_, to_torch_camera,
+                            to_torch_scene)
+
+
+@pytest.fixture(autouse=True)
+def _reference_rows_as_jitted(monkeypatch):
+    jitted_sphere_rows(monkeypatch)
+
 
 TILE = (16, 16)
 H, W = 48, 64

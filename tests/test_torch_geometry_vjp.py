@@ -27,7 +27,13 @@ from openglraytracer_tpu_torch.ops.transforms import \
     euler_rotation_3x3b as t_euler
 from openglraytracer_tpu_torch.train import inverse as tinv
 
-from _torch_helpers import np_, to_torch, to_torch_scene
+from _torch_helpers import jitted_sphere_rows, np_, to_torch, to_torch_scene
+
+
+@pytest.fixture(autouse=True)
+def _reference_rows_as_jitted(monkeypatch):
+    jitted_sphere_rows(monkeypatch)
+
 
 TILE = (16, 16)
 TILE_P = TILE[0] * TILE[1]

@@ -126,10 +126,10 @@ def test_make_scene_fills_empty_sets():
 
 
 def test_camera_matrices():
-    """proj and view equal the JAX package's exactly. The inverse
-    view-projection is closed-form here and a float32 LU solve there; both
-    are held against the float64 inverse: the port's error must not exceed
-    the reference's own."""
+    """proj and view equal the JAX package's exactly, and so does the
+    inverse view-projection: the port runs the reference's float32 LU
+    (transforms.inv4) op for op, which keeps the reference's own error
+    against the float64 inverse."""
     _, jcam = jb.sphere_grid_scene(8)
     tcam = to_torch_camera(jcam)
     jp, jv, ji = (np_(x) for x in jt.camera_matrices(jcam))
@@ -138,6 +138,26 @@ def test_camera_matrices():
     np.testing.assert_array_equal(tv, jv)
     exact = np.linalg.inv(jp.astype(np.float64) @ jv.astype(np.float64))
     assert np.abs(ti - exact).max() <= np.abs(ji - exact).max()
+
+
+def _camera(name):
+    if name == "obb":
+        from openglraytracer_tpu.models.animated import reference_frame
+        return reference_frame(1.2)[1]
+    return jb.BENCH_CONFIGS[name][0]()[1]
+
+
+@pytest.mark.parametrize("name", ["c3_grid64", "c5_grid4096",
+                                  "c4_mirror4096", "obb"])
+def test_camera_inverse_equals_jax_lu(name):
+    """The inverse of proj @ view equals the reference's float32
+    jnp.linalg.inv bit for bit at the far c5 camera (0, -160, 88) too,
+    where a closed form is 6.8e-3 away from it (the reference's own error
+    against float64 there is 6.7e-3)."""
+    jcam = _camera(name)
+    _, _, ji = jt.camera_matrices(jcam)
+    _, _, ti = tt.camera_matrices(to_torch_camera(jcam))
+    np.testing.assert_array_equal(np_(ti), np_(ji))
 
 
 def test_euler_rotation_3x3b():
@@ -159,22 +179,44 @@ def test_pixel_ndc_integer_division(hw):
     np.testing.assert_array_equal(np_(ty), np_(jy))
 
 
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 100.0])
+def test_inv4_equals_jax_on_random_matrices(scale):
+    """transforms.inv4 is the reference's float32 LU and solve as such,
+    not only on camera matrices: 200 seeded random 4x4s at each scale
+    invert to jnp.linalg.inv's result bit for bit."""
+    rng = np.random.default_rng(int(scale * 1000))
+    mats = (rng.normal(size=(200, 4, 4)) * scale).astype(np.float32)
+    for m in mats:
+        np.testing.assert_array_equal(
+            np_(tt.inv4(torch.from_numpy(m))),
+            np_(jax.numpy.linalg.inv(jax.numpy.asarray(m))))
+
+
 @pytest.mark.parametrize("builder", ["sphere_grid_scene",
                                      "eight_sphere_scene"])
 def test_generate_rays_matches_jax(builder):
-    """Origins exact. Directions agree to 2e-5: the JAX package inverts
-    proj @ view by a float32 LU solve whose entries are off the float64
-    inverse by up to 1.2e-4 (measured, c3 camera; entries ~100), the port
-    by 8.7e-6 (closed form, see test_camera_matrices), so the reference's
-    own rounding sets this bound."""
+    """Origins and directions equal the JAX package's bit for bit: the
+    camera inverse, the unprojection's pairwise sums and the fused |d|^2
+    round as the reference's on the CPU."""
     _, jcam = getattr(jb, builder)()
     tcam = to_torch_camera(jcam)
     jo, jd = jr.generate_rays(jcam, 64, 64)
     to, td = tr.generate_rays(tcam, 64, 64)
     np.testing.assert_array_equal(np_(to), np_(jo))
-    np.testing.assert_allclose(np_(td), np_(jd), rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(np_(td), np_(jd))
     np.testing.assert_allclose(np.linalg.norm(np_(td), axis=-1), 1.0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["c5_grid4096", "obb"])
+def test_generate_rays_bit_equal_far_camera(name):
+    """c5's far camera at 256x256, jitted on the JAX side as render runs
+    it: every ray direction equal (before the LU port they were 7.2e-5
+    apart, which moved 4.1 % of c5's pixels)."""
+    jcam = _camera(name)
+    jd = jax.jit(lambda c: jr.generate_rays(c, 256, 256)[1])(jcam)
+    _, td = tr.generate_rays(to_torch_camera(jcam), 256, 256)
+    np.testing.assert_array_equal(np_(td), np_(jd))
 
 
 @pytest.mark.parametrize("time", [0.0, 0.3, 0.8, 1.2, 3.7, 11.0])

@@ -171,14 +171,19 @@ def test_fit_charges_rays_with_the_static_bounce_mask(monkeypatch, depth):
 
 
 @pytest.mark.parametrize("change", [
-    dict(soft=(0.3, 0.3)), dict(checkpoint_dir="ckpt"), dict(row_block=8),
-    dict(remat=True), dict(cull=None), dict(mesh=object())])
+    dict(soft=(0.3, 0.3), mesh=object()), dict(views=2), dict(row_block=8),
+    dict(engine="soft"), dict(cull=None), dict(mesh=object())])
 def test_make_train_step_rejects_unported(change):
+    """What the port rejects: the sharded fit (mesh, slice 8), also with
+    soft; a hard fit over several cameras; an unknown engine; a culled
+    engine without a spec or with row_block."""
     scene, cam = tb.sphere_grid_scene(2, device="cpu")
     mesh = change.pop("mesh", None)
+    if change.pop("views", None):
+        cam = (cam, cam)
     kw = dict(height=H, width=W, engine="culled_pallas",
               cull=((16, 16), 8, 8, 0))
     kw.update(change)
     with pytest.raises((NotImplementedError, ValueError),
-                       match="ROADMAP|cull"):
+                       match="ROADMAP|cull|unsharded|multi-view"):
         tinv.make_train_step(cam, tinv.FitConfig(**kw), mesh=mesh)
