@@ -27,7 +27,10 @@ reference's rows c3_grid64_culled_xla, c5_grid4096_culled_xla,
 c4_mirror4096_xlachild and c4_mirror4096_densechild, and the stack on
 'culled' (a 1024-sphere glass grid). The training extras: the reference's
 config 5 fit on c5's scene, its soft multi-view step and its checkpointed
-hard stage, and remat on 'autodiff'. Every call names its engine. It
+hard stage, and remat on 'autodiff'. The host surface (PNG output and
+input, the NaN-checked render, the op count, cli fit --target), the live
+viewer at 1280x720, and the tile-sharded render and training step over
+torch.distributed (NCCL, one process). Every call names its engine. It
 exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
@@ -192,6 +195,34 @@ exits non-zero on any failure. Phases:
      and ends at the uninterrupted fit's parameters bit for bit (torch's
      deterministic algorithms on); then c3 'autodiff' with remat off and
      on: equal gradients, step time and peak memory reported
+ 32. the host surface at c3 (culled_pallas): the native encoder
+     (native/libimageio.so) loads; a frame through save_png and the port's
+     load_png equals to_uint8 of the tensor, and to_uint8_device equals
+     to_uint8; native and Python encode and load_png timed at 1024x1024;
+     utils/debug.checked_render clean, kernels A, B and 4 launched under
+     it; utils/profiling.cost_analysis of a frame printed; cli fit
+     --target --scene at 1024x1024 on culled_pallas, 3 Adam steps of the
+     centers from a shifted scene JSON: the loss falls, kernels A, B, 4
+     and 5 every step
+ 33. the live viewer (utils/viewer.py) at 1280x720 on culled_pallas and
+     pallas, 30 frames each: published in order, the engine's kernels
+     every frame, /frame.png decoded by the port's decoder equal to the
+     render of the t it names (within 1/255 on >= 99.9 % of pixels if the
+     cull spec was rebuilt); that render's kernel calls (kernels A, B and
+     4 at the viewer's 8x8 cull tiles, kernel 7) each against its plain
+     version on the same inputs, and /frame.png against the plain
+     versions' image (within 1/255 on >= 99.9 % of pixels); FPS and
+     encode ms a frame
+ 34. the tile-sharded layer: init_distributed over NCCL in a world of one
+     process; render_sharded on the (1, 1) mesh equal to render bit for
+     bit at c3 and c4_mirror4096 (child cull), gather_image over NCCL;
+     render_tile over the coordinates of a (2, 2) mesh against the
+     unsharded image (c3 bit for bit; c4_mirror4096 within 1/255 on >=
+     99.9 % of pixels, each tile picking its own hot tiles); frames timed
+     against the unsharded; 3 sharded SGD steps at c3 with kernels A, B, 4
+     and 5 every step, gradients within 1e-3 * max|g| of the unsharded
+     step's, steps timed against the unsharded; measure_scaling rows for
+     one device (render and step)
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
 launch name: its time, its plain version's, its bound (the least time the
@@ -207,6 +238,7 @@ copy). The last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -343,6 +375,13 @@ CKPT_STEPS = (4, 2, 2)
 # remat on 'autodiff': the same ops recomputed; the gathers' backward adds
 # may run in another order on the card
 REMAT_TOL = 1e-6
+# the host surface and the sharded layer (phases 32-34): fit --target's
+# starting scene (every center moved by this) and its Adam learning rate;
+# the viewer's frame size (the CLI's default), frames and cull tile (the
+# CLI's default); the mesh whose tiles one process renders in turn
+FIT_TARGET_SHIFT, FIT_TARGET_LR = (0.15, -0.1, 0.0), 2e-2
+VIEW_HW, VIEW_FRAMES, VIEW_TILE = (720, 1280), 30, 8
+SHARD_MESH = (2, 2)
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per unit of work, counted from each kernel's source
@@ -1127,7 +1166,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/31] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/34] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1167,7 +1206,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/31] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/34] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1276,7 +1315,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/31] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/34] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1325,7 +1364,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/31] timing, forward and training step ({smi})")
+    log(f"[12/34] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1463,7 +1502,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/31] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/34] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1576,7 +1615,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/31] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/34] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1645,7 +1684,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/31] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/34] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1679,7 +1718,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/31] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/34] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1742,7 +1781,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/31] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/34] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1879,7 +1918,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 18. 'xla' against kernel 7
     t0 = time.perf_counter()
-    log("[18/31] engine 'xla' (plain PyTorch) against engine 'pallas' "
+    log("[18/34] engine 'xla' (plain PyTorch) against engine 'pallas' "
         "(kernel 7) and 'auto', full size")
     for cfg, pth in paths.items():
         kernels.LAUNCHES.clear()
@@ -1912,7 +1951,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                                      (64, 64), shadow_lights=c4m["lights"])
     c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
         ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
-    log(f"[19/31] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+    log(f"[19/34] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
         f"spec {spec}, no child spec (children on 'xla'); shadow lights "
         f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
     kernels.LAUNCHES.clear()
@@ -1984,7 +2023,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 20. the reference's rows on 'auto'
     t0 = time.perf_counter()
-    log(f"[20/31] engine 'auto': frame and training step timing ({smi})")
+    log(f"[20/34] engine 'auto': frame and training step timing ({smi})")
     for cfg in ("c1_sphere_plane", "c2_eight_spheres",
                 "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
         pth = paths[cfg]
@@ -2011,7 +2050,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 21. 'autodiff' against the analytic backward
     t0 = time.perf_counter()
-    log("[21/31] engine 'autodiff' (autograd through the chunked scan) "
+    log("[21/34] engine 'autodiff' (autograd through the chunked scan) "
         "against 'xla' (the analytic backward): gradients of mean(img^2)")
     cells = {f"animated_obb_720p_depth{d}": paths[
         f"animated_obb_720p_depth{d}"] for d in (0, 1)}
@@ -2109,7 +2148,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     check(bm == (True, True), f"the glass world's bounce mask is {bm}")
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[22/31] glass_stack_depth4: reference_frame({OBB_TIME}) at "
+    log(f"[22/34] glass_stack_depth4: reference_frame({OBB_TIME}) at "
         f"{w}x{h}, depth {STACK_DEPTH} ({n_steps} casts a pixel), shadow "
         f"lights {sm}; engines 'xla' and 'pallas', stack against tree; "
         f"{n_rays} rays/frame ({smi})")
@@ -2205,7 +2244,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
         want["primary_hit_hot"] = n_steps
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[23/31] glass4096_stack_culled: glass_grid_scene() ({n} glass "
+    log(f"[23/34] glass4096_stack_culled: glass_grid_scene() ({n} glass "
         f"spheres), {w}x{h}, depth {STACK_DEPTH}, engine culled_pallas, "
         f"bounce 'stack', spec {spec}, shadow lights {sm}; launches a frame "
         f"by the code: {want}; {n_rays} rays/frame")
@@ -2342,7 +2381,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     spec = ((STACK_TILE, STACK_TILE), n, n, 0, 0, 0)
     sm = shading.static_shadow_mask(scene)
     bm = shading.static_bounce_mask(scene)
-    log(f"[24/31] culled stack gradients: glass_grid_scene({side}) ({n} "
+    log(f"[24/34] culled stack gradients: glass_grid_scene({side}) ({n} "
         f"spheres), {gh}x{gh}, depth {gdepth}, spec {spec} (no list can "
         f"overflow), culled_pallas against its plain versions, 'pallas' "
         f"and 'xla'; then render(mirror_only=True) on c4_mirror")
@@ -2550,7 +2589,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
         kw = dict(depth=depth, shadow_lights=lights, bounce_mask=bmask)
         n_rays = rays_per_frame(h, w, scene.lights.count, depth,
                                 shadow_lights=lights, bounce_mask=bmask)
-        log(f"[{25 + i}/31] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
+        log(f"[{25 + i}/34] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
             f"'culled', spec {spec}"
             + (f", child spec {child} (hot_primary=False; culled_pallas's "
                f"{ref_child})" if child else "")
@@ -2636,7 +2675,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
     n_rays = rays_per_frame(hw, hw, scene.lights.count, depth,
                             shadow_lights=sm)
     trainable = ("spheres.center", "materials.diffuse")
-    log(f"[29/31] the stack on 'culled': glass_grid_scene({side}) ({n} "
+    log(f"[29/34] the stack on 'culled': glass_grid_scene({side}) ({n} "
         f"glass spheres), {hw}x{hw}, depth {depth} ({n_steps} casts a "
         f"pixel), bounce mask {bm}, spec {spec}; kernel 6 a frame by the "
         f"code: {want}, twice that a forward+backward (each step is "
@@ -2804,7 +2843,7 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
             cams, cfg, optimizer=c5fit.make_optimizer(100, geo_lr, photo_lr))
         params, opt = init_fn(scene_init)
         want = {"compact_mask": len(cams)}
-        log(f"[30/31] {cell}: sphere_grid_scene(64), {res}x{res}, "
+        log(f"[30/34] {cell}: sphere_grid_scene(64), {res}x{res}, "
             f"{tile}x{tile} tiles, bw {bw}, gamma {gamma}, views "
             f"{c5fit.SOFT_VIEWS}, soft specs {culls} "
             f"(suggest_soft_cull, headroom 2); kernel 6 a step by the code: "
@@ -2874,7 +2913,7 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
     ckdir = lib_dir / "ckpt_phase31"
     shutil.rmtree(ckdir, ignore_errors=True)
     n_all, n_first, every = CKPT_STEPS
-    log(f"[31/31] checkpointed hard stage: sphere_grid_scene(64), "
+    log(f"[31/34] checkpointed hard stage: sphere_grid_scene(64), "
         f"{res}x{res}, engine 'culled', spec {cull} (hot=False, headroom "
         f"2); {n_all} steps uninterrupted, then {n_first} steps saving "
         f"every {every} and a fresh fit to {n_all} from {ckdir.name}/; "
@@ -3018,6 +3057,455 @@ def soft_culled_vs_dense(torch, scene, cam, cull, bw, gamma, trainable,
                   "kernel 6 - plain compaction")
 
 
+def _best_ms(fn, reps: int = 5) -> float:
+    """Best host wall ms of reps calls of fn (host-side work: the PNG
+    encoders and decoder)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _fit_losses(printed: str) -> tuple[float, float]:
+    """(first, final) of the 'fit: ...' line that cli fit prints."""
+    line = next(x for x in printed.splitlines() if x.startswith("fit:"))
+    return tuple(float(line.split(w)[1].split(",")[0])
+                 for w in (" first ", " final "))
+
+
+def run_host(torch, dev, kernels, shading, accel, lib_dir):
+    """Phase 32, the host surface at c3 (1024x1024, culled_pallas): the
+    native encoder loads; a render through save_png and load_png equals
+    to_uint8 of the tensor; to_uint8_device equals to_uint8; the PNG
+    encoders' and decoder's times; checked_render clean with kernels A, B
+    and 4 launched under it; cost_analysis of a frame; cli fit --target
+    --scene for 3 steps with a falling loss. Returns the per-path launch
+    counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from openglraytracer_tpu_torch import cli
+    from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
+    from openglraytracer_tpu_torch.models.scene import save_scene
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.utils import image, native_imageio
+    from openglraytracer_tpu_torch.utils.debug import checked_render
+    from openglraytracer_tpu_torch.utils.profiling import cost_analysis
+
+    t_phase = time.perf_counter()
+    fwd = ("primary_hit", "shadow_occlusion", "phong_fused")
+    log(f"[32/34] host surface: c3_grid64 {W}x{H}, culled_pallas, tile "
+        f"{TILE[0]}")
+    try:
+        native_imageio._load()
+    except OSError as e:
+        check(False, f"the native encoder native/libimageio.so does not "
+              f"load: {e}")
+    log("  native encoder loaded (native/libimageio.so)")
+    scene, cam = sphere_grid_scene(8, device=dev)
+    lights = shading.static_shadow_mask(scene)
+    spec = accel.suggest_cull_config(scene, cam, H, W, TILE,
+                                     shadow_lights=lights)
+    kw = dict(engine="culled_pallas", cull=spec, shadow_lights=lights)
+    with torch.no_grad():
+        img = render(scene, cam, H, W, **kw)
+    want8 = image.to_uint8(img)
+    check(np.array_equal(image.to_uint8_device(img).cpu().numpy(), want8),
+          "to_uint8_device differs from to_uint8")
+    png = lib_dir / "phase32_c3.png"
+    image.save_png(img, str(png))
+    check(np.array_equal(image.load_png(str(png)),
+                         want8[::-1].astype(np.float32) / 255.0),
+          "save_png then load_png differs from to_uint8 of the render")
+    check(png.read_bytes() == native_imageio.encode_png(want8),
+          "save_png did not write the native encoder's bytes")
+    enc_native = _best_ms(lambda: native_imageio.encode_png(want8))
+    enc_py = _best_ms(lambda: image.encode_png_py(want8))
+    dec = _best_ms(lambda: image.load_png(str(png)))
+    log(f"  save_png -> load_png equals to_uint8 of the frame; "
+        f"to_uint8_device equals to_uint8; PNG of {W}x{H} "
+        f"({png.stat().st_size} bytes), best of 5 on the host: native "
+        f"encode {enc_native:.3f} ms, Python encode {enc_py:.3f} ms, "
+        f"load_png {dec:.3f} ms")
+
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    err, cimg = checked_render(scene, cam, H, W, **kw)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    launches = {"checked_render_c3_grid64": {k: kernels.LAUNCHES[k]
+                                             for k in fwd}}
+    log(f"  checked_render: {err.get() or 'no NaN'}; launches "
+        f"{launches['checked_render_c3_grid64']}; {checked_s:.2f} s")
+    check(err.get() is None, f"checked_render at c3: {err.get()}")
+    check(all(n >= 1 for n in launches["checked_render_c3_grid64"].values()),
+          "kernels A, B and 4 must launch under checked_render")
+    check(torch.equal(cimg, img), "the checked render differs from render")
+    kernels.LAUNCHES.clear()
+    with torch.no_grad():
+        cost = cost_analysis(render, scene, cam, H, W, **kw)
+    log(f"  cost_analysis of a c3 frame (aten ops outside the kernels): "
+        f"{json.dumps(cost)}")
+
+    init = lib_dir / "phase32_init.json"
+    sph = scene.spheres
+    shift = torch.tensor(FIT_TARGET_SHIFT, device=dev)
+    save_scene(scene._replace(spheres=sph._replace(center=sph.center
+                                                    + shift)),
+               str(init), camera=cam)
+    out = io.StringIO()
+    kernels.LAUNCHES.clear()
+    with contextlib.redirect_stdout(out):
+        cli.main(["fit", "--target", str(png), "--scene", str(init),
+                  "--engine", "culled_pallas", "--cull-tile", str(TILE[0]),
+                  "--steps", "3", "--lr", str(FIT_TARGET_LR), "--trainable",
+                  "spheres.center", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches["fit_target_c3_grid64"] = {k: kernels.LAUNCHES[k]
+                                        for k in fwd + ("phong_shade_bwd",)}
+    first, final = _fit_losses(out.getvalue())
+    for line in out.getvalue().splitlines():
+        log(f"  cli fit: {line}")
+    log(f"  fit --target --scene, 3 Adam steps at {W}x{H}: loss {first:.6e} "
+        f"-> {final:.6e}; launches {launches['fit_target_c3_grid64']}")
+    check(final < first, "fit --target --scene: the loss must fall")
+    check(all(n >= 3 for n in launches["fit_target_c3_grid64"].values()),
+          "fit --target must launch kernels A, B, 4 and 5 every step")
+    log(f"  phase 32: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
+    """Phase 33, the live viewer at the CLI's 1280x720 on culled_pallas and
+    pallas: VIEW_FRAMES frames published in order, the engine's kernels
+    launched every frame, /frame.png decoded by the port's load_png equal
+    to the render of the t it names, FPS and encode ms a frame. The
+    viewer's 8x8 cull tiles give kernels A, B and 4 shapes that no other
+    phase does, so the render of that t is also captured and each kernel
+    call of it held against its plain version on the same inputs, and the
+    frame against the image of the plain versions. Returns (the per-path
+    launch counts, each compared kernel's max abs error)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from openglraytracer_tpu_torch.models.animated import reference_frame
+    from openglraytracer_tpu_torch.ops import dense
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.utils.image import decode_png, to_uint8
+    from openglraytracer_tpu_torch.utils.viewer import FrameStreamer, serve
+
+    t_phase = time.perf_counter()
+    vh, vw = VIEW_HW
+    log(f"[33/34] live viewer: {vw}x{vh}, {VIEW_FRAMES} frames per engine, "
+        f"cull tile {VIEW_TILE} ({smi})")
+    launches, errs = {}, {}
+    for engine, kern in (("culled_pallas", ("primary_hit",
+                                            "shadow_occlusion",
+                                            "phong_fused")),
+                         ("pallas", ("dense_hit",))):
+        kernels.LAUNCHES.clear()
+        streamer = FrameStreamer(vh, vw, engine=engine, cull_tile=VIEW_TILE,
+                                 max_frames=VIEW_FRAMES, device=dev)
+        server = serve(streamer, port=0, host="127.0.0.1")
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        seen, last, fetched = [], 0, None
+        t0 = time.perf_counter()
+        streamer.start()
+        try:
+            while not streamer.done:
+                n, _ = streamer.wait_frame(last, timeout=120)
+                if n > last:
+                    seen.append(n)
+                    last = n
+                if fetched is None and n >= VIEW_FRAMES // 2:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/frame.png",
+                            timeout=60) as r:
+                        fetched = (r.read(), float(r.headers["X-Frame-Time"]))
+            wall = time.perf_counter() - t0
+        finally:
+            streamer.stop()
+            server.shutdown()
+            server.server_close()
+        torch.cuda.synchronize()
+        name = f"view_{engine}_{vw}x{vh}"
+        launches[name] = {k: kernels.LAUNCHES[k] for k in kern}
+        enc_ms = 1e3 * streamer.encode_s / max(streamer.frame_no, 1)
+        log(f"  {engine}: {streamer.frame_no} frames in {wall:.3f} s "
+            f"(start-up and sizing included) -> {streamer.frame_no / wall:.2f}"
+            f" FPS; last 2 s window {streamer.fps:.2f} FPS; PNG encode "
+            f"{enc_ms:.3f} ms a frame (worker time); cull rebuilds "
+            f"{streamer.rebuilds}; launches {launches[name]}")
+        check(streamer.error is None, f"viewer ({engine}) failed: "
+              f"{streamer.error!r}")
+        check(streamer.frame_no == VIEW_FRAMES and seen == sorted(seen),
+              f"viewer ({engine}): frames not all published in order")
+        check(all(launches[name][k] >= VIEW_FRAMES for k in kern),
+              f"viewer ({engine}): a kernel missed a frame")
+        check(fetched is not None, "no /frame.png fetched")
+        scene, cam = reference_frame(fetched[1], device=dev)
+        rkw = dict(engine=engine, cull=streamer._cull,
+                   shadow_lights=streamer._shadow_lights,
+                   bounce_mask=streamer._bounce_mask)
+        dense_calls, dense_fn = [], dense.dense_hit
+
+        def dense_spy(*a):
+            dense_calls.append(tuple(x.detach() for x in a))
+            return dense_fn(*a)
+        dense.dense_hit = dense_spy
+        try:
+            with Capture(culled, shade, accel) as cap, torch.no_grad():
+                want = to_uint8(render(scene, cam, vh, vw, **rkw))
+        finally:
+            dense.dense_hit = dense_fn
+        got = decode_png(fetched[0])
+        same = np.array_equal(got, want)
+        share = float((np.abs(got.astype(np.int16) - want).max(-1)
+                       <= 1).mean())
+        log(f"  /frame.png at t={fetched[1]!r}: "
+            f"{'equal to' if same else 'DIFFERENT from'} the render of its "
+            f"t ({share:.6f} of pixels within 1/255)")
+        check(same or (streamer.rebuilds > 0 and share >= 0.999),
+              f"viewer ({engine}): /frame.png is not the render of its t")
+        # every kernel call of that render against its plain version on
+        # the same inputs (launches here are not the path's: read above)
+        what = f"view {engine} {vw}x{vh}"
+        compared = collections.Counter()
+        for name, a, kw in cap.log + [("dense_hit", a, {})
+                                      for a in dense_calls]:
+            if name == "primary_hit":
+                e = compare_primary(torch, culled.primary_hit(*a, **kw),
+                                    culled.primary_hit_plain(*a, **kw),
+                                    what)[1]
+            elif name == "shadow_occlusion":
+                e = compare_shadow(torch, culled.shadow_occlusion(*a, **kw),
+                                   culled.shadow_occlusion_plain(*a, **kw),
+                                   what)[1]
+            elif name == "phong_fused":
+                e = compare_shade(torch, shade.phong_fused(*a, **kw),
+                                  shading.phong_core(*a, **kw), what)
+            elif name == "dense_hit":
+                e = compare_dense(torch, dense.dense_hit(*a),
+                                  dense.dense_hit_plain(*a), what)[1]
+            else:
+                continue
+            compared[name] += 1
+            errs[name] = max(errs.get(name, 0.0), e)
+        check(all(compared[k] >= 1 for k in kern),
+              f"viewer ({engine}): a kernel of the frame was not compared "
+              f"with its plain version ({dict(compared)})")
+        with PlainVersions(culled, shade, shading, accel), torch.no_grad():
+            plain = to_uint8(render(scene, cam, vh, vw, **rkw))
+        d = np.abs(got.astype(np.int16) - plain).max(-1)
+        p_same, p_share = float((d == 0).mean()), float((d <= 1).mean())
+        log(f"  /frame.png against the plain versions' image of its t: "
+            f"{p_same:.6f} of pixels equal, {p_share:.6f} within 1/255, max "
+            f"{int(d.max())}/255")
+        check(p_share >= 0.999, f"viewer ({engine}): /frame.png is not the "
+              f"plain versions' image of its t")
+    log(f"  phase 33: {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+def run_sharded(torch, dev, kernels, shading, accel, smi):
+    """Phase 34, the tile-sharded layer in an NCCL world of one process:
+    render_sharded on the (1, 1) mesh equal to render bit for bit at c3 and
+    c4_mirror4096 (and gather_image over NCCL); render_tile over the
+    coordinates of a SHARD_MESH mesh against the unsharded image; frames
+    and steps timed against the unsharded; 3 sharded SGD steps at c3 with
+    kernels A, B, 4 and 5 every step and gradients within GRAD_TOL of the
+    unsharded step's; one measure_scaling row. Returns the per-path launch
+    counts."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from openglraytracer_tpu_torch.models.builders import BENCH_CONFIGS
+    from openglraytracer_tpu_torch.ops.render import render
+    from openglraytracer_tpu_torch.parallel.distributed import (
+        gather_image, init_distributed)
+    from openglraytracer_tpu_torch.parallel.mesh import make_mesh, tile_slice
+    from openglraytracer_tpu_torch.parallel.scaling import (format_table,
+                                                            measure_scaling)
+    from openglraytracer_tpu_torch.parallel.sharded import (render_sharded,
+                                                            render_tile)
+    from openglraytracer_tpu_torch.train.inverse import (DEFAULT_TRAINABLE,
+                                                         FitConfig,
+                                                         make_train_step)
+
+    t_phase = time.perf_counter()
+    all4 = ("primary_hit", "shadow_occlusion", "phong_fused",
+            "phong_shade_bwd")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(coordinator_address=f"127.0.0.1:{port}",
+                     num_processes=1, process_id=0, device="cuda")
+    mesh = make_mesh()
+    log(f"[34/34] sharded: torch.distributed {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, mesh {mesh.shape} at {mesh.coord} "
+        f"({smi})")
+    check(dist.get_backend() == "nccl" and mesh.shape == (1, 1)
+          and mesh.group is not None, "expected an NCCL world of one rank")
+    launches = {}
+    try:
+        c3 = None
+        for name, tile in (("c3_grid64", TILE[0]), ("c4_mirror4096", 32)):
+            builder, h, w, depth = BENCH_CONFIGS[name]
+            scene, cam = builder(device=dev)
+            lights = shading.static_shadow_mask(scene)
+            bmask = (shading.static_bounce_mask(scene) if depth
+                     else (True, True))
+            spec = accel.suggest_cull_config(scene, cam, h, w, (tile, tile),
+                                             shadow_lights=lights)
+            child = (accel.suggest_child_cull_config(
+                scene, cam, h, w, spec, shadow_lights=lights)
+                if depth else None)
+            kw = dict(depth=depth, engine="culled_pallas", cull=spec,
+                      child_cull=child, shadow_lights=lights,
+                      bounce_mask=bmask)
+            if c3 is None:
+                c3 = (scene, cam, spec)
+            with torch.no_grad():
+                want, want_ovf = render(scene, cam, h, w,
+                                        with_cull_stats=True, **kw)
+                kernels.LAUNCHES.clear()
+                got, ovf = render_sharded(scene, cam, h, w, mesh=mesh,
+                                          with_cull_stats=True, **kw)
+                torch.cuda.synchronize()
+                launches[f"render_sharded_{name}"] = dict(kernels.LAUNCHES)
+                same = torch.equal(got, want) and int(ovf) == int(want_ovf)
+                gathered = gather_image(got, mesh)
+                log(f"  {name} ({w}x{h}, depth {depth}, spec {spec}): "
+                    f"render_sharded on (1, 1) "
+                    f"{'equals' if same else 'DIFFERS from'} render bit for "
+                    f"bit, overflow {int(ovf)}; launches "
+                    f"{launches[f'render_sharded_{name}']}")
+                check(same, f"render_sharded on (1, 1) differs from render "
+                      f"({name})")
+                check(np.array_equal(gathered, want.cpu().numpy()),
+                      f"gather_image over NCCL differs ({name})")
+                img = torch.empty_like(want)
+                ovf_sum = 0
+                for i in range(SHARD_MESH[0]):
+                    for j in range(SHARD_MESH[1]):
+                        t_, o_ = render_tile(scene, cam, h, w,
+                                             mesh_shape=SHARD_MESH,
+                                             coord=(i, j), **kw)
+                        rows, cols = tile_slice(SHARD_MESH, h, w, (i, j))
+                        img[rows, cols] = t_
+                        ovf_sum += int(o_)
+                diff = (img - want).abs().amax(-1)
+                share = float((diff <= 1.0 / 255.0).float().mean())
+                equal = torch.equal(img, want)
+                log(f"  render_tile over {SHARD_MESH}: "
+                    f"{'equal bit for bit to' if equal else 'differs from'} "
+                    f"the unsharded image ({share:.6f} of pixels within "
+                    f"1/255, max {float(diff.max()):.3e}); overflow summed "
+                    f"{ovf_sum}")
+                if name == "c3_grid64":
+                    check(equal, "the c3 tiles differ from the unsharded "
+                          "image")
+                else:
+                    check(share >= 0.999, f"the {name} tiles differ from "
+                          "the unsharded image")
+
+            def frame_u(scene=scene, cam=cam, h=h, w=w, kw=kw):
+                with torch.no_grad():
+                    return render(scene, cam, h, w, with_cull_stats=True,
+                                  **kw)
+
+            def frame_s(scene=scene, cam=cam, h=h, w=w, kw=kw):
+                with torch.no_grad():
+                    return render_sharded(scene, cam, h, w, mesh=mesh,
+                                          with_cull_stats=True, **kw)
+            for label, fn in (("unsharded", frame_u), ("sharded", frame_s),
+                              ("unsharded", frame_u), ("sharded", frame_s)):
+                windows, _ = timed_windows(torch, fn, warm=2, windows=3,
+                                           frames=5)
+                dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
+                                           for _ in range(3))
+                log(f"  {name} frame, {label}: median "
+                    f"{statistics.median(windows):.4f} ms, min "
+                    f"{min(windows):.4f} ms (3 windows of 5); device "
+                    f"{dev_ms:.4f} ms")
+
+        scene, cam, spec = c3
+        zero = torch.zeros((H, W, 3), device=dev)
+        cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
+                        trainable=DEFAULT_TRAINABLE)
+
+        def sgd(ps):
+            return torch.optim.SGD(ps, lr=STEP_LR)
+        init_s, step_s = make_train_step(cam, cfg, mesh=mesh, optimizer=sgd)
+        init_u, step_u = make_train_step(cam, cfg, optimizer=sgd)
+        params, opt = init_s(scene)
+        kernels.LAUNCHES.clear()
+        outs = [step_s(params, opt, scene, zero) for _ in range(STEPS)]
+        torch.cuda.synchronize()
+        launches["train_step_sharded_c3_grid64"] = {
+            k: kernels.LAUNCHES[k] for k in all4}
+        log(f"  sharded training step at c3, {STEPS} SGD steps: losses "
+            f"{[float(o[2]) for o in outs]}, overflow "
+            f"{[int(o[3]) for o in outs]}; launches "
+            f"{launches['train_step_sharded_c3_grid64']}")
+        check(all(n >= STEPS for n in
+                  launches["train_step_sharded_c3_grid64"].values()),
+              "kernels A, B, 4 and 5 must launch on every sharded step")
+
+        def one_step(init, step):
+            p, o = init(scene)
+            _, _, loss, _ = step(p, o, scene, zero)
+            return float(loss), {k: v.grad for k, v in p.items()}
+        loss_s, g_s = one_step(init_s, step_s)
+        loss_u, g_u = one_step(init_u, step_u)
+        log(f"  first step's loss: sharded {loss_s:.9g}, unsharded "
+            f"{loss_u:.9g}")
+        check(abs(loss_s - loss_u) <= 1e-5 * abs(loss_u),
+              "the sharded loss differs from the unsharded")
+        for k in DEFAULT_TRAINABLE:
+            scale = float(g_u[k].abs().max())
+            e = float((g_s[k] - g_u[k]).abs().max())
+            log(f"  grad {k}: max |g| {scale:.4e}, max |sharded - "
+                f"unsharded| {e:.3e} ({e / max(scale, 1e-30):.2e} of max|g|)")
+            check(scale > 0 and e <= GRAD_TOL * scale,
+                  f"sharded gradient of {k} differs from the unsharded")
+
+        params_u, opt_u = init_u(scene)
+        for label, fn in (("unsharded", lambda: step_u(params_u, opt_u,
+                                                       scene, zero)),
+                          ("sharded", lambda: step_s(params, opt, scene,
+                                                     zero))) * 2:
+            windows, _ = timed_windows(torch, fn, warm=2, windows=3,
+                                       frames=5)
+            dev_ms = statistics.median(device_ms(torch, fn, (), reps=1)
+                                       for _ in range(3))
+            log(f"  c3 training step, {label}: median "
+                f"{statistics.median(windows):.4f} ms, min "
+                f"{min(windows):.4f} ms (3 windows of 5); device "
+                f"{dev_ms:.4f} ms")
+        for mode in ("render", "step"):
+            rows = measure_scaling(scene, cam, H, W, mode=mode,
+                                   engine="culled_pallas", cull=spec,
+                                   device_counts=[1])
+            log(f"  measure_scaling ({mode}, c3 culled_pallas): "
+                f"{json.dumps(rows)}")
+            for line in format_table(rows).splitlines():
+                log(f"    {line}")
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase 34: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3050,7 +3538,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/31] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/34] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -3058,7 +3546,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/31] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/34] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -3071,7 +3559,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/31] kernels vs plain versions")
+    log("[3/34] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -3160,7 +3648,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/31] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/34] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -3207,7 +3695,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/31] forward timing ({name}; {smi})")
+    log(f"[5/34] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -3269,7 +3757,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/31] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/34] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -3313,7 +3801,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/31] training timing ({name}; {smi})")
+    log(f"[7/34] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -3335,7 +3823,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/31] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/34] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -3375,7 +3863,12 @@ def main() -> int:
     launches_extras, soft_cells = run_training_extras(
         torch, dev, kernels, culled, shade, shading, accel, smi,
         lib_path.parent)
-    for k, v in errs_stack.items():
+    launches_host = run_host(torch, dev, kernels, shading, accel,
+                             lib_path.parent)
+    launches_view, errs_view = run_viewer(torch, dev, kernels, culled, shade,
+                                          shading, accel, smi)
+    launches_sharded = run_sharded(torch, dev, kernels, shading, accel, smi)
+    for k, v in (*errs_stack.items(), *errs_view.items()):
         errs[k] = max(errs[k], v)
     c3_dense = dense_cells["c3 primary"]
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
@@ -3429,7 +3922,8 @@ def main() -> int:
     path_launches = {"render_c3_grid64": fwd_launches,
                      "train_step_c3_grid64": train_launches, **launches_4096,
                      **launches_dense, **launches_xla, **launches_stack,
-                     **launches_xla_culled, **launches_extras}
+                     **launches_xla_culled, **launches_extras,
+                     **launches_host, **launches_view, **launches_sharded}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",

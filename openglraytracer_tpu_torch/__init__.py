@@ -14,8 +14,12 @@ the primary-hit kernel (shared-origin and per-ray modes, with the
 hot-primary launch) and the shadow-occlusion kernel, survivor-routed
 materials, the fused Phong shade kernel, the dense hit kernel, the bounce
 tree and the stack bounce engine; the analytic winner backward, the shade
-backward kernel and the inverse-rendering fit (``train/inverse.py``). What
-is still to port is listed in ROADMAP.md.
+backward kernel and the inverse-rendering fit (``train/inverse.py``). Around
+them: PNG output and input with the native encoder (``utils/image.py``),
+scene files, the NumPy oracle, the NaN-checked render, profiling and the
+live viewer (``utils/``), and the tile-sharded render and fit over
+``torch.distributed``, one process per device (``parallel/``). The
+reference's ``bench.py`` is not ported yet (ROADMAP.md).
 
 The package imports neither ``jax`` nor ``openglraytracer_tpu``.
 """

@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
-``openglraytracer_tpu/cli.py``:
+Port of ``openglraytracer_tpu/cli.py``'s ``configs``, ``render``,
+``animate``, ``view``, ``fit`` and ``scale`` commands (``bench`` waits for
+the port of bench.py):
 
   python -m openglraytracer_tpu_torch.cli configs
   python -m openglraytracer_tpu_torch.cli render --scene c4_mirror \\
@@ -18,12 +19,18 @@ Port of the ``configs``, ``render``, ``animate`` and ``fit`` commands of
       --depth 4 --bounce stack --out c2s.png   # the stack bounce engine
   python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
       --width 1280 --height 720 --depth 1 --out-pattern frame_{:04d}.png
+  python -m openglraytracer_tpu_torch.cli view --engine culled_pallas \\
+      --port 8000                       # live PNG stream over HTTP
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
       --height 256 --steps 60 --lr 0.02
+  python -m openglraytracer_tpu_torch.cli fit --target t.png \\
+      --scene init.json --steps 100     # fit a scene JSON to a PNG
+  python -m openglraytracer_tpu_torch.cli scale --scene c1_sphere_plane \\
+      --height 256 --width 256          # Mrays/s against devices
 
-``render``, ``animate`` and ``fit`` take the reference's flags where they
-apply, plus ``--device`` (default ``cuda``; there is no silent fall back to
-the CPU), and ``render`` and ``fit`` ``--row-block``. The engines are the
+The commands take the reference's flags where they apply, plus
+``--device`` (default ``cuda``; there is no silent fall back to the CPU),
+and ``render`` and ``fit`` ``--row-block``. The engines are the
 reference's, with its default ``auto`` (= ``xla``, plain PyTorch):
 ``xla``, ``pallas`` (kernel 7), ``culled`` (the culled narrow phase in
 plain PyTorch), ``culled_pallas`` and, in ``render`` and ``animate``,
@@ -39,16 +46,21 @@ reference's CLI passes the primary spec, whose lists deep bundles
 overflow). ``--time`` charges the reference's rays: the primary rays and
 a shadow ray per static shadow-casting light, per cast of the static
 bounce tree, whatever the engine. ``fit --soft BW,GAMMA`` runs the
-soft-coverage fit against a soft render of the true scene, and
-``--checkpoint-dir`` saves and resumes the fit there. Flags for what this
-package does not do yet (``animate --gif``; PNG targets and sharded fits)
-are rejected with a message.
+soft-coverage fit against a soft render of the true scene,
+``--checkpoint-dir`` saves and resumes the fit there, ``--target PNG
+--scene init.json`` fits the scene of the JSON (and its camera) to the
+PNG, and ``--sharded`` runs the tile-sharded fit over the process group
+(one process per device, started by a launcher such as torchrun; a single
+process is the (1, 1) mesh). ``view`` streams PNG frames, not the
+reference's JPEG. ``animate --gif`` is rejected: it needs PIL, which the
+port does not depend on.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 import time
 
@@ -83,19 +95,14 @@ def cmd_configs(args):
         print(f"{name:20s} {w}x{h} depth={depth}")
 
 
-def _profiled(profile_dir, device):
-    """Context manager: a torch.profiler trace when --profile-dir is set,
-    written as a Chrome trace into that directory."""
+def _profiled(profile_dir):
+    """Context manager: a torch.profiler trace when --profile-dir is set
+    (utils/profiling.trace)."""
     if not profile_dir:
         return contextlib.nullcontext()
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    print(f"profiling to {profile_dir} (Chrome trace)")
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    from openglraytracer_tpu_torch.utils.profiling import trace
+    print(f"profiling to {profile_dir} (TensorBoard/Chrome trace)")
+    return trace(profile_dir)
 
 
 def _resolve_scene(args, device):
@@ -211,7 +218,7 @@ def cmd_render(args):
                          zip(("kp", "ks", "hot_m", "kb", "ksb", "hot_p"),
                              cspec[1:])))
         kwargs["child_cull"] = cspec
-    with _profiled(args.profile_dir, device), torch.no_grad():
+    with _profiled(args.profile_dir), torch.no_grad():
         img = render(scene, cam, h, w, **kwargs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -234,18 +241,6 @@ def cmd_render(args):
     print(f"wrote {args.out} ({w}x{h}, depth={depth})")
 
 
-def _reject_unported_fit(args):
-    if args.target or args.scene:
-        raise SystemExit("--target/--scene fits to a PNG are not yet ported "
-                         "(they need utils/image.load_png, slice 9 of "
-                         "ROADMAP.md); the default synthetic fit needs "
-                         "neither")
-    if args.sharded:
-        raise SystemExit("--sharded: the tile-sharded fit (slice 8) is not "
-                         "yet ported (see ROADMAP.md)")
-    _check_row_block(args)
-
-
 def _soft_spec(args, scene, cam, h, w):
     """--soft BW,GAMMA: ((bw, gamma), the soft cull spec sized with
     headroom 2 and printed), with the reference's checks."""
@@ -265,29 +260,82 @@ def _soft_spec(args, scene, cam, h, w):
     return (bw, gamma), cull
 
 
-def cmd_fit(args):
-    """The synthetic fit: render sphere_grid_scene(--grid-side, seed=1) as
-    the target, perturb the spheres' centers and radii with noise from a
-    torch.Generator seeded with 0, and fit back. The target and the fitted
-    scene's --out are rendered with the default engine, as the reference
-    does; the fit runs --engine (a culled engine's children densely on
-    'xla'). With --soft the target is the soft render of the true scene at
-    the same (bw, gamma), so the true scene is the exact optimum, and the
-    fit runs the soft forward. --checkpoint-dir saves a checkpoint every
-    100 steps (FitConfig's default, as the reference) and resumes from the
-    newest one there."""
+def _fit_scene(args, device):
+    """(scene_true, cam, target or None, h, w): with --target, the scene
+    and camera of --scene init.json and the PNG as the target, loaded onto
+    device; else the synthetic sphere_grid_scene(--grid-side, seed=1)."""
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
+    from openglraytracer_tpu_torch.models.scene import (load_scene_camera,
+                                                        make_camera)
+    from openglraytracer_tpu_torch.utils.image import load_png
+    if not args.target:
+        if args.scene:
+            raise SystemExit("--scene is the initial scene of a --target "
+                             "fit; pass --target too (the synthetic fit "
+                             "takes --grid-side)")
+        scene, cam = sphere_grid_scene(args.grid_side, seed=1, device=device)
+        return scene, cam, None, args.height or 128, args.width or 128
+    if not (args.scene and args.scene.endswith(".json")):
+        raise SystemExit("--target needs --scene init.json (the initial "
+                         "scene to optimize, with its camera; see "
+                         "save_scene / render --save-scene)")
+    scene, cam = load_scene_camera(args.scene, device=device)
+    target = torch.from_numpy(load_png(args.target)).to(device)
+    th, tw = target.shape[:2]
+    if (args.height and args.height != th) or \
+            (args.width and args.width != tw):
+        raise SystemExit(f"--target {args.target} is {tw}x{th}; "
+                         f"--width/--height must match (or be omitted)")
+    if cam is None:
+        cam = make_camera((0.0, -10.0, 4.0), (-15.0, 0.0, 0.0),
+                          aspect=tw / th, device=device)
+    return scene, cam, target, th, tw
+
+
+def cmd_fit(args):
+    """Fit a scene to a target. The synthetic fit renders
+    sphere_grid_scene(--grid-side, seed=1) as the target, perturbs the
+    spheres' centers and radii with noise from a torch.Generator seeded
+    with 0, and fits back; with --target PNG --scene init.json the scene
+    of the JSON is the starting point and the PNG the target. The
+    synthetic target and the fitted scene's --out are rendered with the
+    default engine, as the reference does; the fit runs --engine (a culled
+    engine's children densely on 'xla'). With --soft the synthetic target
+    is the soft render of the true scene at the same (bw, gamma), so the
+    true scene is the exact optimum, and the fit runs the soft forward.
+    --checkpoint-dir saves a checkpoint every 100 steps (FitConfig's
+    default, as the reference) and resumes from the newest one there.
+    --sharded fits over the tile mesh of the process group
+    (parallel/distributed.init_distributed from a launcher's environment;
+    one process is the (1, 1) mesh); the rank at (0, 0) writes the
+    outputs."""
     from openglraytracer_tpu_torch.models.scene import save_scene
     from openglraytracer_tpu_torch.ops.accel import suggest_cull_config
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.train.inverse import FitConfig, fit
     from openglraytracer_tpu_torch.utils.image import save_png
 
-    _reject_unported_fit(args)
+    _check_row_block(args)
+    if args.sharded and args.row_block is not None:
+        raise SystemExit("--row-block is not used by --sharded (each rank "
+                         "renders its own tile); drop it")
+    if args.sharded and args.soft:
+        raise SystemExit("--soft stages run unsharded")
     device = _device(args.device)
-    h, w, t = args.height or 128, args.width or 128, args.cull_tile
-    scene_true, cam = sphere_grid_scene(args.grid_side, seed=1,
-                                        device=device)
+    mesh = None
+    if args.sharded:
+        # the process group first: it picks this rank's card, on which the
+        # scene, the target and the parameters are then built
+        from openglraytracer_tpu_torch.parallel.distributed import (
+            init_distributed, rank_device)
+        from openglraytracer_tpu_torch.parallel.mesh import make_mesh
+        init_distributed(device=device)
+        device = rank_device(device)
+        mesh = make_mesh()
+        print(f"sharded: mesh {mesh.shape[0]}x{mesh.shape[1]}, this rank at "
+              f"{mesh.coord} on {device}")
+    scene_true, cam, target, h, w = _fit_scene(args, device)
+    t = args.cull_tile
     cull = None
     if args.engine in CULLED:
         if h % t or w % t:
@@ -300,20 +348,23 @@ def cmd_fit(args):
     soft = None
     if args.soft:
         soft, cull = _soft_spec(args, scene_true, cam, h, w)
-    with torch.no_grad():
-        if soft is not None:
-            from openglraytracer_tpu_torch.ops.soft import soft_render
-            target = soft_render(scene_true, cam, h, w, bw=soft[0],
-                                 gamma=soft[1], cull=cull)
-        else:
-            target = render(scene_true, cam, h, w, depth=args.depth)
-    gen = torch.Generator().manual_seed(0)
-    sph = scene_true.spheres
-    noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
-    noise_r = torch.randn(sph.radius.shape, generator=gen).to(device)
-    scene_init = scene_true._replace(spheres=sph._replace(
-        center=sph.center + 0.3 * noise_c,
-        radius=torch.clamp(sph.radius + 0.1 * noise_r, min=0.1)))
+    if target is not None:
+        scene_init = scene_true     # the loaded scene is the starting point
+    else:
+        with torch.no_grad():
+            if soft is not None:
+                from openglraytracer_tpu_torch.ops.soft import soft_render
+                target = soft_render(scene_true, cam, h, w, bw=soft[0],
+                                     gamma=soft[1], cull=cull)
+            else:
+                target = render(scene_true, cam, h, w, depth=args.depth)
+        gen = torch.Generator().manual_seed(0)
+        sph = scene_true.spheres
+        noise_c = torch.randn(sph.center.shape, generator=gen).to(device)
+        noise_r = torch.randn(sph.radius.shape, generator=gen).to(device)
+        scene_init = scene_true._replace(spheres=sph._replace(
+            center=sph.center + 0.3 * noise_c,
+            radius=torch.clamp(sph.radius + 0.1 * noise_r, min=0.1)))
 
     cfg = FitConfig(height=h, width=w, depth=args.depth, steps=args.steps,
                     learning_rate=args.lr, engine=args.engine,
@@ -321,20 +372,67 @@ def cmd_fit(args):
                     row_block=args.row_block, soft=soft,
                     checkpoint_dir=args.checkpoint_dir)
     t0 = time.time()
-    with _profiled(args.profile_dir, device):
-        fitted, losses = fit(scene_init, target, cam, cfg)
+    with _profiled(args.profile_dir):
+        fitted, losses = fit(scene_init, target, cam, cfg, mesh=mesh)
     if not losses:
         raise SystemExit(f"fit: the checkpoint in {args.checkpoint_dir} is "
                          f"at or past --steps {args.steps}; nothing to run")
     print(f"fit: {len(losses)} logged losses, first {losses[0][1]:.3e}, "
           f"final {losses[-1][1]:.3e}, {time.time() - t0:.1f}s")
+    if mesh is not None and mesh.coord != (0, 0):
+        return
     if args.save_scene:
         save_scene(fitted, args.save_scene, camera=cam)
         print(f"wrote fitted scene JSON {args.save_scene}")
     if args.out:
         with torch.no_grad():
-            save_png(render(fitted, cam, h, w, depth=args.depth), args.out)
+            save_png(render(fitted, cam, h, w, depth=args.depth), args.out,
+                     gather=False)
         print(f"wrote {args.out}")
+
+
+def cmd_view(args):
+    """The live viewer (utils/viewer.py): the animated reference world
+    rendered continuously at the wall clock's time and streamed as PNG
+    frames over HTTP, until Ctrl-C or --frames."""
+    from openglraytracer_tpu_torch.utils.viewer import run_viewer
+    device = _device(args.device)
+    run_viewer(args.height, args.width, depth=args.depth,
+               engine=args.engine, cull_tile=args.cull_tile,
+               port=args.port, fps_cap=args.fps_cap,
+               max_frames=args.frames, start_time=args.start_time,
+               device=device)
+
+
+def cmd_scale(args):
+    """The scaling-efficiency harness (parallel/scaling.py) over the
+    process group: --coordinator/--num-processes/--process-id start it
+    explicitly, a launcher's environment (torchrun) implicitly; a single
+    process measures one device."""
+    from openglraytracer_tpu_torch.parallel.distributed import (
+        init_distributed, rank_device)
+    from openglraytracer_tpu_torch.parallel.scaling import (format_table,
+                                                            measure_scaling)
+    device = _device(args.device)
+    init_distributed(coordinator_address=args.coordinator,
+                     num_processes=args.num_processes,
+                     process_id=args.process_id, device=device)
+    device = rank_device(device)
+    scene, cam, h, w, depth = _resolve_scene(args, device)
+    rows = measure_scaling(scene, cam, h, w, depth=depth, mode=args.mode,
+                           engine=args.engine, device_counts=args.devices,
+                           iters=args.iters)
+    print(format_table(rows))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+        print(f"wrote {args.json}")
+    worst = min(r["efficiency"] for r in rows)
+    base_n = rows[0]["devices"]
+    rel = "1 device" if base_n == 1 else \
+        f"{base_n} devices, not the one-device baseline"
+    print(f"worst-case efficiency: {worst:.1%} relative to {rel} "
+          f"(target >= 85%, BASELINE.md)")
 
 
 def cmd_animate(args):
@@ -425,10 +523,10 @@ def main(argv=None):
     f = sub.add_parser("fit", help="inverse-rendering fit")
     f.add_argument("--grid-side", type=int, default=4)
     f.add_argument("--target", default=None,
-                   help="not yet ported (rejected): fit to a PNG")
+                   help="fit to this PNG (needs --scene init.json); default "
+                        "is the synthetic self-rendered-target fit")
     f.add_argument("--scene", default=None,
-                   help="not yet ported (rejected): initial scene JSON for "
-                        "--target fits")
+                   help="initial scene JSON for --target fits")
     f.add_argument("--width", type=int, default=None)
     f.add_argument("--height", type=int, default=None)
     f.add_argument("--depth", type=int, default=0)
@@ -437,7 +535,8 @@ def main(argv=None):
     f.add_argument("--trainable",
                    default="spheres.center,spheres.radius,materials.diffuse")
     f.add_argument("--sharded", action="store_true",
-                   help="not yet ported (rejected)")
+                   help="tile-sharded fit over the process group (one "
+                        "process per device, e.g. under torchrun)")
     f.add_argument("--engine", default="auto", choices=ENGINES)
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
                    help="soft-coverage forward for silhouette-aware "
@@ -477,6 +576,51 @@ def main(argv=None):
     a.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     a.set_defaults(fn=cmd_animate)
+
+    v = sub.add_parser("view", help="live viewer: render the animated "
+                       "demo continuously and stream it over HTTP as PNG "
+                       "frames")
+    v.add_argument("--width", type=int, default=1280)
+    v.add_argument("--height", type=int, default=720)
+    v.add_argument("--depth", type=int, default=0)
+    v.add_argument("--engine", default="auto", choices=ENGINES)
+    v.add_argument("--cull-tile", type=int, default=8)
+    v.add_argument("--port", type=int, default=8000)
+    v.add_argument("--fps-cap", type=float, default=None,
+                   help="cap the render rate (the vsync analog); default: "
+                        "as fast as the card goes")
+    v.add_argument("--frames", type=int, default=None,
+                   help="stop after N frames (default: run until Ctrl-C)")
+    v.add_argument("--start-time", type=float, default=0.0)
+    v.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda)")
+    v.set_defaults(fn=cmd_view)
+
+    s = sub.add_parser("scale",
+                       help="scaling-efficiency harness (Mrays/s vs devices)")
+    s.add_argument("--scene", default="c3_grid64",
+                   help="builtin config name or scene .json path")
+    s.add_argument("--width", type=int, default=None)
+    s.add_argument("--height", type=int, default=None)
+    s.add_argument("--depth", type=int, default=None)
+    s.add_argument("--mode", default="render", choices=["render", "step"],
+                   help="forward render or full fwd+bwd training step")
+    s.add_argument("--engine", default="auto",
+                   choices=["auto", "xla", "pallas"])
+    s.add_argument("--devices", type=int, nargs="+", default=None,
+                   help="device counts to sweep (default 1,2,4,...,all)")
+    s.add_argument("--iters", type=int, default=5)
+    s.add_argument("--json", default=None, help="write rows to this file")
+    s.add_argument("--coordinator", default=None,
+                   help="the process group's address (host:port)")
+    s.add_argument("--num-processes", type=int, default=None)
+    s.add_argument("--process-id", type=int, default=None)
+    s.add_argument("--camera-pos", type=float, nargs=3, default=None)
+    s.add_argument("--camera-angles", type=float, nargs=3, default=None)
+    s.add_argument("--device", default="cuda",
+                   help="torch device to measure on (default cuda; cpu "
+                        "runs a gloo world)")
+    s.set_defaults(fn=cmd_scale)
 
     c = sub.add_parser("configs", help="list builtin configs")
     c.set_defaults(fn=cmd_configs)

@@ -20,6 +20,8 @@ Each C function launches on the stream it is given and returns
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -45,6 +47,12 @@ LIB_NAME = "liboglrt_kernels.so"
 # where it launches its kernel and nowhere else (never on its plain path),
 # so a run can show that the main path went through the kernels.
 LAUNCHES = collections.Counter()
+
+# utils/debug.checked_render's NaN check while it runs in this thread, else
+# None. A dispatch mode cannot see inside a kernel (it is called through
+# ctypes), so each wrapper (decorated with ``wrapper``) runs as one op that
+# the check does not look into, and hands it its outputs instead.
+NAN_CHECK = contextvars.ContextVar("oglrt_nan_check", default=None)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -200,3 +208,26 @@ def on_cpu(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def wrapper(fn):
+    """Decorator of a kernel wrapper: under utils/debug.checked_render the
+    call (its kernel, or its plain version on the CPU) is one opaque op
+    whose tensor outputs are checked for NaN."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        check = NAN_CHECK.get()
+        if check is None:
+            return fn(*args, **kwargs)
+        with check.paused():
+            out = fn(*args, **kwargs)
+        check.record_outputs(f"kernel {fn.__name__}", out)
+        return out
+    return call
+
+
+def unchecked():
+    """Context in which checked_render's NaN check is off, for a
+    construction that writes NaN on purpose."""
+    check = NAN_CHECK.get()
+    return contextlib.nullcontext() if check is None else check.paused()

@@ -353,6 +353,13 @@ def save_scene(scene: Scene, path: str, camera: Camera | None = None) -> None:
         json.dump(d, f, indent=1)
 
 
+def load_scene(path: str, dtype=torch.float32, device="cuda") -> Scene:
+    """The Scene of a scene JSON (as either package's save_scene writes
+    it); a camera in the file is not read (load_scene_camera)."""
+    with open(path) as f:
+        return scene_from_dict(json.load(f), dtype, device)
+
+
 def load_scene_camera(path: str, dtype=torch.float32, device="cuda"):
     """(Scene, Camera | None) from a scene JSON; None when the file has no
     'camera' entry."""

@@ -178,6 +178,7 @@ def compact_mask_plain(mask, k: int):
 
 
 @torch.no_grad()
+@kernels.wrapper
 def compact_mask(mask, k: int):
     """Dense top-K compaction of a (T, N) bool mask.
 

@@ -233,6 +233,7 @@ def primary_hit_plain(dirs, sph, box, pln, cnt, tile_p: int, origins=None,
 
 
 @torch.no_grad()
+@kernels.wrapper
 def primary_hit(dirs, sph, box, pln, cnt, tile_p: int):
     """Kernel A (csrc/primary_hit.cu) on CUDA tensors, its plain version on
     CPU tensors; arguments and results as primary_hit_plain."""
@@ -261,6 +262,7 @@ def primary_hit(dirs, sph, box, pln, cnt, tile_p: int):
 
 
 @torch.no_grad()
+@kernels.wrapper
 def primary_hit_ray(dirs, origins, sph, box, pln, cnt, tile_p: int,
                     tile_ids=None):
     """Kernel 2 (csrc/primary_hit.cu, per-ray mode) on CUDA tensors, its
@@ -440,6 +442,7 @@ def _shadow_c_args(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
 
 
 @torch.no_grad()
+@kernels.wrapper
 def shadow_occlusion(shadow_org, hit_p, lights, light_on: tuple, ssph, sbox,
                      pln, cnt, tile_p: int, hot_ids=None, spheres=None):
     """Kernel B (csrc/shadow_occlusion.cu) on CUDA tensors, its plain
@@ -546,8 +549,13 @@ def _shadow_spheres(scene: Scene):
 def _shadow_sphere_rows(scene: Scene, s_idx, s_valid):
     """(T, Ks, 4) [c(3) r], r NaN in an invalid slot."""
     rows = _gather_tile_rows(_shadow_spheres(scene), s_idx)  # (T, Ks, 4)
-    r = torch.where(s_valid, rows[..., 3], torch.nan)
-    return torch.cat([rows[..., :3], r[..., None]], dim=-1)
+    # r = NaN marks an invalid slot on purpose: kernel B's sphere test is
+    # false on it. The one construction exempt from checked_render's NaN
+    # check (utils/debug.py), here and where the rows are stacked for
+    # kernel B's wrapper, the only reader.
+    with kernels.unchecked():
+        r = torch.where(s_valid, rows[..., 3], torch.nan)
+        return torch.cat([rows[..., :3], r[..., None]], dim=-1)
 
 
 def _shadow_box_rows(scene: Scene, sb_idx, sb_valid):
@@ -838,9 +846,11 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     if n_lights and any(light_on):
         hot = ((torch.stack(hot_rows), _shadow_spheres(scene).contiguous())
                if hot_on else (None, None))
+        with kernels.unchecked():   # the NaN radii of _shadow_sphere_rows
+            ssph = torch.stack(ssph_rows, dim=1)
         occluded = shadow_occlusion(
             shadow_org, hit.p, scene.lights.position.contiguous(), light_on,
-            torch.stack(ssph_rows, dim=1), torch.stack(sbox_rows, dim=1),
+            ssph, torch.stack(sbox_rows, dim=1),
             pln_tab.contiguous(),
             torch.stack(cnt_cols, dim=1).to(torch.int32), tile_p, *hot)
     else:

@@ -258,6 +258,7 @@ def dense_hit_plain(origins, dirs, sph, box, pln, lights):
 
 
 @torch.no_grad()
+@kernels.wrapper
 def dense_hit(origins, dirs, sph, box, pln, lights):
     """Kernel 7 (csrc/dense_hit.cu) on CUDA tensors, its plain version on
     CPU tensors; arguments and results as dense_hit_plain."""

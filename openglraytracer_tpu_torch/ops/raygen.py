@@ -21,16 +21,22 @@ from openglraytracer_tpu_torch.models.scene import Camera
 from openglraytracer_tpu_torch.ops.transforms import _fma, camera_matrices
 
 
-def pixel_ndc(height: int, width: int, dtype=torch.float32, device="cuda"):
+def pixel_ndc(height: int, width: int, dtype=torch.float32, device="cuda",
+              rows: slice | None = None, cols: slice | None = None):
     """Per-pixel NDC xy coords, shape (H, W) each, on ``device`` (the GPU
-    unless asked otherwise, as every builder of the port)."""
+    unless asked otherwise, as every builder of the port). rows and cols
+    cut the pixel grid to a tile, of the same values: each pixel's coords
+    depend on its own ids only."""
     half_w = width // 2
     half_h = height // 2
-    px = torch.arange(width, dtype=dtype, device=device)
-    py = torch.arange(height, dtype=dtype, device=device)
+    r = range(height)[rows] if rows is not None else range(height)
+    c = range(width)[cols] if cols is not None else range(width)
+    px = torch.arange(c.start, c.stop, c.step, dtype=dtype, device=device)
+    py = torch.arange(r.start, r.stop, r.step, dtype=dtype, device=device)
     x = (px - half_w) / half_w
     y = (py - half_h) / half_h
-    return x[None, :].expand(height, width), y[:, None].expand(height, width)
+    shape = (len(r), len(c))
+    return x[None, :].expand(shape), y[:, None].expand(shape)
 
 
 def unproject(inv_vp, x, y, z: float):
@@ -44,12 +50,14 @@ def unproject(inv_vp, x, y, z: float):
     return world[..., :3] / world[..., 3:4]
 
 
-def generate_rays(cam: Camera, height: int, width: int):
+def generate_rays(cam: Camera, height: int, width: int,
+                  rows: slice | None = None, cols: slice | None = None):
     """Returns (origins (H,W,3), dirs (H,W,3)) world-space primary rays on
-    the camera's device."""
+    the camera's device; with rows and cols, those of that tile of the
+    image alone, equal bit for bit to the whole image's cut to it."""
     _, _, inv_vp = camera_matrices(cam)
     x, y = pixel_ndc(height, width, dtype=cam.position.dtype,
-                     device=cam.position.device)
+                     device=cam.position.device, rows=rows, cols=cols)
     start = unproject(inv_vp, x, y, 0.5)
     end = unproject(inv_vp, x, y, 1.0)
     d = end - start

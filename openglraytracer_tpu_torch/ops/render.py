@@ -624,6 +624,33 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     (trace_rays_mirror, through closest_hit and phong_shade whatever the
     engine, refraction ignored); the culled engines ignore it, as the
     reference does."""
+    device = (torch.device(device) if device is not None
+              else camera.position.device)
+    _check_device(scene, camera, device)
+    origins, dirs = generate_rays(camera, height, width)
+    return render_rays(scene, origins, dirs, depth=depth,
+                       chunk_size=chunk_size, remat=remat,
+                       row_block=row_block, mirror_only=mirror_only,
+                       engine=engine, cull=cull, shadow_lights=shadow_lights,
+                       bounce=bounce, with_cull_stats=with_cull_stats,
+                       bounce_mask=bounce_mask, child_cull=child_cull,
+                       fused_shade=fused_shade)
+
+
+def render_rays(scene: Scene, origins, dirs, depth: int = 0,
+                chunk_size: int = 512, remat: bool = False,
+                row_block: int | None = None, mirror_only: bool = False,
+                engine: str = "auto", cull: tuple | None = None,
+                shadow_lights: tuple | None = None, bounce: str = "tree",
+                with_cull_stats: bool = False,
+                bounce_mask: tuple | None = None,
+                child_cull: tuple | None = None, fused_shade: bool = True):
+    """render after ray generation: the (h, w, 3) image of the (h, w, 3)
+    primary rays origins and dirs, on their device, with render's
+    arguments (a tile of an image is rendered so, from its own rays, by
+    parallel/sharded.render_tile)."""
+    height, width = origins.shape[:2]
+    device = origins.device
     _check_engine(engine)
     if bounce not in ("tree", "stack"):
         raise ValueError(f"bounce '{bounce}': 'tree' or 'stack'")
@@ -632,15 +659,11 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
         raise ValueError("bounce='stack' supports engines 'auto', 'xla', "
                          "'pallas', 'culled' and 'culled_pallas', not "
                          "'autodiff'")
-    device = (torch.device(device) if device is not None
-              else camera.position.device)
-    _check_device(scene, camera, device)
     if shadow_lights is None and engine in ("auto", "xla") + CULLED:
         shadow_lights = static_shadow_mask(scene)
     if bounce_mask is None:
         bounce_mask = static_bounce_mask(scene) if depth > 0 \
             else (True, True)
-    origins, dirs = generate_rays(camera, height, width)
     if engine not in CULLED:
         if stack:
             def tracer(s, o, d, depth, chunk_size=512, remat=False):

@@ -48,6 +48,7 @@ def _check_rays(dev, lights, mat_rows, dirs, p, n, occluded):
                   (r_total, n_lights))
 
 
+@kernels.wrapper
 def phong_shade(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
     """Forward wrapper: ADS Phong per ray. mat_rows (R, 20); lpos (L, 3);
     lamb/ldiff/lspec (L, 4); dirs/p/n (R, 3); occluded (R, L) bool.
@@ -185,6 +186,7 @@ def phong_shade_bwd_plain(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
             gp, gn)
 
 
+@kernels.wrapper
 def phong_shade_bwd(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
                     occluded, g):
     """Backward wrapper: csrc/phong_shade_bwd.cu on CUDA tensors,

@@ -1,8 +1,8 @@
 """Inverse rendering: fit scene parameters to a target image by gradient
 descent.
 
-Port of ``openglraytracer_tpu/train/inverse.py`` for the single-device fit
-on the hard engines: the dense engines ``'auto'`` (= ``'xla'``, the
+Port of ``openglraytracer_tpu/train/inverse.py``. The fit runs on the
+hard engines: the dense engines ``'auto'`` (= ``'xla'``, the
 default), ``'xla'``, ``'autodiff'`` and ``'pallas'`` at any depth, with no
 cull spec; and the culled engines ``'culled'`` and ``culled_pallas`` with a
 cull spec, their bounce children on the culled path with a child spec
@@ -12,16 +12,19 @@ cull spec, their bounce children on the culled path with a child spec
 the targets stacked (V, H, W, 3), the loss the mean of the per-view MSEs).
 ``fit`` saves a checkpoint every ``checkpoint_every`` steps into
 ``checkpoint_dir`` and resumes from the newest one there
-(utils/checkpoint.py). Trainable leaves are chosen by
+(utils/checkpoint.py). With a ``mesh`` (parallel/mesh.py) the fit is
+tile-sharded, one process per device: each rank renders its pixel tile
+(parallel/sharded.py), its loss is the tile's sum of squared errors over the
+whole image's H·W·3, and after the backward every trainable gradient is
+``all_reduce``d (summed) over the mesh before the optimizer step, the
+reference's psum of the parameter gradients; the reported loss and
+overflow are summed too. Trainable leaves are chosen by
 dotted path ("spheres.center", "materials.diffuse", ...) into a dict of
 parameters; the rest of the scene stays frozen. The loss is the pixel MSE of
 a render, and its gradient runs through the shade's backward and the
 engine's analytic winner backward (ops/geometry.py). ``torch.optim`` takes
 the place of optax: parameters are leaf tensors updated in place by the
 optimizer.
-
-Not ported yet (see ROADMAP.md), and rejected with a message: the
-tile-sharded fit (``mesh``, slice 8).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from openglraytracer_tpu_torch.models.scene import Camera, Scene
 from openglraytracer_tpu_torch.ops.render import CULLED, ENGINES, render
@@ -106,10 +110,9 @@ def _check_config(cfg: FitConfig, camera, mesh) -> None:
     if cfg.soft is not None and mesh is not None:
         raise ValueError("soft fit stages run unsharded (they are the "
                          "coarse curriculum stages); pass mesh=None")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the tile-sharded fit is not yet ported (slice 8 of "
-            "ROADMAP.md); fit on one device with mesh=None")
+    if mesh is not None and cfg.row_block is not None:
+        raise ValueError("row_block is not used by the tile-sharded fit "
+                         "(each rank renders its own tile); drop it")
     if _multi_view(camera) and cfg.soft is None:
         raise ValueError("multi-view fitting is a soft-stage feature "
                          "(hard cull specs are single-camera)")
@@ -149,7 +152,10 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     this step's culled broad phase (the soft one's, summed over the
     views); step_fn never waits for the device. With cfg.soft, camera may
     be a tuple of cameras, cfg.cull then the matching tuple of soft specs
-    and target (V, H, W, 3)."""
+    and target (V, H, W, 3). With a mesh (parallel/mesh.make_mesh), target
+    is the whole (H, W, 3) image of which each rank reads its tile, and
+    loss, gradients and cull_overflow are summed over the mesh's ranks
+    (all_reduce; over NCCL the step still does not wait for the device)."""
     _check_config(cfg, camera, mesh)
     multi_view = _multi_view(camera)
     lights_trainable = any(p.startswith("lights.") for p in cfg.trainable)
@@ -188,24 +194,47 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
             ovf = o if ovf is None else ovf + o
         return loss / len(cams), ovf
 
+    def hard_loss(scene: Scene, target):
+        kw = dict(depth=cfg.depth, chunk_size=cfg.chunk_size,
+                  remat=cfg.remat, engine=cfg.engine, cull=cfg.cull,
+                  child_cull=cfg.child_cull,
+                  shadow_lights=state["shadow_lights"],
+                  bounce_mask=state["bounce_mask"], with_cull_stats=True)
+        if mesh is None:
+            img, ovf = render(scene, camera, cfg.height, cfg.width,
+                              row_block=cfg.row_block, **kw)
+            return torch.mean(torch.square(img - target)), ovf
+        from openglraytracer_tpu_torch.parallel.mesh import tile_slice
+        from openglraytracer_tpu_torch.parallel.sharded import render_sharded
+        img, ovf = render_sharded(scene, camera, cfg.height, cfg.width,
+                                  mesh=mesh, **kw)
+        rows, cols = tile_slice(mesh, cfg.height, cfg.width, mesh.coord)
+        # this tile's share of the whole image's mean
+        return torch.sum(torch.square(img - target[rows, cols])) \
+            / (cfg.height * cfg.width * 3), ovf
+
     def step_fn(params, opt, scene: Scene, target):
         opt.zero_grad(set_to_none=True)
         scene = apply_params(scene, params)
-        if cfg.soft is not None:
-            loss, ovf = soft_loss(scene, target)
-        else:
-            img, ovf = render(scene, camera, cfg.height, cfg.width,
-                              depth=cfg.depth, chunk_size=cfg.chunk_size,
-                              remat=cfg.remat, row_block=cfg.row_block,
-                              engine=cfg.engine, cull=cfg.cull,
-                              child_cull=cfg.child_cull,
-                              shadow_lights=state["shadow_lights"],
-                              bounce_mask=state["bounce_mask"],
-                              with_cull_stats=True)
-            loss = torch.mean(torch.square(img - target))
+        loss, ovf = (soft_loss if cfg.soft is not None else hard_loss)(
+            scene, target)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None and mesh.group is not None:
+            # one collective a step: the gradients and the loss summed over
+            # the mesh in one buffer (each call costs the host more than
+            # its bytes do)
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params.values()]
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [loss.reshape(1)])
+            dist.all_reduce(flat, group=mesh.group)
+            parts = flat[:-1].split([g.numel() for g in grads])
+            for p, g in zip(params.values(), parts):
+                p.grad = g.view_as(p)
+            loss = flat[-1]
         opt.step()
-        return params, opt, loss.detach(), ovf
+        return params, opt, loss, ovf
 
     return init_fn, step_fn
 
@@ -225,7 +254,9 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
     With cfg.checkpoint_dir, fit first restores the newest checkpoint there
     (parameters, optimizer state, step) and runs only the steps after it,
     then saves {params, optimizer, step} after every cfg.checkpoint_every
-    steps (utils/checkpoint.py keeps the newest three)."""
+    steps (utils/checkpoint.py keeps the newest three); on a mesh the rank
+    at coordinate (0, 0) saves, as the parameters are equal on every
+    rank."""
     from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
     from openglraytracer_tpu_torch.ops.shading import static_bounce_mask
     from openglraytracer_tpu_torch.utils import checkpoint as ckpt_util
@@ -285,7 +316,8 @@ def fit(scene_init: Scene, target, camera: Camera, cfg: FitConfig,
                     "%s", n_ovf, step, detail)
                 ovf_running = torch.zeros_like(ovf_running)
         if cfg.checkpoint_dir and cfg.checkpoint_every and \
-                (step + 1) % cfg.checkpoint_every == 0:
+                (step + 1) % cfg.checkpoint_every == 0 and \
+                (mesh is None or mesh.coord == (0, 0)):
             ckpt_util.save(cfg.checkpoint_dir,
                            {"params": {k: v.detach()
                                        for k, v in params.items()},

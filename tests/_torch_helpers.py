@@ -6,6 +6,11 @@ The suite runs under several xdist workers, so each keeps torch to one
 thread.
 """
 
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -63,3 +68,44 @@ def jitted_sphere_rows(monkeypatch):
     monkeypatch.setattr(pallas_culled, "_primary_sphere_rows",
                         jax.jit(pallas_culled._primary_sphere_rows))
 
+
+# the workers of run_world: tests/_torch_dist_worker.py
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "_torch_dist_worker.py")
+WORKER_TIMEOUT = 120    # seconds, each worker process
+LAUNCHER_VARS = ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK",
+                  "LOCAL_RANK")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(mode: str, n: int) -> list:
+    """Run n processes of tests/_torch_dist_worker.py MODE in one gloo
+    world on the CPU (address 127.0.0.1, a free port); assert each ends
+    with its "rank i OK" and return their outputs."""
+    addr = f"127.0.0.1:{_free_port()}"
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_VARS}
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, _WORKER, mode, str(i), str(n),
+                               addr], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {i} failed:\n{out}"
+        assert f"rank {i} OK" in out, out
+    return outs

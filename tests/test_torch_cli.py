@@ -28,21 +28,32 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """The port and its CLI load without jax and without the JAX package.
-    In a subprocess: this test process has jax loaded by conftest.py."""
-    code = ("import sys, openglraytracer_tpu_torch, "
-            "openglraytracer_tpu_torch.cli, openglraytracer_tpu_torch.kernels;"
-            "import openglraytracer_tpu_torch.ops.render;"
-            "import openglraytracer_tpu_torch.models.animated;"
-            "import openglraytracer_tpu_torch.train.inverse;"
+    """Every module of the port (pkgutil.walk_packages over the package)
+    loads without jax and without the JAX package; and chip_smoke.py
+    imports neither (an ast walk of its import statements). In a
+    subprocess: this test process has jax loaded by conftest.py."""
+    import ast
+    code = ("import sys, pkgutil, importlib, openglraytracer_tpu_torch as p;"
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')];"
+            "[importlib.import_module(n) for n in names];"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'openglraytracer_tpu.')) or "
             "m == 'openglraytracer_tpu');"
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(names), bad); sys.exit(1 if bad or len(names) < 30 "
+            "else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+    imported += [n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module]
+    assert imported and not [m for m in imported if m == "jax" or m.startswith(
+        ("jax.", "openglraytracer_tpu.")) or m == "openglraytracer_tpu"], \
+        imported
 
 
 def test_kernel_build_without_nvcc_names_the_tool(monkeypatch, tmp_path):
@@ -239,13 +250,51 @@ def test_cli_fit_cpu(tmp_path, capsys):
     assert len(fitted["spheres"]["center"]) == 4 and "camera" in fitted
 
 
-@pytest.mark.parametrize("flags", [
-    ["--target", "t.png"], ["--scene", "s.json"], ["--sharded"]])
-def test_cli_fit_rejects_unported(flags):
+@pytest.mark.parametrize("flags,message", [
+    (["--target", "t.png"], "needs --scene init.json"),
+    (["--scene", "s.json"], "pass --target too"),
+    (["--sharded", "--row-block", "8"], "not used by --sharded")])
+def test_cli_fit_rejects_unported(flags, message):
+    """The fit's flag checks: a PNG target needs its initial scene JSON,
+    --scene belongs to a --target fit, and the sharded fit renders tiles,
+    not row blocks."""
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", "--device", "cpu", "--grid-side", "2", "--width",
                   "32", "--height", "32", "--steps", "1"] + flags)
-    assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+    assert isinstance(e.value.code, str) and message in e.value.code
+
+
+def test_cli_fit_sharded_builds_on_rank_card(monkeypatch):
+    """fit --sharded under a launcher's 2-rank CUDA environment (the
+    process group and the cards stubbed): the world is started first, and
+    the scene and target are built on this rank's card, cuda:LOCAL_RANK,
+    not on the bare 'cuda' (card 0 in every process)."""
+    import torch.distributed as dist
+    from openglraytracer_tpu_torch.models import builders
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1"),
+                 ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    state = {"up": False, "card": 0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda i: state.update(card=i))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: state["card"])
+    monkeypatch.setattr(dist, "is_initialized", lambda: state["up"])
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **kw: state.update(up=True, args=a))
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+
+    def built(side, seed=0, device="cuda", **kw):
+        state["built_on"] = torch.device(device)
+        raise SystemExit("built")
+    monkeypatch.setattr(builders, "sphere_grid_scene", built)
+    with pytest.raises(SystemExit, match="built"):
+        cli.main(["fit", "--sharded", "--grid-side", "2", "--width", "32",
+                  "--height", "32", "--steps", "1"])
+    assert state["args"] == ("nccl",) and state["card"] == 1
+    assert state["built_on"] == torch.device("cuda", 1)
 
 
 @pytest.mark.parametrize("flags", [
@@ -280,7 +329,7 @@ def test_cli_fit_soft_and_checkpoints(tmp_path, capsys, flags):
 @pytest.mark.parametrize("flags,message", [
     (["--soft", "0.3"], "BW,GAMMA"),
     (["--soft", "0.3,0.3", "--engine", "culled"], "drop --engine"),
-    (["--soft", "0.3,0.3", "--sharded"], "ROADMAP"),
+    (["--soft", "0.3,0.3", "--sharded"], "unsharded"),
     (["--soft", "0.3,0.3", "--cull-tile", "24"], "must divide")])
 def test_cli_fit_soft_checks(flags, message):
     with pytest.raises(SystemExit, match=message):

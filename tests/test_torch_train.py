@@ -172,11 +172,13 @@ def test_fit_charges_rays_with_the_static_bounce_mask(monkeypatch, depth):
 
 @pytest.mark.parametrize("change", [
     dict(soft=(0.3, 0.3), mesh=object()), dict(views=2), dict(row_block=8),
-    dict(engine="soft"), dict(cull=None), dict(mesh=object())])
+    dict(engine="soft"), dict(cull=None),
+    dict(mesh=object(), engine="xla", cull=None, row_block=8)])
 def test_make_train_step_rejects_unported(change):
-    """What the port rejects: the sharded fit (mesh, slice 8), also with
-    soft; a hard fit over several cameras; an unknown engine; a culled
-    engine without a spec or with row_block."""
+    """What the port rejects: a soft fit on a mesh (the reference's
+    ValueError); a hard fit over several cameras; an unknown engine; a
+    culled engine without a spec or with row_block; row_block on a mesh
+    (each rank renders its tile)."""
     scene, cam = tb.sphere_grid_scene(2, device="cpu")
     mesh = change.pop("mesh", None)
     if change.pop("views", None):
@@ -185,5 +187,6 @@ def test_make_train_step_rejects_unported(change):
               cull=((16, 16), 8, 8, 0))
     kw.update(change)
     with pytest.raises((NotImplementedError, ValueError),
-                       match="ROADMAP|cull|unsharded|multi-view"):
+                       match="ROADMAP|cull|unsharded|multi-view|"
+                             "tile-sharded"):
         tinv.make_train_step(cam, tinv.FitConfig(**kw), mesh=mesh)
