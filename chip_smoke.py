@@ -27,11 +27,12 @@ reference's rows c3_grid64_culled_xla, c5_grid4096_culled_xla,
 c4_mirror4096_xlachild and c4_mirror4096_densechild, and the stack on
 'culled' (a 1024-sphere glass grid). The training extras: the reference's
 config 5 fit on c5's scene, its soft multi-view step and its checkpointed
-hard stage, and remat on 'autodiff'. The host surface (PNG output and
-input, the NaN-checked render, the op count, cli fit --target), the live
-viewer at 1280x720, and the tile-sharded render and training step over
-torch.distributed (NCCL, one process). Every call names its engine. It
-exits non-zero on any failure. Phases:
+hard stage, and remat on 'autodiff'. The host surface (the native codec
+built from its source, PNG output and input, JPEG encode, the NaN-checked
+render, the op count, cli fit --target), the live viewer's JPEG stream at
+1280x720, the tile-sharded render and training step over torch.distributed
+(NCCL, one process), and cli animate --gif. Every call names its engine.
+It exits non-zero on any failure. Phases:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build: compile the CUDA kernels from csrc/ (one nvcc per source, in
@@ -195,24 +196,30 @@ exits non-zero on any failure. Phases:
      and ends at the uninterrupted fit's parameters bit for bit (torch's
      deterministic algorithms on); then c3 'autodiff' with remat off and
      on: equal gradients, step time and peak memory reported
- 32. the host surface at c3 (culled_pallas): the native encoder
-     (native/libimageio.so) loads; a frame through save_png and the port's
-     load_png equals to_uint8 of the tensor, and to_uint8_device equals
-     to_uint8; native and Python encode and load_png timed at 1024x1024;
-     utils/debug.checked_render clean, kernels A, B and 4 launched under
+ 32. the host surface at c3 (culled_pallas): the port's native codec
+     (openglraytracer_tpu_torch/native/imageio.cpp) built by the host C++
+     compiler (a cold build timed, the compiler named) and loaded from the
+     package's _build/; a frame through save_png and the port's load_png
+     equals to_uint8 of the tensor, and to_uint8_device equals to_uint8;
+     native and Python encode and load_png timed at 1024x1024; JPEG of the
+     4:2:0 planes and of RGB against PNG on one 1280x720 frame of the
+     animated world; utils/debug.checked_render clean, kernels A, B and 4
+     launched under
      it; utils/profiling.cost_analysis of a frame printed; cli fit
      --target --scene at 1024x1024 on culled_pallas, 3 Adam steps of the
      centers from a shifted scene JSON: the loss falls, kernels A, B, 4
      and 5 every step
  33. the live viewer (utils/viewer.py) at 1280x720 on culled_pallas and
-     pallas, 30 frames each: published in order, the engine's kernels
-     every frame, /frame.png decoded by the port's decoder equal to the
-     render of the t it names (within 1/255 on >= 99.9 % of pixels if the
-     cull spec was rebuilt); that render's kernel calls (kernels A, B and
-     4 at the viewer's 8x8 cull tiles, kernel 7) each against its plain
-     version on the same inputs, and /frame.png against the plain
-     versions' image (within 1/255 on >= 99.9 % of pixels); FPS and
-     encode ms a frame
+     pallas, 90 frames each on the 'yuv420' transport: published in
+     order, the engine's kernels every frame, /frame.jpg byte for byte
+     yuv420_to_jpeg of the unpacked pack_yuv420_device of the render of
+     the t it names, recomputed with the cull spec that frame was
+     rendered with (after a rebuild too), and read by PIL; that
+     render's kernel calls (kernels A, B and 4 at the viewer's 8x8 cull
+     tiles, kernel 7) each against its plain version on the same inputs,
+     and its planes against the plain versions' planes (within one code
+     value on >= 99.9 % of samples); FPS, JPEG encode ms a frame, and the
+     dispatch loop's host ms a frame
  34. the tile-sharded layer: init_distributed over NCCL in a world of one
      process; render_sharded on the (1, 1) mesh equal to render bit for
      bit at c3 and c4_mirror4096 (child cull), gather_image over NCCL;
@@ -223,6 +230,12 @@ exits non-zero on any failure. Phases:
      and 5 every step, gradients within 1e-3 * max|g| of the unsharded
      step's, steps timed against the unsharded; measure_scaling rows for
      one device (render and step)
+ 35. cli animate --gif: 3 frames of the animated world at 640x360 on
+     engine pallas (kernel 7 every frame, each call at 640x360 against
+     its plain version on the same inputs); the GIF89a header and the
+     trailer, and as PIL reads it 3 frames of 640x360, loop 0 and 30 ms a
+     frame, each within 3.0 mean absolute code values of its PNG frame;
+     the GIF encode timed
 Each path runs with the launch counts set to 0 just before and read just
 after. The line before the last is a JSON object with one entry per kernel
 launch name: its time, its plain version's, its bound (the least time the
@@ -242,6 +255,7 @@ import collections
 import contextlib
 import ctypes
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -380,7 +394,11 @@ REMAT_TOL = 1e-6
 # the viewer's frame size (the CLI's default), frames and cull tile (the
 # CLI's default); the mesh whose tiles one process renders in turn
 FIT_TARGET_SHIFT, FIT_TARGET_LR = (0.15, -0.1, 0.0), 2e-2
-VIEW_HW, VIEW_FRAMES, VIEW_TILE = (720, 1280), 30, 8
+VIEW_HW, VIEW_FRAMES, VIEW_TILE = (720, 1280), 90, 8
+# cli animate --gif (phase 35): the CLI's default frame size, 3 frames at
+# 30 fps (int(1000 / 30) ms, stored as 3 hundredths); a frame's mean
+# absolute error against its PNG frame after the 256-colour median cut
+GIF_HW, GIF_FRAMES, GIF_MAE = (360, 640), 3, 3.0
 SHARD_MESH = (2, 2)
 # H100 SXM data-sheet peaks: float32 outside the tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1166,7 +1184,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 9. kernel 6 against its plain version on the paths' own masks
     t0 = time.perf_counter()
-    log("[9/34] compaction kernel (kernel 6) vs plain version, full size")
+    log("[9/35] compaction kernel (kernel 6) vs plain version, full size")
     caps = {}
     for cfg, pth in paths.items():
         with Capture(culled, shade, accel) as cap, torch.no_grad():
@@ -1206,7 +1224,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 10. kernel 3 on the paths' hot pairs and on the graze cases
     t0 = time.perf_counter()
-    log("[10/34] kernel 3 (shadow occlusion) vs plain version, hot pairs "
+    log("[10/35] kernel 3 (shadow occlusion) vs plain version, hot pairs "
         "included, bit for bit")
     shadow_in = {}
     for cfg, cap_ in caps.items():
@@ -1315,7 +1333,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 11. the forward paths
     t0 = time.perf_counter()
-    log(f"[11/34] forward paths: {FRAMES} frames each, engine culled_pallas")
+    log(f"[11/35] forward paths: {FRAMES} frames each, engine culled_pallas")
     launches = {}
     dense_pass = []     # calls of the dense hot-shadow pass: must be none
     seg = accel._segment_occluded
@@ -1364,7 +1382,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 12. timing
     t0 = time.perf_counter()
-    log(f"[12/34] timing, forward and training step ({smi})")
+    log(f"[12/35] timing, forward and training step ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1502,7 +1520,7 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 13. the training paths
     t0 = time.perf_counter()
-    log(f"[13/34] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
+    log(f"[13/35] training paths: {STEPS} SGD steps each at lr {STEP_LR:g} "
         f"of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1615,7 +1633,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 14. kernel 7 against its plain version on the paths' own inputs
     t0 = time.perf_counter()
-    log("[14/34] dense kernel (kernel 7) vs plain version, full size")
+    log("[14/35] dense kernel (kernel 7) vs plain version, full size")
     seen = []
     fn = dense.dense_hit
 
@@ -1684,7 +1702,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 15. the forward paths
     t0 = time.perf_counter()
-    log(f"[15/34] forward paths: {FRAMES} frames each, engine pallas")
+    log(f"[15/35] forward paths: {FRAMES} frames each, engine pallas")
     launches = {}
     for cfg, pth in paths.items():
         h, w = pth["h"], pth["w"]
@@ -1718,7 +1736,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 16. timing
     t0 = time.perf_counter()
-    log(f"[16/34] timing, forward and training step, engine pallas ({smi})")
+    log(f"[16/35] timing, forward and training step, engine pallas ({smi})")
     steps = {}
     for cfg, pth in paths.items():
         h, w, scene, cam = pth["h"], pth["w"], pth["scene"], pth["cam"]
@@ -1781,7 +1799,7 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
 
     # ---- 17. the training paths
     t0 = time.perf_counter()
-    log(f"[17/34] training paths, engine pallas: {STEPS} SGD steps each at "
+    log(f"[17/35] training paths, engine pallas: {STEPS} SGD steps each at "
         f"lr {STEP_LR:g} of mean(img^2)")
     for cfg, pth in paths.items():
         init_fn, step_fn, target = steps[cfg]
@@ -1918,7 +1936,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 18. 'xla' against kernel 7
     t0 = time.perf_counter()
-    log("[18/34] engine 'xla' (plain PyTorch) against engine 'pallas' "
+    log("[18/35] engine 'xla' (plain PyTorch) against engine 'pallas' "
         "(kernel 7) and 'auto', full size")
     for cfg, pth in paths.items():
         kernels.LAUNCHES.clear()
@@ -1951,7 +1969,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                                      (64, 64), shadow_lights=c4m["lights"])
     c4_kernels = ("primary_hit", "shadow_occlusion", "phong_fused") + (
         ("shadow_occlusion_hot",) if accel.parse_cull_spec(spec)[3] else ())
-    log(f"[19/34] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
+    log(f"[19/35] c4_mirror {w}x{h}, depth {depth}: engine culled_pallas, "
         f"spec {spec}, no child spec (children on 'xla'); shadow lights "
         f"{c4m['lights']}, bounce mask {c4m['bmask']}; {FRAMES} frames")
     kernels.LAUNCHES.clear()
@@ -2023,7 +2041,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 20. the reference's rows on 'auto'
     t0 = time.perf_counter()
-    log(f"[20/34] engine 'auto': frame and training step timing ({smi})")
+    log(f"[20/35] engine 'auto': frame and training step timing ({smi})")
     for cfg in ("c1_sphere_plane", "c2_eight_spheres",
                 "animated_obb_720p_depth0", "animated_obb_720p_depth1"):
         pth = paths[cfg]
@@ -2050,7 +2068,7 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
 
     # ---- 21. 'autodiff' against the analytic backward
     t0 = time.perf_counter()
-    log("[21/34] engine 'autodiff' (autograd through the chunked scan) "
+    log("[21/35] engine 'autodiff' (autograd through the chunked scan) "
         "against 'xla' (the analytic backward): gradients of mean(img^2)")
     cells = {f"animated_obb_720p_depth{d}": paths[
         f"animated_obb_720p_depth{d}"] for d in (0, 1)}
@@ -2148,7 +2166,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     check(bm == (True, True), f"the glass world's bounce mask is {bm}")
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[22/34] glass_stack_depth4: reference_frame({OBB_TIME}) at "
+    log(f"[22/35] glass_stack_depth4: reference_frame({OBB_TIME}) at "
         f"{w}x{h}, depth {STACK_DEPTH} ({n_steps} casts a pixel), shadow "
         f"lights {sm}; engines 'xla' and 'pallas', stack against tree; "
         f"{n_rays} rays/frame ({smi})")
@@ -2244,7 +2262,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
         want["primary_hit_hot"] = n_steps
     n_rays = rays_per_frame(h, w, scene.lights.count, STACK_DEPTH,
                             shadow_lights=sm)
-    log(f"[23/34] glass4096_stack_culled: glass_grid_scene() ({n} glass "
+    log(f"[23/35] glass4096_stack_culled: glass_grid_scene() ({n} glass "
         f"spheres), {w}x{h}, depth {STACK_DEPTH}, engine culled_pallas, "
         f"bounce 'stack', spec {spec}, shadow lights {sm}; launches a frame "
         f"by the code: {want}; {n_rays} rays/frame")
@@ -2381,7 +2399,7 @@ def run_stack(torch, dev, kernels, culled, shade, shading, accel, smi):
     spec = ((STACK_TILE, STACK_TILE), n, n, 0, 0, 0)
     sm = shading.static_shadow_mask(scene)
     bm = shading.static_bounce_mask(scene)
-    log(f"[24/34] culled stack gradients: glass_grid_scene({side}) ({n} "
+    log(f"[24/35] culled stack gradients: glass_grid_scene({side}) ({n} "
         f"spheres), {gh}x{gh}, depth {gdepth}, spec {spec} (no list can "
         f"overflow), culled_pallas against its plain versions, 'pallas' "
         f"and 'xla'; then render(mirror_only=True) on c4_mirror")
@@ -2589,7 +2607,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
         kw = dict(depth=depth, shadow_lights=lights, bounce_mask=bmask)
         n_rays = rays_per_frame(h, w, scene.lights.count, depth,
                                 shadow_lights=lights, bounce_mask=bmask)
-        log(f"[{25 + i}/34] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
+        log(f"[{25 + i}/35] {cell}: {cfg} {w}x{h}, depth {depth}, engine "
             f"'culled', spec {spec}"
             + (f", child spec {child} (hot_primary=False; culled_pallas's "
                f"{ref_child})" if child else "")
@@ -2675,7 +2693,7 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
     n_rays = rays_per_frame(hw, hw, scene.lights.count, depth,
                             shadow_lights=sm)
     trainable = ("spheres.center", "materials.diffuse")
-    log(f"[29/34] the stack on 'culled': glass_grid_scene({side}) ({n} "
+    log(f"[29/35] the stack on 'culled': glass_grid_scene({side}) ({n} "
         f"glass spheres), {hw}x{hw}, depth {depth} ({n_steps} casts a "
         f"pixel), bounce mask {bm}, spec {spec}; kernel 6 a frame by the "
         f"code: {want}, twice that a forward+backward (each step is "
@@ -2843,7 +2861,7 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
             cams, cfg, optimizer=c5fit.make_optimizer(100, geo_lr, photo_lr))
         params, opt = init_fn(scene_init)
         want = {"compact_mask": len(cams)}
-        log(f"[30/34] {cell}: sphere_grid_scene(64), {res}x{res}, "
+        log(f"[30/35] {cell}: sphere_grid_scene(64), {res}x{res}, "
             f"{tile}x{tile} tiles, bw {bw}, gamma {gamma}, views "
             f"{c5fit.SOFT_VIEWS}, soft specs {culls} "
             f"(suggest_soft_cull, headroom 2); kernel 6 a step by the code: "
@@ -2913,7 +2931,7 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
     ckdir = lib_dir / "ckpt_phase31"
     shutil.rmtree(ckdir, ignore_errors=True)
     n_all, n_first, every = CKPT_STEPS
-    log(f"[31/34] checkpointed hard stage: sphere_grid_scene(64), "
+    log(f"[31/35] checkpointed hard stage: sphere_grid_scene(64), "
         f"{res}x{res}, engine 'culled', spec {cull} (hot=False, headroom "
         f"2); {n_all} steps uninterrupted, then {n_first} steps saving "
         f"every {every} and a fresh fit to {n_all} from {ckdir.name}/; "
@@ -3077,18 +3095,22 @@ def _fit_losses(printed: str) -> tuple[float, float]:
 
 def run_host(torch, dev, kernels, shading, accel, lib_dir):
     """Phase 32, the host surface at c3 (1024x1024, culled_pallas): the
-    native encoder loads; a render through save_png and load_png equals
-    to_uint8 of the tensor; to_uint8_device equals to_uint8; the PNG
-    encoders' and decoder's times; checked_render clean with kernels A, B
-    and 4 launched under it; cost_analysis of a frame; cli fit --target
-    --scene for 3 steps with a falling loss. Returns the per-path launch
-    counts."""
+    port's native codec builds from its source (a cold build timed, the
+    compiler named) and loads from the package's _build/; a render through
+    save_png and load_png equals to_uint8 of the tensor; to_uint8_device
+    equals to_uint8; the PNG encoders' and decoder's times; the JPEG
+    encoders (4:2:0 planes and RGB) against the PNG encoder on one frame of
+    the viewer's animated world at 1280x720; checked_render clean with
+    kernels A, B and 4 launched under it; cost_analysis of a frame; cli fit
+    --target --scene for 3 steps with a falling loss. Returns the per-path
+    launch counts."""
     import contextlib
     import io
 
     import numpy as np
 
     from openglraytracer_tpu_torch import cli
+    from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
     from openglraytracer_tpu_torch.models.scene import save_scene
     from openglraytracer_tpu_torch.ops.render import render
@@ -3098,14 +3120,24 @@ def run_host(torch, dev, kernels, shading, accel, lib_dir):
 
     t_phase = time.perf_counter()
     fwd = ("primary_hit", "shadow_occlusion", "phong_fused")
-    log(f"[32/34] host surface: c3_grid64 {W}x{H}, culled_pallas, tile "
+    log(f"[32/35] host surface: c3_grid64 {W}x{H}, culled_pallas, tile "
         f"{TILE[0]}")
+    t0 = time.perf_counter()
+    shutil.rmtree(lib_dir / "imageio_cold", ignore_errors=True)
     try:
+        cold, cmd = native_imageio.build(lib_dir / "imageio_cold")
         native_imageio._load()
     except OSError as e:
-        check(False, f"the native encoder native/libimageio.so does not "
-              f"load: {e}")
-    log("  native encoder loaded (native/libimageio.so)")
+        check(False, f"the port's native codec does not build or load: {e}")
+    cold_s = time.perf_counter() - t0
+    loaded = native_imageio.build()[0]
+    check(loaded.parent.parent == native_imageio.BUILD_ROOT,
+          f"the codec was not loaded from the package's _build/: {loaded}")
+    version = subprocess.run([cmd[0], "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    log(f"  native codec built from {native_imageio.SOURCE.name} in "
+        f"{cold_s:.2f} s (a cold build into {cold.parent}) by {cmd[0]} "
+        f"({version}): {' '.join(cmd[1:])}; loaded from {loaded}")
     scene, cam = sphere_grid_scene(8, device=dev)
     lights = shading.static_shadow_mask(scene)
     spec = accel.suggest_cull_config(scene, cam, H, W, TILE,
@@ -3131,6 +3163,26 @@ def run_host(torch, dev, kernels, shading, accel, lib_dir):
         f"({png.stat().st_size} bytes), best of 5 on the host: native "
         f"encode {enc_native:.3f} ms, Python encode {enc_py:.3f} ms, "
         f"load_png {dec:.3f} ms")
+    # the viewer's frame: JPEG of the planes and of RGB against PNG
+    vh, vw = VIEW_HW
+    oscene, ocam = reference_frame(OBB_TIME, device=dev)
+    with torch.no_grad():
+        vimg = render(oscene, ocam, vh, vw, engine="pallas")
+    rgb8 = image.to_uint8(vimg)
+    planes = image.unpack_yuv420(image.pack_yuv420_device(vimg).cpu(),
+                                 vh, vw)
+    sizes, times = {}, {}
+    for what, fn in (("PNG", lambda: native_imageio.encode_png(rgb8)),
+                     ("JPEG yuv420", lambda: image.yuv420_to_jpeg(*planes)),
+                     ("JPEG rgb", lambda: image._rgb_to_jpeg(rgb8))):
+        sizes[what], times[what] = len(fn()), _best_ms(fn)
+    jpeg = image.yuv420_to_jpeg(*planes)
+    check(jpeg[:2] == b"\xff\xd8" and jpeg[-2:] == b"\xff\xd9",
+          "the JPEG of the planes is not a JPEG file")
+    log(f"  encode of reference_frame({OBB_TIME}) at {vw}x{vh}, best of 5 "
+        f"on the host: " + ", ".join(
+            f"{k} {times[k]:.3f} ms ({sizes[k]} bytes)" for k in times)
+        + f"; JPEG yuv420 / PNG {times['JPEG yuv420'] / times['PNG']:.3f}")
 
     kernels.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3181,28 +3233,35 @@ def run_host(torch, dev, kernels, shading, accel, lib_dir):
 
 def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
     """Phase 33, the live viewer at the CLI's 1280x720 on culled_pallas and
-    pallas: VIEW_FRAMES frames published in order, the engine's kernels
-    launched every frame, /frame.png decoded by the port's load_png equal
-    to the render of the t it names, FPS and encode ms a frame. The
-    viewer's 8x8 cull tiles give kernels A, B and 4 shapes that no other
-    phase does, so the render of that t is also captured and each kernel
-    call of it held against its plain version on the same inputs, and the
-    frame against the image of the plain versions. Returns (the per-path
-    launch counts, each compared kernel's max abs error)."""
+    pallas, on its default transport ('yuv420'): VIEW_FRAMES frames
+    published in order, the engine's kernels launched every frame,
+    /frame.jpg byte for byte yuv420_to_jpeg of the unpacked
+    pack_yuv420_device of the render of the t it names, recomputed here
+    with the cull spec that frame was rendered with, and read by PIL;
+    FPS and JPEG encode ms a frame. The viewer's 8x8 cull tiles give
+    kernels A, B and 4 shapes that no other phase does, so that render's
+    kernel calls are captured and each held against its plain version on
+    the same inputs, and its planes against the plain versions' planes.
+    Returns (the per-path launch counts, each compared kernel's max abs
+    error)."""
+    import io
     import threading
     import urllib.request
 
     import numpy as np
+    from PIL import Image
 
     from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.ops import dense
     from openglraytracer_tpu_torch.ops.render import render
-    from openglraytracer_tpu_torch.utils.image import decode_png, to_uint8
+    from openglraytracer_tpu_torch.utils.image import (pack_yuv420_device,
+                                                       unpack_yuv420,
+                                                       yuv420_to_jpeg)
     from openglraytracer_tpu_torch.utils.viewer import FrameStreamer, serve
 
     t_phase = time.perf_counter()
     vh, vw = VIEW_HW
-    log(f"[33/34] live viewer: {vw}x{vh}, {VIEW_FRAMES} frames per engine, "
+    log(f"[33/35] live viewer: {vw}x{vh}, {VIEW_FRAMES} frames per engine, "
         f"cull tile {VIEW_TILE} ({smi})")
     launches, errs = {}, {}
     for engine, kern in (("culled_pallas", ("primary_hit",
@@ -3212,6 +3271,17 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
         kernels.LAUNCHES.clear()
         streamer = FrameStreamer(vh, vw, engine=engine, cull_tile=VIEW_TILE,
                                  max_frames=VIEW_FRAMES, device=dev)
+        check(streamer.transport == "yuv420",
+              f"the viewer's transport at {vw}x{vh} is "
+              f"{streamer.transport!r}, not 'yuv420'")
+        # the cull spec each frame was rendered with, by its t: a rebuild
+        # after an overflow changes the spec of later frames only
+        specs, frame_fn = {}, streamer.frame
+
+        def frame_spy(t):
+            specs[t] = streamer._cull
+            return frame_fn(t)
+        streamer.frame = frame_spy
         server = serve(streamer, port=0, host="127.0.0.1")
         port = server.server_address[1]
         threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -3226,8 +3296,10 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
                     last = n
                 if fetched is None and n >= VIEW_FRAMES // 2:
                     with urllib.request.urlopen(
-                            f"http://127.0.0.1:{port}/frame.png",
+                            f"http://127.0.0.1:{port}/frame.jpg",
                             timeout=60) as r:
+                        check(r.headers["Content-Type"] == "image/jpeg",
+                              "/frame.jpg is not image/jpeg")
                         fetched = (r.read(), float(r.headers["X-Frame-Time"]))
             wall = time.perf_counter() - t0
         finally:
@@ -3240,7 +3312,8 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
         enc_ms = 1e3 * streamer.encode_s / max(streamer.frame_no, 1)
         log(f"  {engine}: {streamer.frame_no} frames in {wall:.3f} s "
             f"(start-up and sizing included) -> {streamer.frame_no / wall:.2f}"
-            f" FPS; last 2 s window {streamer.fps:.2f} FPS; PNG encode "
+            f" FPS; last 2 s window {streamer.fps:.2f} FPS; JPEG encode "
+            f"({streamer.transport}, quality {streamer.quality}) "
             f"{enc_ms:.3f} ms a frame (worker time); cull rebuilds "
             f"{streamer.rebuilds}; launches {launches[name]}")
         check(streamer.error is None, f"viewer ({engine}) failed: "
@@ -3249,9 +3322,28 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
               f"viewer ({engine}): frames not all published in order")
         check(all(launches[name][k] >= VIEW_FRAMES for k in kern),
               f"viewer ({engine}): a kernel missed a frame")
-        check(fetched is not None, "no /frame.png fetched")
+        check(fetched is not None, "no /frame.jpg fetched")
+        # what bounds the rate: the dispatch loop's host time a frame (the
+        # scene build copies from the host, so a spin kernel cannot
+        # isolate the frame's device time) and the workers' encode
+        cull = specs[fetched[1]]
+        streamer.frame = frame_fn
+
+        def synced():
+            streamer.frame(fetched[1])
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            enq = _best_ms(lambda: streamer.frame(fetched[1]))
+            torch.cuda.synchronize()
+            done = _best_ms(synced)
+        log(f"  a frame of the dispatch loop (reference_frame, render, "
+            f"pack): {enq:.3f} ms on the host to return (best of 5; a cap "
+            f"of {1e3 / enq:.1f} FPS), {done:.3f} ms to the end of its "
+            f"device work (best of 5); {streamer.pipeline_depth} workers "
+            f"of {enc_ms:.3f} ms cap the encode at "
+            f"{1e3 * streamer.pipeline_depth / enc_ms:.1f} FPS")
         scene, cam = reference_frame(fetched[1], device=dev)
-        rkw = dict(engine=engine, cull=streamer._cull,
+        rkw = dict(engine=engine, cull=cull,
                    shadow_lights=streamer._shadow_lights,
                    bounce_mask=streamer._bounce_mask)
         dense_calls, dense_fn = [], dense.dense_hit
@@ -3262,18 +3354,22 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
         dense.dense_hit = dense_spy
         try:
             with Capture(culled, shade, accel) as cap, torch.no_grad():
-                want = to_uint8(render(scene, cam, vh, vw, **rkw))
+                packed = pack_yuv420_device(render(scene, cam, vh, vw, **rkw))
         finally:
             dense.dense_hit = dense_fn
-        got = decode_png(fetched[0])
-        same = np.array_equal(got, want)
-        share = float((np.abs(got.astype(np.int16) - want).max(-1)
-                       <= 1).mean())
-        log(f"  /frame.png at t={fetched[1]!r}: "
-            f"{'equal to' if same else 'DIFFERENT from'} the render of its "
-            f"t ({share:.6f} of pixels within 1/255)")
-        check(same or (streamer.rebuilds > 0 and share >= 0.999),
-              f"viewer ({engine}): /frame.png is not the render of its t")
+        packed = packed.cpu().numpy()
+        want = yuv420_to_jpeg(*unpack_yuv420(packed, vh, vw),
+                              quality=streamer.quality)
+        same = fetched[0] == want
+        got = np.asarray(Image.open(io.BytesIO(fetched[0])).convert("RGB"))
+        log(f"  /frame.jpg at t={fetched[1]!r} ({len(fetched[0])} bytes, "
+            f"PIL reads {got.shape[1]}x{got.shape[0]}): "
+            f"{'byte for byte' if same else 'NOT'} the JPEG of the planes of "
+            f"the render of its t with the cull spec it was rendered with "
+            f"({'the first' if cull is specs[min(specs)] else 'a rebuilt'} "
+            f"spec)")
+        check(same and got.shape == (vh, vw, 3),
+              f"viewer ({engine}): /frame.jpg is not the JPEG of its t")
         # every kernel call of that render against its plain version on
         # the same inputs (launches here are not the path's: read above)
         what = f"view {engine} {vw}x{vh}"
@@ -3302,16 +3398,107 @@ def run_viewer(torch, dev, kernels, culled, shade, shading, accel, smi):
               f"viewer ({engine}): a kernel of the frame was not compared "
               f"with its plain version ({dict(compared)})")
         with PlainVersions(culled, shade, shading, accel), torch.no_grad():
-            plain = to_uint8(render(scene, cam, vh, vw, **rkw))
-        d = np.abs(got.astype(np.int16) - plain).max(-1)
+            plain = pack_yuv420_device(render(scene, cam, vh, vw, **rkw))
+        d = np.abs(packed.astype(np.int16) - plain.cpu().numpy())
         p_same, p_share = float((d == 0).mean()), float((d <= 1).mean())
-        log(f"  /frame.png against the plain versions' image of its t: "
-            f"{p_same:.6f} of pixels equal, {p_share:.6f} within 1/255, max "
-            f"{int(d.max())}/255")
-        check(p_share >= 0.999, f"viewer ({engine}): /frame.png is not the "
-              f"plain versions' image of its t")
+        log(f"  the JPEG's Y, Cb and Cr planes against the plain versions' "
+            f"planes of its t: {p_same:.6f} of samples equal, {p_share:.6f} "
+            f"within one code value, max {int(d.max())}")
+        check(p_share >= 0.999, f"viewer ({engine}): the planes of "
+              f"/frame.jpg are not the plain versions' planes of its t")
     log(f"  phase 33: {time.perf_counter() - t_phase:.1f} s")
     return launches, errs
+
+
+def run_gif(torch, dev, kernels, dense, lib_dir):
+    """Phase 35, cli animate --gif: GIF_FRAMES frames of the animated world
+    at the CLI's default 640x360 on engine pallas (kernel 7 every frame)
+    at 30 fps; the GIF's structure (the GIF89a header, then as PIL reads
+    it: GIF_FRAMES frames of 640x360, loop 0, 30 ms each, then the
+    trailer), each frame within GIF_MAE of its PNG frame; each of the
+    command's kernel 7 calls (640x360 rays) against its plain version on
+    the same inputs. Returns (the path's launch counts, kernel 7's max abs
+    error)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from PIL import Image, ImageSequence
+
+    from openglraytracer_tpu_torch import cli
+    from openglraytracer_tpu_torch.utils.image import decode_png
+    from openglraytracer_tpu_torch.utils.native_imageio import encode_gif
+
+    t_phase = time.perf_counter()
+    gh, gw = GIF_HW
+    log(f"[35/35] cli animate --gif: {GIF_FRAMES} frames at {gw}x{gh}, "
+        f"engine pallas")
+    gif = lib_dir / "phase35.gif"
+    pattern = str(gif.parent / "phase35_{:02d}.png")
+    out = io.StringIO()
+    dense_calls, dense_fn = [], dense.dense_hit
+
+    def dense_spy(*a):
+        dense_calls.append(tuple(x.detach() for x in a))
+        return dense_fn(*a)
+    dense.dense_hit = dense_spy
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["animate", "--frames", str(GIF_FRAMES), "--width",
+                      str(gw), "--height", str(gh), "--engine", "pallas",
+                      "--out-pattern", pattern, "--gif", str(gif),
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        dense.dense_hit = dense_fn
+    wall = time.perf_counter() - t0
+    launches = {f"animate_gif_{gw}x{gh}": {"dense_hit":
+                                           kernels.LAUNCHES["dense_hit"]}}
+    for line in out.getvalue().splitlines():
+        log(f"  cli animate: {line}")
+    check(kernels.LAUNCHES["dense_hit"] >= GIF_FRAMES,
+          "animate --engine pallas must launch kernel 7 every frame")
+    # kernel 7 at the animation's shape against its plain version (these
+    # launches are not the path's: read above)
+    check(len(dense_calls) == kernels.LAUNCHES["dense_hit"],
+          f"captured {len(dense_calls)} kernel 7 calls of "
+          f"{kernels.LAUNCHES['dense_hit']} launches")
+    err = 0.0
+    for i, a in enumerate(dense_calls):
+        err = max(err, compare_dense(torch, dense.dense_hit(*a),
+                                     dense.dense_hit_plain(*a),
+                                     f"animate {gw}x{gh} frame {i}")[1])
+    data = gif.read_bytes()
+    check(data[:6] == b"GIF89a" and data[-1:] == b"\x3b",
+          f"GIF header {data[:6]!r}, last byte {data[-1:]!r}")
+    with Image.open(gif) as im:
+        loop = im.info.get("loop")
+        shown = [(f.size, f.info.get("duration"), f.convert("RGB"))
+                 for f in ImageSequence.Iterator(im)]
+    durations = [d for _, d, _ in shown]
+    check(loop == 0, f"GIF loop {loop}, want 0")
+    check(durations == [int(1000 / 30) // 10 * 10] * GIF_FRAMES,
+          f"GIF durations {durations} ms, want 30 a frame")
+    check([sz for sz, _, _ in shown] == [(gw, gh)] * GIF_FRAMES,
+          f"GIF frames {[sz for sz, _, _ in shown]}")
+    frames = np.stack([decode_png(Path(pattern.format(i)).read_bytes())
+                       for i in range(GIF_FRAMES)])
+    maes = [float(np.abs(np.asarray(rgb, np.int16) - f).mean())
+            for (_, _, rgb), f in zip(shown, frames)]
+    enc = _best_ms(lambda: encode_gif(frames, 3), reps=3)
+    log(f"  {gif.name}: {len(data)} bytes; PIL reads loop {loop}, "
+        f"durations {durations} ms, {len(shown)} frames of {gw}x{gh}; mean "
+        f"|GIF - PNG| per frame {[round(m, 4) for m in maes]} (limit "
+        f"{GIF_MAE}); command {wall:.2f} s; GIF encode of the "
+        f"{GIF_FRAMES} frames {enc:.3f} ms (best of 3, host); kernel 7 "
+        f"against its plain version on {len(dense_calls)} calls of "
+        f"{dense_calls[0][1].shape[0] if dense_calls else 0} rays: max abs "
+        f"err {err:.3e}; launches {launches}")
+    check(max(maes) <= GIF_MAE, "a GIF frame is too far from its PNG frame")
+    log(f"  phase 35: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
 
 
 def run_sharded(torch, dev, kernels, shading, accel, smi):
@@ -3350,7 +3537,7 @@ def run_sharded(torch, dev, kernels, shading, accel, smi):
     init_distributed(coordinator_address=f"127.0.0.1:{port}",
                      num_processes=1, process_id=0, device="cuda")
     mesh = make_mesh()
-    log(f"[34/34] sharded: torch.distributed {dist.get_backend()}, world "
+    log(f"[34/35] sharded: torch.distributed {dist.get_backend()}, world "
         f"{dist.get_world_size()}, mesh {mesh.shape} at {mesh.coord} "
         f"({smi})")
     check(dist.get_backend() == "nccl" and mesh.shape == (1, 1)
@@ -3538,7 +3725,7 @@ def main() -> int:
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
-    log(f"[1/34] device: {name}; torch {torch.__version__}, CUDA "
+    log(f"[1/35] device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     log(smi)
 
@@ -3546,7 +3733,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, build_log = kernels.build()
     kernels.library()
-    log(f"[2/34] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
+    log(f"[2/35] build: {time.perf_counter() - t0:.1f} s -> {lib_path.parent}")
     log_ptxas(build_log, "ptxas")
     earlier, earlier_log = earlier_library(kernels)
     if earlier is None:
@@ -3559,7 +3746,7 @@ def main() -> int:
         log_ptxas(earlier_log, "earlier ptxas")
 
     # ---- 3. kernels vs plain versions at the c3 shapes
-    log("[3/34] kernels vs plain versions")
+    log("[3/35] kernels vs plain versions")
     scene, cam = sphere_grid_scene(8, device=dev)
     shadow_lights = shading.static_shadow_mask(scene)
     spec = suggest_cull_config(scene, cam, H, W, TILE,
@@ -3648,7 +3835,7 @@ def main() -> int:
                    culled.shadow_occlusion_plain(*b), "boxes, hot_m 2")
 
     # ---- 4. the forward path
-    log(f"[4/34] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
+    log(f"[4/35] forward path: render c3_grid64 {W}x{H}, depth 0, engine "
         f"culled_pallas, tile {TILE[0]}, {FRAMES} frames")
     kernels.LAUNCHES.clear()
     with torch.no_grad():
@@ -3695,7 +3882,7 @@ def main() -> int:
     log(f"  wrote {png}")
 
     # ---- 5. forward timing
-    log(f"[5/34] forward timing ({name}; {smi})")
+    log(f"[5/35] forward timing ({name}; {smi})")
 
     def frame():
         with torch.no_grad():
@@ -3757,7 +3944,7 @@ def main() -> int:
             time_kernel(k)
 
     # ---- 6. the training path
-    log(f"[6/34] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
+    log(f"[6/35] training path: c3_grid64 {W}x{H}, {STEPS} SGD steps at lr "
         f"{STEP_LR:g} of mean(img^2) w.r.t. {DEFAULT_TRAINABLE}")
     cfg = FitConfig(height=H, width=W, engine="culled_pallas", cull=spec,
                     trainable=DEFAULT_TRAINABLE)
@@ -3801,7 +3988,7 @@ def main() -> int:
               f"gradient of {k} disagrees with the plain versions'")
 
     # ---- 7. training timing
-    log(f"[7/34] training timing ({name}; {smi})")
+    log(f"[7/35] training timing ({name}; {smi})")
 
     def train_step():
         return step_fn(params, opt, scene, zero_target)
@@ -3823,7 +4010,7 @@ def main() -> int:
     time_kernel("phong_shade_bwd")
 
     # ---- 8. a short fit
-    log(f"[8/34] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
+    log(f"[8/35] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
         f"{FIT['hw']}x{FIT['hw']}, {FIT['steps']} Adam steps, lr "
         f"{FIT['lr']}")
     hw, t = FIT["hw"], FIT["tile"]
@@ -3868,7 +4055,11 @@ def main() -> int:
     launches_view, errs_view = run_viewer(torch, dev, kernels, culled, shade,
                                           shading, accel, smi)
     launches_sharded = run_sharded(torch, dev, kernels, shading, accel, smi)
-    for k, v in (*errs_stack.items(), *errs_view.items()):
+    from openglraytracer_tpu_torch.ops import dense
+    launches_gif, err_gif = run_gif(torch, dev, kernels, dense,
+                                    lib_path.parent)
+    for k, v in (*errs_stack.items(), *errs_view.items(),
+                 ("dense_hit", err_gif)):
         errs[k] = max(errs[k], v)
     c3_dense = dense_cells["c3 primary"]
     kernel_ms["dense_hit"] = (c3_dense["ms"], c3_dense["plain_ms"])
@@ -3881,7 +4072,6 @@ def main() -> int:
                       earlier_4096["shadow_occlusion_hot"],
                   "dense_hit": c3_dense["earlier_ms"]}
 
-    from openglraytracer_tpu_torch.ops import dense
     sources = {"primary_hit": ("csrc/primary_hit.cu",
                                "openglraytracer_tpu/ops/pallas_culled.py:150"),
                "shadow_occlusion": (
@@ -3923,7 +4113,8 @@ def main() -> int:
                      "train_step_c3_grid64": train_launches, **launches_4096,
                      **launches_dense, **launches_xla, **launches_stack,
                      **launches_xla_culled, **launches_extras,
-                     **launches_host, **launches_view, **launches_sharded}
+                     **launches_host, **launches_view, **launches_sharded,
+                     **launches_gif}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
     for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",

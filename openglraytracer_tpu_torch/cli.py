@@ -20,7 +20,7 @@ the port of bench.py):
   python -m openglraytracer_tpu_torch.cli animate --frames 30 \\
       --width 1280 --height 720 --depth 1 --out-pattern frame_{:04d}.png
   python -m openglraytracer_tpu_torch.cli view --engine culled_pallas \\
-      --port 8000                       # live PNG stream over HTTP
+      --port 8000                       # live MJPEG stream over HTTP
   python -m openglraytracer_tpu_torch.cli fit --grid-side 4 --width 256 \\
       --height 256 --steps 60 --lr 0.02
   python -m openglraytracer_tpu_torch.cli fit --target t.png \\
@@ -51,9 +51,9 @@ soft-coverage fit against a soft render of the true scene,
 --scene init.json`` fits the scene of the JSON (and its camera) to the
 PNG, and ``--sharded`` runs the tile-sharded fit over the process group
 (one process per device, started by a launcher such as torchrun; a single
-process is the (1, 1) mesh). ``view`` streams PNG frames, not the
-reference's JPEG. ``animate --gif`` is rejected: it needs PIL, which the
-port does not depend on.
+process is the (1, 1) mesh). ``view`` streams JPEG frames and
+``animate --gif`` writes an animated GIF, both through the port's native
+codec (utils/native_imageio.py).
 """
 
 from __future__ import annotations
@@ -393,8 +393,8 @@ def cmd_fit(args):
 
 def cmd_view(args):
     """The live viewer (utils/viewer.py): the animated reference world
-    rendered continuously at the wall clock's time and streamed as PNG
-    frames over HTTP, until Ctrl-C or --frames."""
+    rendered continuously at the wall clock's time and streamed as MJPEG
+    over HTTP, until Ctrl-C or --frames."""
     from openglraytracer_tpu_torch.utils.viewer import run_viewer
     device = _device(args.device)
     run_viewer(args.height, args.width, depth=args.depth,
@@ -437,23 +437,22 @@ def cmd_scale(args):
 
 def cmd_animate(args):
     """The reference's animated world, reference_frame(start_time + i /
-    fps) for i < frames, rendered to a PNG sequence. With a culled engine
-    one cull spec (headroom 2) serves the moving sequence; each frame
-    rechecks it on the host and resizes it when it would overflow (never
+    fps) for i < frames, rendered to a PNG sequence, and with --gif also
+    assembled into one looping animated GIF of int(1000 / fps) ms a frame
+    (the native encoder's median-cut palettes). With a culled engine one
+    cull spec (headroom 2) serves the moving sequence; each frame rechecks
+    it on the host and resizes it when it would overflow (never
     silent)."""
     from openglraytracer_tpu_torch.models.animated import reference_frame
     from openglraytracer_tpu_torch.ops.accel import check_cull_overflow
     from openglraytracer_tpu_torch.ops.render import render
     from openglraytracer_tpu_torch.ops.shading import static_shadow_mask
-    from openglraytracer_tpu_torch.utils.image import save_png
+    from openglraytracer_tpu_torch.utils.image import save_png, to_uint8
 
-    if args.gif:
-        raise SystemExit("--gif is not yet ported (it needs PIL, which the "
-                         "port does not depend on; see ROADMAP.md); the PNG "
-                         "sequence is written without it")
     device = _device(args.device)
     h, w = args.height, args.width
     cull = None
+    frames = []
     if args.engine in CULLED:
         scene0, cam0 = reference_frame(args.start_time, device=device)
         cull = _cull_spec(scene0, cam0, h, w, args.cull_tile,
@@ -477,7 +476,19 @@ def cmd_animate(args):
                          engine=args.engine, cull=cull)
         path = args.out_pattern.format(i)
         save_png(img, path)
+        if args.gif:
+            frames.append(to_uint8(img))
         print(f"frame {i}: t={t:.3f}s -> {path}")
+
+    if args.gif and frames:
+        import numpy as np
+
+        from openglraytracer_tpu_torch.utils.native_imageio import encode_gif
+        # PIL's writer takes the duration in ms and stores hundredths
+        duration = int(1000 / args.fps)
+        with open(args.gif, "wb") as f:
+            f.write(encode_gif(np.stack(frames), duration // 10, loop=0))
+        print(f"wrote {args.gif} ({len(frames)} frames @ {args.fps:g} fps)")
 
 
 def main(argv=None):
@@ -572,14 +583,13 @@ def main(argv=None):
                    help="pixel tile side of the culled engines")
     a.add_argument("--out-pattern", default="frame_{:04d}.png")
     a.add_argument("--gif", default=None,
-                   help="not yet ported (rejected)")
+                   help="also assemble the frames into an animated GIF")
     a.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     a.set_defaults(fn=cmd_animate)
 
     v = sub.add_parser("view", help="live viewer: render the animated "
-                       "demo continuously and stream it over HTTP as PNG "
-                       "frames")
+                       "demo continuously and stream it over HTTP (MJPEG)")
     v.add_argument("--width", type=int, default=1280)
     v.add_argument("--height", type=int, default=720)
     v.add_argument("--depth", type=int, default=0)

@@ -1,17 +1,22 @@
-"""Image output and input: float image <-> PNG bytes/file.
+"""Image output and input: float image <-> PNG bytes/file, and the live
+viewer's 4:2:0 JPEG transport.
 
 Port of ``openglraytracer_tpu/utils/image.py``: the image is clamped to
 [0, 1], quantized to 8 bits and its rows flipped (row 0 of a render is the
 bottom, GL convention; PNG stores the top first), on the host
 (``to_uint8``) or on the tensor's device (``to_uint8_device``, so that a
-frame crosses to the host at 1 byte a channel), and encoded by the native
-C++ encoder (``native/libimageio.so``, utils/native_imageio.py) when it
-loads, else by the pure-Python one. ``load_png`` reads a PNG back without
-PIL, which the port does not depend on: a chunk walk with CRC checks,
-zlib inflate and the five scanline filters, for 8-bit grey, RGB, palette,
-grey + alpha and RGBA files (mapped to RGB as PIL's ``convert("RGB")``
-does: alpha dropped, grey repeated). Other bit depths and Adam7 interlace
-raise ``ValueError``.
+frame crosses to the host at 1 byte a channel), and encoded by the port's
+native C++ codec (``native/imageio.cpp``, built at first use,
+utils/native_imageio.py) when it loads, else by the pure-Python one.
+``to_yuv420_device`` and ``pack_yuv420_device`` turn a frame into
+full-range BT.601 planes with 2x2-subsampled chroma on the device (1.5
+bytes a pixel cross to the host), ``unpack_yuv420`` splits them on the
+host and ``yuv420_to_jpeg`` encodes them with the native JPEG encoder.
+``load_png`` reads a PNG back without PIL, which the port does not depend
+on: a chunk walk with CRC checks, zlib inflate and the five scanline
+filters, for 8-bit grey, RGB, palette, grey + alpha and RGBA files (mapped
+to RGB as PIL's ``convert("RGB")`` does: alpha dropped, grey repeated).
+Other bit depths and Adam7 interlace raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,64 @@ def to_uint8_device(image: torch.Tensor) -> torch.Tensor:
     to_uint8 byte for byte."""
     img = torch.clamp(image, 0.0, 1.0)
     return (img * 255.0 + 0.5).to(torch.uint8).flip(0)
+
+
+def to_yuv420_device(image: torch.Tensor):
+    """[0,1] float (H, W, 3) -> (Y (H, W), Cb (H/2, W/2), Cr (H/2, W/2))
+    uint8 planes on the tensor's device, rows flipped top-first; H and W
+    even. Full-range BT.601 (JFIF's YCbCr) with the reference's constants
+    and order of operations, each a separate float32 op; the chroma is the
+    mean of each 2x2 block (summed left to right, then down) before it is
+    quantized."""
+    img = torch.clamp(image, 0.0, 1.0).flip(0)
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 0.5 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 0.5 + 0.5 * r - 0.418688 * g - 0.081312 * b
+
+    def q(x):
+        return (torch.clamp(x, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+    def pool2(x):
+        h, w = x.shape
+        x = x.reshape(h // 2, 2, w // 2, 2)
+        return (x[:, 0, :, 0] + x[:, 0, :, 1] + x[:, 1, :, 0]
+                + x[:, 1, :, 1]) / 4.0
+
+    return q(y), q(pool2(cb)), q(pool2(cr))
+
+
+def pack_yuv420_device(image: torch.Tensor) -> torch.Tensor:
+    """to_yuv420_device packed into one flat uint8 tensor (Y | Cb | Cr),
+    so that a frame crosses to the host in one copy."""
+    y, cb, cr = to_yuv420_device(image)
+    return torch.cat([y.reshape(-1), cb.reshape(-1), cr.reshape(-1)])
+
+
+def unpack_yuv420(buf, height: int, width: int):
+    """Host-side inverse of pack_yuv420_device -> (Y, Cb, Cr) arrays."""
+    buf = np.asarray(buf)
+    hw = height * width
+    q = hw // 4
+    return (buf[:hw].reshape(height, width),
+            buf[hw:hw + q].reshape(height // 2, width // 2),
+            buf[hw + q:hw + 2 * q].reshape(height // 2, width // 2))
+
+
+def yuv420_to_jpeg(y, cb, cr, quality: int = 85) -> bytes:
+    """JPEG of 4:2:0 planes (rows top-first) by the native encoder: the
+    bytes PIL writes for the YCbCr image of the planes with the chroma
+    repeated 2x2, as the reference encodes them."""
+    from openglraytracer_tpu_torch.utils import native_imageio
+    return native_imageio.encode_jpeg_yuv420(y, cb, cr, quality)
+
+
+def _rgb_to_jpeg(rgb8: np.ndarray, quality: int = 85) -> bytes:
+    """JPEG (4:2:0) of (H, W, 3) uint8 top-first by the native encoder:
+    the bytes of PIL's ``Image.fromarray(rgb8).save(buf, "JPEG",
+    quality=quality)``, the reference viewer's 'rgb' transport."""
+    from openglraytracer_tpu_torch.utils import native_imageio
+    return native_imageio.encode_jpeg_rgb(rgb8, quality)
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

@@ -1,4 +1,4 @@
-"""Live viewer: the reference's real-time window as an HTTP PNG stream.
+"""Live viewer: the reference's real-time window as an HTTP MJPEG stream.
 
 Port of ``openglraytracer_tpu/utils/viewer.py``. The reference's runtime is
 a GLFW window redrawn every vsync with the wall clock as the scene's only
@@ -7,25 +7,25 @@ animation input. A GPU host is headless, so a producer thread renders
 ``fps_cap``, the vsync analog) and every connected browser shows the latest
 frame through ``multipart/x-mixed-replace``.
 
-Frames are PNG, not the reference's JPEG: the port does not depend on
-PIL, and the native encoder (native/libimageio.so, utils/native_imageio.py)
-writes PNG. ctypes releases the interpreter lock during the encode, so the
-pool's workers encode frames in parallel.
+Frames are JPEG at ``quality`` (85), encoded by the port's native codec
+(native/imageio.cpp, utils/native_imageio.py) into the bytes PIL writes
+for the reference. ctypes releases the interpreter lock during the
+encode, so the pool's workers encode frames in parallel.
 
 Endpoints:
   /           HTML page: the live stream and an FPS/stats readout
-  /stream     multipart stream of image/png frames
-  /frame.png  the latest frame; its X-Frame-Time header is the t it shows
+  /stream     MJPEG multipart stream of image/jpeg frames
+  /frame.jpg  the latest frame; its X-Frame-Time header is the t it shows
   /stats      JSON {frame, fps, width, height, depth, engine, transport}
 
 The producer is a depth-N pipeline: the dispatch loop enqueues a frame's
-device work (scene build, render, ``to_uint8_device``) and starts its
-device-to-host copy into pinned memory without waiting; a pool of workers
-each waits for its frame's copy and encodes it, while the card renders the
-next. Publishes are forced in order, so consumers never see time run
-backwards. The fetch is one copy a frame: the uint8 frame, and on the
-culled engines the overflow count packed beside it (saturated at 255), as
-the reference packs it into its YUV buffer. A frame that overflowed
+device work (scene build, render, and ``pack_yuv420_device`` or
+``to_uint8_device``) and starts its device-to-host copy into pinned memory
+without waiting; a pool of workers each waits for its frame's copy and
+encodes it, while the card renders the next. Publishes are forced in
+order, so consumers never see time run backwards. The fetch is one copy a
+frame: the packed planes (or the uint8 frame), and on the culled engines
+the overflow count appended (saturated at 255). A frame that overflowed
 (objects dropped; it still shows) makes the dispatch loop resize the cull
 spec from the current frame and carry on.
 """
@@ -48,26 +48,32 @@ _BOUNDARY = "oglrtframe"
 
 class FrameStreamer:
     """Producer thread: renders the animated reference world at wall time t
-    on ``device`` and holds the latest PNG for any number of consumers."""
+    on ``device`` and holds the latest JPEG for any number of consumers."""
 
     def __init__(self, height: int = 360, width: int = 640, depth: int = 0,
                  engine: str = "auto", cull_tile: int = 8,
                  fps_cap: float | None = None, max_frames: int | None = None,
-                 start_time: float = 0.0, pipeline_depth: int = 3,
-                 transport: str = "auto", device="cuda"):
+                 start_time: float = 0.0, quality: int = 85,
+                 pipeline_depth: int = 3, transport: str = "auto",
+                 device="cuda"):
         self.height, self.width = height, width
         self.depth, self.engine = depth, engine
-        # transport: what crosses to the host a frame. 'rgb' (H, W, 3)
-        # uint8; 'auto' is 'rgb'. The reference's 'yuv420' fed its JPEG
-        # encoder, which the PNG stream does not use.
-        if transport == "yuv420":
-            raise ValueError("transport 'yuv420' is not ported: frames are "
-                             "PNG, encoded from the RGB bytes (there is no "
-                             "PIL for the JPEG encoder); use 'rgb' or "
+        # transport: what crosses to the host a frame.
+        #   'rgb'    (H, W, 3) uint8, 3 bytes a pixel
+        #   'yuv420' Y and 2x2-subsampled Cb, Cr, 1.5 bytes a pixel: what
+        #            the 4:2:0 JPEG keeps anyway
+        #   'auto'   'yuv420' when both sides are even, else 'rgb'
+        even = height % 2 == 0 and width % 2 == 0
+        if transport == "auto":
+            transport = "yuv420" if even else "rgb"
+        if transport not in ("rgb", "yuv420"):
+            raise ValueError(f"transport {transport!r}: 'rgb', 'yuv420' or "
                              "'auto'")
-        if transport not in ("rgb", "auto"):
-            raise ValueError(f"transport {transport!r}: 'rgb' or 'auto'")
-        self.transport = "rgb"
+        if transport == "yuv420" and not even:
+            raise ValueError(f"transport 'yuv420' needs even frame sides, "
+                             f"got {width}x{height}")
+        self.transport = transport
+        self.quality = quality
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FrameStreamer(device='cuda'): no CUDA "
@@ -82,7 +88,7 @@ class FrameStreamer:
         self.encode_s = 0.0         # summed worker encode time, seconds
         self.rebuilds = 0
         self.error: BaseException | None = None
-        self._png: bytes | None = None
+        self._jpeg: bytes | None = None
         self._t: float | None = None
         self._cond = threading.Condition()
         self._stop = threading.Event()
@@ -115,12 +121,14 @@ class FrameStreamer:
 
     def frame(self, t: float) -> torch.Tensor:
         """The flat uint8 frame of wall time t as it crosses to the host:
-        to_uint8_device of the render (rows top-first), and on the culled
-        engines one more byte, the frame's overflow count saturated at 255.
-        Enqueues device work only."""
+        pack_yuv420_device of the render on 'yuv420', to_uint8_device of it
+        on 'rgb' (rows top-first), and on the culled engines one more byte,
+        the frame's overflow count saturated at 255. Enqueues device work
+        only."""
         from openglraytracer_tpu_torch.models.animated import reference_frame
         from openglraytracer_tpu_torch.ops.render import render
-        from openglraytracer_tpu_torch.utils.image import to_uint8_device
+        from openglraytracer_tpu_torch.utils.image import (pack_yuv420_device,
+                                                           to_uint8_device)
         scene, cam = reference_frame(t, device=self.device)
         with torch.no_grad():
             img, ovf = render(scene, cam, self.height, self.width,
@@ -129,7 +137,8 @@ class FrameStreamer:
                               shadow_lights=self._shadow_lights,
                               bounce_mask=self._bounce_mask,
                               with_cull_stats=True)
-        out = to_uint8_device(img).reshape(-1)
+        out = (pack_yuv420_device(img) if self.transport == "yuv420"
+               else to_uint8_device(img).reshape(-1))
         if self._cull is not None:
             out = torch.cat([out, torch.clamp(ovf, max=255)
                              .to(torch.uint8).reshape(1)])
@@ -162,10 +171,22 @@ class FrameStreamer:
         done.record()
         return host, done
 
+    def encode(self, buf) -> bytes:
+        """The JPEG of a frame as frame() fetched it, without the overflow
+        byte."""
+        from openglraytracer_tpu_torch.utils.image import (_rgb_to_jpeg,
+                                                           unpack_yuv420,
+                                                           yuv420_to_jpeg)
+        if self.transport == "yuv420":
+            return yuv420_to_jpeg(*unpack_yuv420(buf, self.height,
+                                                 self.width),
+                                  quality=self.quality)
+        return _rgb_to_jpeg(buf.reshape(self.height, self.width, 3),
+                            quality=self.quality)
+
     def _finish(self, seq: int, t: float, host, done) -> None:
-        """Worker: wait for the frame's copy, encode the PNG (in parallel
+        """Worker: wait for the frame's copy, encode the JPEG (in parallel
         across workers), publish in sequence order."""
-        from openglraytracer_tpu_torch.utils.image import encode_png
         try:
             if done is not None:
                 done.synchronize()
@@ -175,7 +196,7 @@ class FrameStreamer:
                     self._rebuild = True    # the dispatch loop resizes
                 buf = buf[:-1]
             t0 = time.perf_counter()
-            png = encode_png(buf.reshape(self.height, self.width, 3))
+            jpeg = self.encode(buf)
             enc = time.perf_counter() - t0
             with self._cond:
                 self._cond.wait_for(
@@ -186,7 +207,7 @@ class FrameStreamer:
                     w.append(now)
                     while w and now - w[0] > 2.0:
                         w.pop(0)
-                    self._png, self._t = png, t
+                    self._jpeg, self._t = jpeg, t
                     self.frame_no += 1
                     self.encode_s += enc
                     self._next_pub += 1
@@ -263,17 +284,17 @@ class FrameStreamer:
 
     def wait_frame(self, after: int, timeout: float = 60.0):
         """Block until frame_no > after (or the stream ends); return the
-        latest (frame_no, png)."""
+        latest (frame_no, jpeg)."""
         with self._cond:
             self._cond.wait_for(lambda: self.frame_no > after or self.done,
                                 timeout=timeout)
-            return self.frame_no, self._png
+            return self.frame_no, self._jpeg
 
     def latest(self):
-        """(frame_no, png, t) of the latest published frame, t the wall
+        """(frame_no, jpeg, t) of the latest published frame, t the wall
         time it shows (None before the first)."""
         with self._cond:
-            return self.frame_no, self._png, self._t
+            return self.frame_no, self._jpeg, self._t
 
     def stats(self) -> dict:
         return {"frame": self.frame_no, "fps": round(self.fps, 1),
@@ -319,13 +340,13 @@ def _make_handler(streamer: FrameStreamer):
                 elif self.path == "/stats":
                     self._send("application/json",
                                json.dumps(streamer.stats()).encode())
-                elif self.path == "/frame.png":
+                elif self.path == "/frame.jpg":
                     streamer.wait_frame(0)
-                    _, png, t = streamer.latest()
-                    if png is None:
+                    _, jpeg, t = streamer.latest()
+                    if jpeg is None:
                         self.send_error(503, "no frame yet")
                         return
-                    self._send("image/png", png,
+                    self._send("image/jpeg", jpeg,
                                [("X-Frame-Time", repr(t))])
                 elif self.path == "/stream":
                     self.send_response(200)
@@ -335,14 +356,14 @@ def _make_handler(streamer: FrameStreamer):
                     self.end_headers()
                     seen = 0
                     while True:
-                        n, png = streamer.wait_frame(seen)
-                        if png is None or (n == seen and streamer.done):
+                        n, jpeg = streamer.wait_frame(seen)
+                        if jpeg is None or (n == seen and streamer.done):
                             break
                         seen = n
                         self.wfile.write(
-                            f"--{_BOUNDARY}\r\nContent-Type: image/png\r\n"
-                            f"Content-Length: {len(png)}\r\n\r\n".encode())
-                        self.wfile.write(png)
+                            f"--{_BOUNDARY}\r\nContent-Type: image/jpeg\r\n"
+                            f"Content-Length: {len(jpeg)}\r\n\r\n".encode())
+                        self.wfile.write(jpeg)
                         self.wfile.write(b"\r\n")
                         if streamer.done:
                             break

@@ -377,12 +377,50 @@ def test_cli_animate_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--gif", "x.gif"], ["--engine", "culled", "--gif", "x.gif"]])
-def test_cli_animate_rejects_unported(flags, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["animate", "--frames", "1", "--width", "32", "--height",
-                  "16", "--device", "cpu", "--out-pattern",
-                  str(tmp_path / "f{}.png")] + flags)
-    assert isinstance(e.value.code, str) and "ROADMAP" in e.value.code
+def test_cli_animate_rejects_unported(flags, tmp_path, monkeypatch, capsys):
+    """--gif, once rejected here, is ported: with the default and a culled
+    engine, animate now writes the GIF beside the PNG frames."""
+    from PIL import Image
+    monkeypatch.chdir(tmp_path)
+    cli.main(["animate", "--frames", "1", "--width", "32", "--height",
+              "16", "--device", "cpu", "--out-pattern",
+              str(tmp_path / "f{}.png")] + flags)
+    assert "wrote x.gif (1 frames @ 30 fps)" in capsys.readouterr().out
+    im = Image.open(tmp_path / "x.gif")
+    assert (im.n_frames, im.size, im.info["duration"], im.info["loop"]) == \
+        (1, (32, 16), 30, 0)
+
+
+def test_cli_animate_gif_matches_jax_cli(tmp_path, capsys):
+    """animate --gif against the JAX package's CLI with the same flags (3
+    frames at 640x360, the default size, as PIL reads the files): the same
+    frame count, per-frame duration (int(1000 / fps) ms, stored in
+    hundredths) and loop; each frame within the reference GIF's mean
+    absolute error against its PNG frame plus 1.0 code value."""
+    from PIL import Image
+
+    from openglraytracer_tpu import cli as j_cli
+    base = ["animate", "--frames", "3", "--fps", "24", "--start-time", "0.5"]
+    cli.main(base + ["--device", "cpu", "--out-pattern",
+                     str(tmp_path / "t{}.png"), "--gif",
+                     str(tmp_path / "t.gif")])
+    j_cli.main(base + ["--out-pattern", str(tmp_path / "j{}.png"), "--gif",
+                       str(tmp_path / "j.gif")])
+    read = {}
+    for side in "tj":
+        im = Image.open(tmp_path / f"{side}.gif")
+        frames, durations = [], []
+        for i in range(im.n_frames):
+            im.seek(i)
+            frames.append(np.asarray(im.convert("RGB"), np.int16))
+            durations.append(im.info["duration"])
+        read[side] = (im.n_frames, im.size, durations, im.info["loop"],
+                      frames)
+    assert read["t"][:4] == read["j"][:4] == (3, (640, 360), [40] * 3, 0)
+    for i in range(3):
+        errs = [np.abs(read[side][4][i] - _png(tmp_path / f"{side}{i}.png"))
+                .mean() for side in "tj"]
+        assert errs[0] <= errs[1] + 1.0, errs
 
 
 def _png(path):

@@ -3,11 +3,18 @@ native_imageio.py) against the JAX package's. The port's decoder (no PIL)
 must give exactly the pixels of the reference's load_png (PIL) on PNGs
 written by both encoders, by PIL in its modes, and on PNGs this file builds
 with every scanline filter; what it does not decode (16-bit, interlaced)
-raises. Every comparison is exact."""
+raises. The native codec builds from the port's own source (never the
+prebuilt native/libimageio.so), atomically when processes build at once,
+and encode_png falls back to the Python encoder without a compiler. Every
+comparison is exact."""
 
 import io
+import os
 import struct
+import subprocess
+import sys
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -146,7 +153,7 @@ def test_to_uint8_device_equals_to_uint8():
 
 
 def test_native_encoder_matches_the_reference():
-    t_native._load()        # the prebuilt library loads here
+    t_native._load()        # the port's codec builds and loads here
     rgb = RNG.integers(0, 256, (33, 41, 3), np.uint8)
     assert t_native.encode_png(rgb) == j_native.encode_png(rgb)
     assert t_image.encode_png(rgb) == j_native.encode_png(rgb)
@@ -166,3 +173,75 @@ def test_save_load_round_trip(tmp_path):
     np.testing.assert_allclose(back, img, atol=1.0 / 255.0)
     j_image.save_png(img, str(tmp_path / "ref.png"))
     assert (tmp_path / "ref.png").read_bytes() == open(path, "rb").read()
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_native_codec_builds_from_the_ports_source():
+    """In a fresh process (this one has the JAX package's library loaded):
+    the codec the port maps is built from openglraytracer_tpu_torch/native/
+    imageio.cpp into the package's _build/, and the prebuilt
+    native/libimageio.so is never mapped."""
+    code = ("import numpy as np;"
+            "from openglraytracer_tpu_torch.utils import image, "
+            "native_imageio as n;"
+            "image.encode_png(np.zeros((2, 2, 3), np.uint8));"
+            "image.yuv420_to_jpeg(np.zeros((2, 2), np.uint8), "
+            "np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8));"
+            "print(n.SOURCE);"
+            "print(open('/proc/self/maps').read())")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    source, maps = proc.stdout.split("\n", 1)
+    assert Path(source) == (REPO / "openglraytracer_tpu_torch" / "native"
+                            / "imageio.cpp")
+    mapped = {line.split()[-1] for line in maps.splitlines()
+              if line.endswith(".so")}
+    ours = [m for m in mapped if "libimageio" in m]
+    assert ours and all(
+        Path(m).parent.parent == REPO / "openglraytracer_tpu_torch" / "_build"
+        and Path(m).parent.name.startswith("imageio-") for m in ours), ours
+    assert not [m for m in mapped if m.endswith("native/libimageio.so")]
+
+
+def test_native_codec_builds_atomically(tmp_path):
+    """Three processes building into one empty root at once each get the
+    same whole library, and no temporary directory is left behind."""
+    code = ("import sys; from pathlib import Path;"
+            "from openglraytracer_tpu_torch.utils import native_imageio as n;"
+            "path, cmd = n.build(Path(sys.argv[1]));"
+            "import ctypes; ctypes.CDLL(str(path)).oglrt_encode_gif;"
+            "print(path, bool(cmd))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    paths = {o.split()[0] for o, _ in outs}
+    assert len(paths) == 1
+    assert [p.name for p in tmp_path.iterdir()] == [Path(*paths).parent.name]
+    assert t_native.build(tmp_path)[1] == []     # built already
+
+
+def test_encode_png_falls_back_without_a_compiler(monkeypatch, tmp_path):
+    """No $CXX and nothing on PATH: the build raises OSError naming the
+    compiler, encode_png writes the Python encoder's bytes, and the JPEG
+    encoder (which has no fallback) raises."""
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(t_native, "BUILD_ROOT", tmp_path / "build")
+    t_native._library.cache_clear()
+    try:
+        with pytest.raises(OSError, match="C\\+\\+ compiler"):
+            t_native.build()
+        rgb = RNG.integers(0, 256, (5, 7, 3), np.uint8)
+        assert t_image.encode_png(rgb) == t_image.encode_png_py(rgb)
+        with pytest.raises(OSError, match="compiler"):
+            t_image._rgb_to_jpeg(rgb)
+    finally:
+        t_native._library.cache_clear()
