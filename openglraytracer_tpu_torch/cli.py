@@ -526,7 +526,9 @@ def main(argv=None):
     r.add_argument("--save-scene", default=None,
                    help="also write the scene+camera as JSON (round-trip)")
     r.add_argument("--profile-dir", default=None,
-                   help="capture a torch.profiler trace of the render here")
+                   help="capture a torch.profiler trace of the render here "
+                   "(a Chrome trace; the program's layers show as "
+                   "oglrt/<layer>/<name> ranges, utils/profiling.py)")
     r.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda)")
     r.set_defaults(fn=cmd_render)
@@ -565,7 +567,9 @@ def main(argv=None):
     f.add_argument("--save-scene", default=None,
                    help="write the fitted scene+camera as JSON")
     f.add_argument("--profile-dir", default=None,
-                   help="capture a torch.profiler trace of the fit here")
+                   help="capture a torch.profiler trace of the fit here "
+                   "(a Chrome trace; the program's layers show as "
+                   "oglrt/<layer>/<name> ranges, utils/profiling.py)")
     f.add_argument("--device", default="cuda",
                    help="torch device to fit on (default cuda)")
     f.set_defaults(fn=cmd_fit)

@@ -50,6 +50,7 @@ from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      _safe_div, _safe_sqrt,
                                                      plane_candidates)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS, material_table
+from openglraytracer_tpu_torch.utils.profiling import span
 
 _BBOX_MARGIN = 1.0e-3  # fp slack when bounding shadow origins
 
@@ -540,19 +541,24 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
                           rot_table.detach()], dim=-1)     # (M, 18)
         box_rows = _winner_rows(btab, aux.b_idx, aux.jb_local)
 
-    g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
-        scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
-        gt, gp, gn, need_rays, lost, dot)
+    with span("backward", "winner_backward"):
+        g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
+            scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
+            gt, gp, gn, need_rays, lost, dot)
 
     if n_sph:
-        g_sph = _scatter_winner_rows(g_sph_r, aux.p_idx, aux.j_local, n_sph)
+        with span("backward", "scatter_winner_rows"):
+            g_sph = _scatter_winner_rows(g_sph_r, aux.p_idx, aux.j_local,
+                                         n_sph)
         g_center, g_radius = g_sph[:, :3], g_sph[:, 3]
     else:
         g_center, g_radius = torch.zeros_like(sph.center), \
             torch.zeros_like(sph.radius)
 
     if n_box:
-        g_box = _scatter_winner_rows(g_box_r, aux.b_idx, aux.jb_local, n_box)
+        with span("backward", "scatter_winner_rows"):
+            g_box = _scatter_winner_rows(g_box_r, aux.b_idx, aux.jb_local,
+                                         n_box)
         (g_angles,) = torch.autograd.grad(rot_table, angles, g_box[:, 9:18])
         g_mins, g_maxs, g_pos = g_box[:, 0:3], g_box[:, 3:6], g_box[:, 6:9]
     else:

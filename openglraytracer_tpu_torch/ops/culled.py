@@ -41,6 +41,8 @@ and the backward the tile-structured winner replay of
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from openglraytracer_tpu_torch import kernels
@@ -66,6 +68,7 @@ from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      _inv_safe)
 from openglraytracer_tpu_torch.ops.shading import SHADOW_EPS
 from openglraytracer_tpu_torch.ops.transforms import _fma
+from openglraytracer_tpu_torch.utils.profiling import count, span
 
 SPH_COLS, BOX_COLS, PLN_COLS = 8, 24, 16
 
@@ -594,7 +597,30 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     lists are rebuilt as the ascending distinct winners, capped at Kp, so
     material routing and the backward treat them as cold tiles; a hot tile
     reports overflow only when its winners exceed Kp.
-    Returns (Hit (R,), occluded (R, L) bool, CullAux)."""
+    Returns (Hit (R,), occluded (R, L) bool, CullAux).
+
+    Traced (utils/profiling.py), it counts the narrow phase's work in
+    shared mode: ``primary_trips``, kernel A's trip counts summed over the
+    tiles (spheres and boxes); ``shadow_trips``, kernel B's summed over the
+    tiles and lights (a hot tile's -1 scans every sphere); ``narrow_tiles``,
+    the tiles. Every tile holds tile_p rays, so trips / tiles is the pair
+    tests each ray makes."""
+    with span("narrow_phase", "culled_geometry"):
+        return _culled_geometry(scene, origins, dirs, tile_p, kp, ks,
+                                shadow_lights, hot_m, kb, ksb, active, hot_p)
+
+
+def _shadow_trips(cnt, n_sph: int):
+    """Kernel B's trips from its (T, L, 2) counts: a hot tile's sphere
+    count -1 scans all n_sph spheres."""
+    sph = cnt[..., 0]
+    return torch.where(sph < 0, n_sph, sph).sum() + cnt[..., 1].sum()
+
+
+def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
+                     ks: int, shadow_lights, hot_m: int, kb: int, ksb: int,
+                     active, hot_p: int):
+    """culled_geometry inside its span."""
     shared = active is None
     if hot_p and shared:
         raise ValueError("hot_p is a secondary-mode (bounce bundle) feature: "
@@ -619,10 +645,12 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     # ---- broad phase: dense per-tile compaction
     dirs_t = dirs.reshape(t_tiles, tile_p, 3)
     if shared:
-        axis, cos_half = tile_cones(dirs_t)
+        with span("broad_phase", "tile_cones"):
+            axis, cos_half = tile_cones(dirs_t)
 
         def compact(centers, radii, k):
-            return _dense_compact(o0, axis, cos_half, centers, radii, k)
+            with span("broad_phase", "_dense_compact"):
+                return _dense_compact(o0, axis, cos_half, centers, radii, k)
     else:
         act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
         apex, axis, cos_half, expand, empty_t = bounce_cones(
@@ -637,8 +665,10 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     if n_sph:
         p_idx, p_valid, p_count = compact(scene.spheres.center,
                                           scene.spheres.radius, kp)
-        sph_rows = (_primary_sphere_rows(scene, o0, p_idx, p_valid) if shared
-                    else _secondary_sphere_rows(scene, p_idx, p_valid))
+        with span("narrow_phase", "pack_rows"):
+            sph_rows = (_primary_sphere_rows(scene, o0, p_idx, p_valid)
+                        if shared
+                        else _secondary_sphere_rows(scene, p_idx, p_valid))
     else:
         p_idx, p_valid, p_count, sph_rows = no_list(SPH_COLS)
     kp_eff = p_idx.shape[-1]
@@ -646,14 +676,17 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     if n_box:
         bc_bs, br_bs = box_bounding_spheres(scene)
         b_idx, b_valid, b_count = compact(bc_bs, br_bs, kb)
-        box_rows = (_primary_box_rows(scene, o0, b_idx, b_valid) if shared
-                    else _secondary_box_rows(scene, b_idx, b_valid))
+        with span("narrow_phase", "pack_rows"):
+            box_rows = (_primary_box_rows(scene, o0, b_idx, b_valid)
+                        if shared
+                        else _secondary_box_rows(scene, b_idx, b_valid))
     else:
         b_idx, b_valid, b_count, box_rows = no_list(BOX_COLS)
     kb_eff = b_idx.shape[-1]
 
-    pln_tab = _plane_table(scene, o0 if shared else torch.zeros_like(o0),
-                           n_sph, n_box).contiguous()
+    with span("narrow_phase", "pack_rows"):
+        pln_tab = _plane_table(scene, o0 if shared else torch.zeros_like(o0),
+                               n_sph, n_box).contiguous()
 
     # ---- hot-primary tile selection: tiles whose bounce cone kept more
     # objects than the caps take the global-table launch below; the cold
@@ -680,9 +713,12 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
 
     # ---- kernel A (shared) or kernel 2 (per ray): primary narrow phase
     if shared:
-        outs = primary_hit(dirs.contiguous(), sph_rows.contiguous(),
-                           box_rows.contiguous(), pln_tab,
-                           cnt_a.contiguous(), tile_p)
+        count("primary_trips", cnt_a)
+        count("narrow_tiles", t_tiles)
+        with span("narrow_phase", "kernel_a"):
+            outs = primary_hit(dirs.contiguous(), sph_rows.contiguous(),
+                               box_rows.contiguous(), pln_tab,
+                               cnt_a.contiguous(), tile_p)
     else:
         outs = primary_hit_ray(dirs.contiguous(), origins.contiguous(),
                                sph_rows.contiguous(), box_rows.contiguous(),
@@ -808,14 +844,17 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                               device=device)
         if light_on[li]:
             lpos = scene.lights.position[li]
-            axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
-                shadow_org, hit_mask, tile_p, lpos)
+            with span("broad_phase", "shadow_tile_cones"):
+                axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
+                    shadow_org, hit_mask, tile_p, lpos)
             if n_sph:
-                s_idx, s_valid, s_cnt = _dense_compact(
-                    lpos, axis_s, cos_s, scene.spheres.center,
-                    scene.spheres.radius, ks, max_dist=max_d,
-                    tile_valid=~empty_s)
-                s_rows = _shadow_sphere_rows(scene, s_idx, s_valid)
+                with span("broad_phase", "_dense_compact"):
+                    s_idx, s_valid, s_cnt = _dense_compact(
+                        lpos, axis_s, cos_s, scene.spheres.center,
+                        scene.spheres.radius, ks, max_dist=max_d,
+                        tile_valid=~empty_s)
+                with span("narrow_phase", "pack_rows"):
+                    s_rows = _shadow_sphere_rows(scene, s_idx, s_valid)
                 sc = torch.clamp(s_cnt, max=ks_eff)
                 if hot_on:
                     hot_ids = _top_tiles(s_cnt, hot_m)
@@ -828,10 +867,12 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                 else:
                     s_ovf = torch.sum(s_cnt > ks, dtype=torch.int32)
             if n_box:
-                sb_idx, sb_valid, sb_cnt = _dense_compact(
-                    lpos, axis_s, cos_s, bc_bs, br_bs, ksb, max_dist=max_d,
-                    tile_valid=~empty_s)
-                b_rows = _shadow_box_rows(scene, sb_idx, sb_valid)
+                with span("broad_phase", "_dense_compact"):
+                    sb_idx, sb_valid, sb_cnt = _dense_compact(
+                        lpos, axis_s, cos_s, bc_bs, br_bs, ksb,
+                        max_dist=max_d, tile_valid=~empty_s)
+                with span("narrow_phase", "pack_rows"):
+                    b_rows = _shadow_box_rows(scene, sb_idx, sb_valid)
                 sb_ovf = torch.sum(sb_cnt > ksb, dtype=torch.int32)
         s_counts.append(s_cnt)
         s_overflow.append(s_ovf)
@@ -844,16 +885,25 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                                     dim=-1))
 
     if n_lights and any(light_on):
-        hot = ((torch.stack(hot_rows), _shadow_spheres(scene).contiguous())
-               if hot_on else (None, None))
-        with kernels.unchecked():   # the NaN radii of _shadow_sphere_rows
-            ssph = torch.stack(ssph_rows, dim=1)
-        occluded = shadow_occlusion(
-            shadow_org, hit.p, scene.lights.position.contiguous(), light_on,
-            ssph, torch.stack(sbox_rows, dim=1),
-            pln_tab.contiguous(),
-            torch.stack(cnt_cols, dim=1).to(torch.int32), tile_p, *hot)
+        with span("narrow_phase", "pack_rows"):
+            hot = ((torch.stack(hot_rows),
+                    _shadow_spheres(scene).contiguous())
+                   if hot_on else (None, None))
+            with kernels.unchecked():   # the NaN radii of _shadow_sphere_rows
+                ssph = torch.stack(ssph_rows, dim=1)
+            sbox = torch.stack(sbox_rows, dim=1)
+            cnt_b = torch.stack(cnt_cols, dim=1).to(torch.int32)
+        if shared:
+            count("shadow_trips", cnt_b,
+                  functools.partial(_shadow_trips, n_sph=n_sph))
+        with span("narrow_phase", "kernel_b"):
+            occluded = shadow_occlusion(
+                shadow_org, hit.p, scene.lights.position.contiguous(),
+                light_on, ssph, sbox, pln_tab.contiguous(), cnt_b, tile_p,
+                *hot)
     else:
+        if shared:
+            count("shadow_trips", 0)
         occluded = torch.zeros((r_total, n_lights), dtype=torch.bool,
                                device=device)
 

@@ -87,6 +87,7 @@ from openglraytracer_tpu_torch.ops.shading import (gather_materials,
                                                    static_bounce_mask,
                                                    static_shadow_mask)
 from openglraytracer_tpu_torch.ops.transforms import reflect, refract
+from openglraytracer_tpu_torch.utils.profiling import span
 
 # the culled engines: the narrow phase in plain PyTorch, and in kernels
 CULLED_PALLAS = "culled_pallas"
@@ -270,9 +271,11 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     else accel.culled_geometry_op)
     hit, occ, aux = geometry_op_(scene, origins, dirs, tile_p, kp, ks,
                                  shadow_lights, hot_m, kb, ksb)
-    mat_rows = culled_material_rows(scene, hit, aux, tile_p)
+    with span("shade", "culled_material_rows"):
+        mat_rows = culled_material_rows(scene, hit, aux, tile_p)
     if pallas and fused_shade:
-        color = shade_fused(scene, dirs, hit, occ, mat_rows)
+        with span("shade", "phong_fused"):
+            color = shade_fused(scene, dirs, hit, occ, mat_rows)
     else:
         color = phong_shade_lit(scene, dirs, hit, occ, mat_rows=mat_rows)
     if depth > 0 and bounce_mask is None:
@@ -624,17 +627,20 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     (trace_rays_mirror, through closest_hit and phong_shade whatever the
     engine, refraction ignored); the culled engines ignore it, as the
     reference does."""
-    device = (torch.device(device) if device is not None
-              else camera.position.device)
-    _check_device(scene, camera, device)
-    origins, dirs = generate_rays(camera, height, width)
-    return render_rays(scene, origins, dirs, depth=depth,
-                       chunk_size=chunk_size, remat=remat,
-                       row_block=row_block, mirror_only=mirror_only,
-                       engine=engine, cull=cull, shadow_lights=shadow_lights,
-                       bounce=bounce, with_cull_stats=with_cull_stats,
-                       bounce_mask=bounce_mask, child_cull=child_cull,
-                       fused_shade=fused_shade)
+    with span("entry", "render"):
+        device = (torch.device(device) if device is not None
+                  else camera.position.device)
+        _check_device(scene, camera, device)
+        with span("raygen", "generate_rays"):
+            origins, dirs = generate_rays(camera, height, width)
+        return render_rays(scene, origins, dirs, depth=depth,
+                           chunk_size=chunk_size, remat=remat,
+                           row_block=row_block, mirror_only=mirror_only,
+                           engine=engine, cull=cull,
+                           shadow_lights=shadow_lights, bounce=bounce,
+                           with_cull_stats=with_cull_stats,
+                           bounce_mask=bounce_mask, child_cull=child_cull,
+                           fused_shade=fused_shade)
 
 
 def render_rays(scene: Scene, origins, dirs, depth: int = 0,
@@ -700,8 +706,9 @@ def render_rays(scene: Scene, origins, dirs, depth: int = 0,
             f"row_block is not supported with engine='{engine}' (the culled "
             "path is already tile-blocked); drop it or use engine='xla'")
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(cull)
-    o = tile_image(origins, th, tw).reshape(-1, 3)
-    d = tile_image(dirs, th, tw).reshape(-1, 3)
+    with span("raygen", "tile_order"):
+        o = tile_image(origins, th, tw).reshape(-1, 3)
+        d = tile_image(dirs, th, tw).reshape(-1, 3)
     if stack:
         out = trace_rays_stack(scene, o, d, depth, engine=engine,
                                shadow_lights=shadow_lights,
@@ -728,7 +735,7 @@ def render_rays(scene: Scene, origins, dirs, depth: int = 0,
                               with_cull_stats=with_cull_stats,
                               bounce_mask=bounce_mask, child_cull=cc,
                               fused_shade=fused_shade)
-    if with_cull_stats:
-        colors, ovf = out
-        return untile_image(colors, height, width, th, tw), ovf
-    return untile_image(out, height, width, th, tw)
+    colors, ovf = out if with_cull_stats else (out, None)
+    with span("raygen", "untile"):
+        img = untile_image(colors, height, width, th, tw)
+    return (img, ovf) if with_cull_stats else img

@@ -23,6 +23,7 @@ import torch
 from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.ops.intersect import _SQRT_EPS
 from openglraytracer_tpu_torch.ops.shading import _POW_EPS, phong_core
+from openglraytracer_tpu_torch.utils.profiling import span
 
 MAT_COLS, LIGHT_COLS = 20, 16
 LIGHT_GRADS = 15      # per light: pos(3) amb(4) diff(4) spec(4)
@@ -234,7 +235,8 @@ class _PhongFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = phong_shade_bwd(*ctx.saved_tensors, g.contiguous())
+        with span("backward", "phong_shade_bwd"):
+            grads = phong_shade_bwd(*ctx.saved_tensors, g.contiguous())
         return (*(gr if want else None
                   for gr, want in zip(grads, ctx.needs_input_grad)), None)
 

@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from openglraytracer_tpu_torch.models.scene import Camera, Scene
 from openglraytracer_tpu_torch.ops.render import CULLED, ENGINES, render
+from openglraytracer_tpu_torch.utils.profiling import span
 
 DEFAULT_TRAINABLE = ("spheres.center", "spheres.radius", "materials.diffuse")
 
@@ -214,11 +215,17 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
             / (cfg.height * cfg.width * 3), ovf
 
     def step_fn(params, opt, scene: Scene, target):
-        opt.zero_grad(set_to_none=True)
+        with span("entry", "step"):
+            return _step(params, opt, scene, target)
+
+    def _step(params, opt, scene: Scene, target):
+        with span("optimizer", "zero_grad"):
+            opt.zero_grad(set_to_none=True)
         scene = apply_params(scene, params)
         loss, ovf = (soft_loss if cfg.soft is not None else hard_loss)(
             scene, target)
-        loss.backward()
+        with span("backward", "autograd"):
+            loss.backward()
         loss = loss.detach()
         if mesh is not None and mesh.group is not None:
             # one collective a step: the gradients and the loss summed over
@@ -233,7 +240,8 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
             for p, g in zip(params.values(), parts):
                 p.grad = g.view_as(p)
             loss = flat[-1]
-        opt.step()
+        with span("optimizer", "step"):
+            opt.step()
         return params, opt, loss, ovf
 
     return init_fn, step_fn

@@ -27,6 +27,8 @@ import zlib
 import numpy as np
 import torch
 
+from openglraytracer_tpu_torch.utils.profiling import span
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> bytes a pixel at bit depth 8
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -45,8 +47,9 @@ def to_uint8_device(image: torch.Tensor) -> torch.Tensor:
     """to_uint8 on the tensor's device: the same clamp, quantization and
     row flip, so a frame is fetched at 1 byte a channel; equal to
     to_uint8 byte for byte."""
-    img = torch.clamp(image, 0.0, 1.0)
-    return (img * 255.0 + 0.5).to(torch.uint8).flip(0)
+    with span("quantize", "to_uint8_device"):
+        img = torch.clamp(image, 0.0, 1.0)
+        return (img * 255.0 + 0.5).to(torch.uint8).flip(0)
 
 
 def to_yuv420_device(image: torch.Tensor):
