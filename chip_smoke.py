@@ -43,7 +43,8 @@ It exits non-zero on any failure. Phases:
      inputs the c3 paths give it, and on a small hand-built scene with
      rotated boxes (the box paths of kernels A and B, kernel B with and
      without hot shadow tiles, and the box winner replay of the backward
-     against kernel A's own hits)
+     against kernel A's own hits); the backward's winner scatter on every
+     call of a c3 and a box-scene training step (SCATTER_TOL)
   4. the c3 forward path for 3 frames: every kernel launched on every
      frame, no cull overflow, a finite image within 1/255 of the plain
      versions' image on >= 99.9% of pixels, and a small render equal to
@@ -52,7 +53,8 @@ It exits non-zero on any failure. Phases:
      torch.cuda.set_sync_debug_mode("error"), and each forward kernel
      beside its plain version
   6. the c3 training path for 3 SGD steps (lr 1e-7, zero target): all four
-     kernels launched on every step, no overflow, finite non-zero
+     kernels and the winner scatter launched on every step, no overflow,
+     finite non-zero
      gradients that agree with the same step through the plain versions
   7. c3 training timing: 3 windows of 10 chained steps, the step's device
      time, and the shade backward kernel beside its plain version
@@ -91,7 +93,8 @@ It exits non-zero on any failure. Phases:
      is present (as kernels A and 3 at c3 in phase 5; the earlier kernel 3
      with the dense pass over its hot tiles, earlier_shadow)
  13. their training paths for 3 steps each: every kernel launched on every
-     step, no overflow, gradients as in phase 6
+     step, no overflow, gradients as in phase 6, and the winner scatter
+     against its plain version on every call of a step
  14. kernel 7 (dense_hit) against its plain version on the inputs the
      pallas paths hand it: c3's 1,048,576 primary rays, the OBB world's
      primary rays and both sets of depth-1 children, zero-direction rays
@@ -194,7 +197,8 @@ It exits non-zero on any failure. Phases:
      an uninterrupted fit, a fit saving every 2 steps and a fresh fit from
      the same directory that restores the saved step, runs only the rest
      and ends at the uninterrupted fit's parameters bit for bit (torch's
-     deterministic algorithms on); then c3 'autodiff' with remat off and
+     deterministic algorithms on, the winner scatter's kernel among the
+     launches); then c3 'autodiff' with remat off and
      on: equal gradients, step time and peak memory reported
  32. the host surface at c3 (culled_pallas): the port's native codec
      (openglraytracer_tpu_torch/native/imageio.cpp) built by the host C++
@@ -288,6 +292,18 @@ BWD_RAY_TOL, BWD_LIGHT_TOL = 1e-4, 1e-3
 # training step, kernels vs plain versions: per leaf, 1e-3 of max|g| (the
 # survivor scatters run as float atomics in an order that changes per run)
 GRAD_TOL = 1e-3
+# the winner scatter against the exact sums (its plain version summed in
+# float64): a float32 sum taken through a chain of at most d additions is
+# within d * eps * sum|x| of the exact sum (first order; the bound is twice
+# the unit roundoff's). The kernel's chains: a shuffle tree in a warp (5),
+# the warps' sums in warp order into a block's row (SCATTER_CHUNK / 32, one
+# a warp round), then index_add_ of the block rows into an output row (one
+# addition a block row that received a ray: each output row is held to its
+# own count, scatter_depths). The plain version
+# in float32 (index_add_: one atomic a ray into a few rows) is no such
+# reference: the ground plane's row sums a million terms in one chain and
+# strays up to 2.4e-3 of a c5 step's largest diffuse gradient.
+SCATTER_WARP_TREE = 5
 STEPS, STEP_LR = 3, 1e-7
 FIT = dict(side=4, hw=128, tile=32, steps=20, lr=2e-2)
 BWD_NAMES = ("g_mat", "g_lpos", "g_lamb", "g_ldiff", "g_lspec", "g_dirs",
@@ -419,7 +435,8 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # takes the survivor spheres, boxes and planes, its hot launch the hot
 # pairs' spheres; its sphere test takes r * r on a survivor row and finds
 # it staged on a hot pair, and its loop-invariant 4 qa and 2 qa are not
-# charged.
+# charged. The winner scatter adds each column of each row it takes once
+# ("column"; the adds of its shuffle tree and atomics are the same sums).
 BOUND_OPS = {
     "primary_hit": dict(ray=19, sphere=10, sphere_root=8, box=40, plane=7),
     "primary_hit_ray": dict(ray=19, sphere=19, sphere_root=8, box=58,
@@ -431,6 +448,7 @@ BOUND_OPS = {
     "phong_fused": dict(ray=25, light=90),
     "phong_shade_bwd": dict(ray=60, light=270),
     "compact_mask": dict(mask=1),
+    "winner_scatter": dict(column=1),
     "dense_hit": dict(ray=31, sphere=19, sphere_root=8, box=58, plane=12,
                       light=10, s_sphere=19, s_sphere_root=8, s_box=58,
                       s_plane=12),
@@ -470,7 +488,7 @@ class Capture:
                         (culled, "shadow_occlusion"),
                         (shade, "phong_fused"), (shade, "phong_shade_bwd"),
                         (accel, "compact_mask"), (culled, "compact_mask"),
-                        (culled, "_top_tiles")]
+                        (culled, "_top_tiles"), (accel, "winner_scatter")]
         self.args, self.kwargs = {}, {}
         self.calls, self.log = [], []
 
@@ -509,8 +527,11 @@ class PlainVersions:
     versions on the card."""
 
     def __init__(self, culled, shade, shading, accel):
-        from openglraytracer_tpu_torch.ops import dense
+        from openglraytracer_tpu_torch.ops import dense, geometry
+        plain_scatter = exact_scatter(geometry)
         self.swaps = [(dense, "dense_hit", dense.dense_hit_plain),
+                      (dense, "winner_scatter", plain_scatter),
+                      (accel, "winner_scatter", plain_scatter),
                       (culled, "primary_hit", culled.primary_hit_plain),
                       (culled, "primary_hit_ray",
                        primary_hit_ray_plain(culled)),
@@ -814,9 +835,26 @@ def _work_units(torch, name, args, kwargs, outs):
         return dict(ray=r, light=r * n_lights)
     if name == "compact_mask":
         return dict(mask=args[0].numel())
+    if name == "winner_scatter":
+        rows, prow = args[0], args[4]
+        width = (rows if rows is not None else prow).shape[-1]
+        return dict(column=_scatter_taken(torch, args) * width)
     if name == "dense_hit":
         return _dense_units(torch, args, outs)
     raise KeyError(name)
+
+
+def _scatter_taken(torch, args):
+    """The rays whose row the winner scatter takes: a plane's (plane slot
+    >= 0), else a survivor slot's (slot >= 0)."""
+    slot, pslot = args[1], args[5]
+    taken = torch.zeros_like(pslot if slot is None else slot.reshape(-1),
+                             dtype=torch.bool)
+    if slot is not None:
+        taken = slot.reshape(-1) >= 0
+    if pslot is not None:
+        taken = taken | (pslot >= 0)
+    return int(taken.sum())
 
 
 def _bytes_moved(torch, name, args, kwargs, outs):
@@ -854,6 +892,28 @@ def _bytes_moved(torch, name, args, kwargs, outs):
             rows(ssph[:, j], cnt[:, j, 0].clamp(min=0))
             + rows(sbox[:, j], cnt[:, j, 1]) for j in lit) + nb(pln) + nb(
                 cnt)
+    if name == "winner_scatter":
+        # the slot and plane slot of every ray, the row of each ray that
+        # has one, the blocks' rows and their output rows (written, then
+        # read by index_add_), the output rows that receive a sum (read and
+        # written)
+        from openglraytracer_tpu_torch.ops import geometry
+        rows, slot, obj, out, prow, pslot, pobj, pout = args
+        ref = rows if rows is not None else prow
+        width = ref.shape[-1]
+        group = slot.shape[1] if slot is not None else geometry.PLANE_GROUP
+        blocks = -(-ref.shape[0] // group) * -(-group //
+                                               geometry.SCATTER_CHUNK)
+        keys = (0 if obj is None else obj.shape[1]) + (
+            0 if pslot is None else pout.shape[0] if pobj is None
+            else pobj.shape[0])
+        ids = sum(nb(x) for x in (slot, pslot) if x is not None)
+        touched = sum(int((x != 0).any(dim=-1).sum())
+                      for x in (outs[0], None if outs[1] is outs[0]
+                                else outs[1]) if x is not None)
+        return (ids + _scatter_taken(torch, args) * width * 4
+                + 2 * blocks * keys * (width + 1) * 4
+                + 2 * touched * width * 4)
     if name == "shadow_occlusion_hot":
         # the rays of the hot tiles, the global sphere table and the hot ids
         # once; the bits it sets are not counted
@@ -1545,7 +1605,10 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
             _, _, loss, _ = step_fn(p, o, scene, target)
             return float(loss), {k: v.grad for k, v in p.items()}
 
-        loss_k, grads_k = one_step_grads()
+        with Capture(culled, shade, accel) as cap:
+            loss_k, grads_k = one_step_grads()
+        errs["winner_scatter"] = max(errs.get("winner_scatter", 0.0),
+                                     compare_scatters(torch, cap, cfg))
         with PlainVersions(culled, shade, shading, accel):
             loss_p, grads_p = one_step_grads()
         log(f"  {cfg}: first step's loss: kernels {loss_k:.9g}, plain "
@@ -1567,6 +1630,147 @@ def run_4096(torch, dev, kernels, culled, shade, shading, accel, smi,
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
     return (launches, kernel_ms, errs, timed, topk_ms, earlier_ms,
             shadow_cells)
+
+
+def scatter_fresh(torch, fn):
+    """winner_scatter (or its plain version) as a function of one call's
+    captured arguments that adds into fresh zeroed outputs (the wrapper
+    adds in place), one table for both where the call shared one."""
+    def call(rows, slot, obj, out, prow, pslot, pobj, pout):
+        o = None if out is None else torch.zeros_like(out)
+        same = (out is not None and pout is not None
+                and out.data_ptr() == pout.data_ptr())
+        po = None if pout is None else (o if same else torch.zeros_like(pout))
+        return fn(rows, slot, obj, o, prow, pslot, pobj, po)
+    return call
+
+
+def exact_scatter(geometry):
+    """winner_scatter_plain summed in float64 into the caller's outputs:
+    the sums that the kernel and index_add_ round in their own orders."""
+    def call(rows, slot, obj, out, prow, pslot, pobj, pout):
+        def wide(x):
+            return None if x is None else x.double()
+        o, po = wide(out), wide(pout)
+        if out is not None and pout is not None and pout is out:
+            po = o
+        o, po = geometry.winner_scatter_plain(wide(rows), slot, obj, o,
+                                              wide(prow), pslot, pobj, po)
+        if out is not None:
+            out.copy_(o)
+        if pout is not None:
+            pout.copy_(po)
+        return out, pout
+    return call
+
+
+def scatter_depths(torch, geometry, args):
+    """Per output row of (out, plane_out), as (N, 1) columns (None where
+    absent), the longest chain of float32 additions a term of the kernel's
+    sums goes through on these arguments: SCATTER_WARP_TREE in a warp's
+    tree, SCATTER_CHUNK / 32 into its block's row, and one for each block
+    row with a ray that index_add_ adds into the output row."""
+    _, slot, obj, out, _, pslot, pobj, pout = args
+    ref = slot if slot is not None else pslot
+    dev, n_rays = ref.device, ref.numel()
+    group = slot.shape[1] if slot is not None else geometry.PLANE_GROUP
+    k = 0 if obj is None else obj.shape[1]
+    chunks = -(-group // geometry.SCATTER_CHUNK)
+    r = torch.arange(n_rays, device=dev)
+    block = (r // group) * chunks + (r % group) // geometry.SCATTER_CHUNK
+    none = torch.full((n_rays,), -1, dtype=torch.long, device=dev)
+    key, dest, to_pln = none, none, torch.zeros_like(none, dtype=torch.bool)
+    if slot is not None:
+        sl = slot.reshape(-1).long()
+        ok = (sl >= 0) & (sl < k)
+        key = torch.where(ok, sl, key)
+        dest = torch.where(ok, obj.long()[r // group, sl.clamp(0, k - 1)],
+                           dest)
+    if pslot is not None:
+        p = pslot.long()
+        to_pln = p >= 0
+        key = torch.where(to_pln, k + p, key)
+        row = pobj.long()[p.clamp(min=0)] if pobj is not None else p
+        dest = torch.where(to_pln, row, dest)
+    live = key >= 0
+    pairs, inv = torch.unique(block[live] * (int(key.max()) + 1) + key[live],
+                              return_inverse=True)
+    pair_dest = torch.zeros_like(pairs).scatter_(0, inv, dest[live])
+    pair_pln = torch.zeros_like(pairs, dtype=torch.bool).scatter_(
+        0, inv, to_pln[live])
+    same = (pout is not None and out is not None
+            and pout.data_ptr() == out.data_ptr())
+    if same:
+        pair_pln = torch.zeros_like(pair_pln)
+    base = SCATTER_WARP_TREE + geometry.SCATTER_CHUNK // 32
+    d_out, d_pout = (
+        None if t is None else base + torch.bincount(
+            pair_dest[sel], minlength=t.shape[0])[:, None]
+        for t, sel in ((out, ~pair_pln), (None if same else pout, pair_pln)))
+    return d_out, d_out if same else d_pout
+
+
+def compare_scatter(torch, geometry, args, what):
+    """The winner scatter kernel on one call's arguments: every output
+    within its row's scatter_depths * eps * sum|x| of the exact sums.
+    Returns the max
+    abs error against its plain version (in float32, index_add_), which
+    is logged beside."""
+    rows, slot, obj, out, prow, pslot, pobj, pout = args
+    got = scatter_fresh(torch, geometry.winner_scatter)(*args)
+    want = scatter_fresh(torch, geometry.winner_scatter_plain)(*args)
+    exact = scatter_fresh(torch, exact_scatter(geometry))(*args)
+    mag = scatter_fresh(torch, exact_scatter(geometry))(
+        None if rows is None else rows.abs(), slot, obj, out,
+        None if prow is None else prow.abs(), pslot, pobj, pout)
+    ref = rows if rows is not None else prow
+    planes = (None if pslot is None
+              else pout.shape[0] if pobj is None else pobj.shape[0])
+    depths = scatter_depths(torch, geometry, args)
+    depth = max(int(d.max()) for d in depths if d is not None)
+    eps = torch.finfo(torch.float32).eps
+    worst = max_abs = plain_exact = 0.0
+    for g, w, e, m, d in zip(got, want, exact, mag, depths):
+        if g is None:
+            continue
+        tol = d * eps * m + 1e-30
+        worst = max(worst, float(((g - e).abs() / tol).max()))
+        max_abs = max(max_abs, float((g - w).abs().max()))
+        plain_exact = max(plain_exact, float(((w - e).abs() / (
+            m + 1e-30)).max()))
+    log(f"  winner_scatter [{what}]: rows {tuple(ref.shape)}, slots "
+        f"{None if slot is None else tuple(slot.shape)}, lists "
+        f"{None if obj is None else tuple(obj.shape)}, planes {planes}: "
+        f"max |kernel - plain| {max_abs:.3e}; kernel vs exact {worst:.3f} "
+        f"of each row's depth * eps sum|x| (depths up to {depth}); plain "
+        f"vs exact up to {plain_exact:.3e} sum|x|")
+    check(worst <= 1.0,
+          f"winner_scatter kernel disagrees with the exact sums ({what})")
+    return max_abs
+
+
+def compare_scatters(torch, cap, what):
+    """compare_scatter on every winner_scatter call a Capture logged;
+    returns the max abs error (fails unless there was one)."""
+    from openglraytracer_tpu_torch.ops import geometry
+    # the calls without planes leave their last four arguments out
+    calls = [a + (None,) * (8 - len(a)) for name, a, _ in cap.log
+             if name == "winner_scatter"]
+    check(bool(calls), f"no winner_scatter call to compare ({what})")
+    return max(compare_scatter(torch, geometry, a, what) for a in calls)
+
+
+def scatter_launches(scene, culled_casts=0, dense_casts=0, materials=True):
+    """The winner scatter's launches in one backward, by the code: per
+    culled cast the geometry's rows (the spheres' with the planes', else
+    the planes' alone; the boxes' apart) and, where the material table
+    carries a gradient, the material rows' (the boxes', the spheres' with
+    the planes', else the planes' alone); per dense cast the planes'."""
+    n_sph, n_box, n_pln = (scene.spheres.count, scene.boxes.count,
+                           scene.planes.count)
+    rows = int(bool(n_sph or n_pln)) + int(bool(n_box))
+    per_culled = rows * (2 if materials else 1)
+    return culled_casts * per_culled + dense_casts * int(bool(n_pln))
 
 
 def compare_dense(torch, k, p, what):
@@ -1812,9 +2016,15 @@ def run_dense(torch, dev, kernels, culled, shade, shading, accel, smi,
         launches[f"train_step_{cfg}_pallas"] = got
         log(f"  {cfg}: launches over {STEPS} steps: {got}; losses "
             f"{[float(o[2]) for o in outs]}")
-        check(got == {"dense_hit": STEPS * pth["launches"]},
+        want = {"dense_hit": STEPS * pth["launches"]}
+        n_scatter = scatter_launches(pth["scene"],
+                                     dense_casts=pth["launches"])
+        if n_scatter:
+            want["winner_scatter"] = STEPS * n_scatter
+        check(got == want,
               f"{cfg}: dense_hit must launch {pth['launches']} time(s) per "
-              "step, and no other kernel")
+              "step, the planes' winner scatter once per cast where the "
+              "scene has planes, and no other kernel")
 
         def one_step_grads():
             p, o = init_fn(scene)
@@ -2063,7 +2273,9 @@ def run_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
                   t=target: f(p, o, s, t), 3, n_rays)
         torch.cuda.synchronize()
         launches[f"auto_{cfg}"] = dict(kernels.LAUNCHES)
-        check(not kernels.LAUNCHES, f"{cfg}: engine 'auto' launched kernels")
+        # the backward's plane rows go through the winner scatter
+        check(set(kernels.LAUNCHES) <= {"winner_scatter"},
+              f"{cfg}: engine 'auto' launched kernels")
     log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
 
     # ---- 21. 'autodiff' against the analytic backward
@@ -2663,8 +2875,12 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
         log(f"  launches over {STEPS} training steps: {got}; losses "
             f"{[float(o[2]) for o in outs]}; overflow "
             f"{[int(o[3]) for o in outs]}")
-        check(got == {k: v * STEPS for k, v in want.items()},
-              f"{cell}: step launches {got}, want {STEPS} x {want}")
+        want_step = {k: v * STEPS for k, v in want.items()}
+        want_step["winner_scatter"] = STEPS * scatter_launches(
+            scene, culled_casts=casts,
+            dense_casts=sum(bmask) if depth and children != "culled" else 0)
+        check(got == want_step,
+              f"{cell}: step launches {got}, want {want_step}")
         check(all(int(o[3]) == 0 for o in outs), f"{cell}: overflow "
               "training")
         del outs
@@ -2743,8 +2959,13 @@ def run_culled_xla(torch, dev, kernels, culled, shade, shading, accel, smi):
     launches["train_glass1024_stack_culled_xla"] = got
     log(f"  launches over {STEPS} forward+backward steps: {got}; overflow "
         f"{[int(o[1]) for o in outs]} (reported)")
-    check(got == {k: 2 * v * STEPS for k, v in want.items()},
-          f"culled stack step: launches {got}, want {2 * STEPS} x {want}")
+    # each step's forward runs twice (recomputed in the backward), its
+    # backward once
+    want_step = {k: 2 * v * STEPS for k, v in want.items()}
+    want_step["winner_scatter"] = STEPS * scatter_launches(
+        scene, culled_casts=n_steps)
+    check(got == want_step,
+          f"culled stack step: launches {got}, want {want_step}")
     check(all(all(bool(torch.isfinite(g).all()) for g in o[0].values())
               for o in outs), "culled stack: non-finite gradients")
     del outs
@@ -2973,9 +3194,13 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
     check([s for s, _ in loss_b] == list(range(n_first, n_all)),
           "the resumed fit must restore the saved step and run only the "
           "remainder")
-    check(got_b == {"compact_mask": got_u["compact_mask"] * (n_all - n_first)
-                    // n_all},
+    check(got_b == {k: v * (n_all - n_first) // n_all
+                    for k, v in got_u.items()},
           f"resumed launches {got_b} against {got_u} over {n_all} steps")
+    # the winner scatter's kernel runs under deterministic algorithms too,
+    # so the bit-for-bit check below holds it
+    check(got_u.get("winner_scatter", 0) > 0,
+          f"the deterministic fit launched no winner scatter ({got_u})")
     for k in trainable:
         a, b = get_path(fit_b, k), get_path(fit_u, k)
         log(f"  {k}: resumed vs uninterrupted max |diff| "
@@ -3704,7 +3929,8 @@ def main() -> int:
 
     from openglraytracer_tpu_torch import kernels
     from openglraytracer_tpu_torch.models.builders import sphere_grid_scene
-    from openglraytracer_tpu_torch.ops import accel, culled, shade, shading
+    from openglraytracer_tpu_torch.ops import (accel, culled, geometry, shade,
+                                               shading)
     from openglraytracer_tpu_torch.ops.accel import (parse_cull_spec,
                                                      suggest_cull_config,
                                                      tile_image)
@@ -3763,6 +3989,11 @@ def main() -> int:
                      shadow_lights=shadow_lights)
         torch.mean(torch.square(img - zero_target)).backward()
     c3_args["phong_shade_bwd"] = cap.args["phong_shade_bwd"]
+    # the material rows' call (20 columns), the larger of the step's two
+    c3_args["winner_scatter"] = next(
+        a for name, a, _ in cap.log
+        if name == "winner_scatter" and a[0].shape[-1] == 20)
+    errs_scatter = compare_scatters(torch, cap, "c3")
     a = c3_args["primary_hit"]
     log(f"  c3 shapes: dirs {tuple(a[0].shape)}, sphere rows "
         f"{tuple(a[1].shape)}, box rows {tuple(a[2].shape)}, planes "
@@ -3783,6 +4014,7 @@ def main() -> int:
     errs["phong_shade_bwd"] = compare_shade_bwd(
         torch, shade.phong_shade_bwd(*g), shade.phong_shade_bwd_plain(*g),
         "c3")
+    errs["winner_scatter"] = errs_scatter
 
     bscene, bcam = box_scene(torch, dev)
     bspec = suggest_cull_config(bscene, bcam, 256, 256, (16, 16))
@@ -3803,6 +4035,8 @@ def main() -> int:
                   "boxes")
     compare_shade_bwd(torch, shade.phong_shade_bwd(*g),
                       shade.phong_shade_bwd_plain(*g), "boxes")
+    errs["winner_scatter"] = max(errs["winner_scatter"],
+                                 compare_scatters(torch, cap, "boxes"))
     # the backward's box replay against kernel A's own hits: the face pick
     # must agree (a wrong face moves the normal by order 1)
     (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(bspec)
@@ -3847,7 +4081,8 @@ def main() -> int:
     log(f"  launches over {FRAMES} frames: {fwd_launches}")
     check(all(fwd_launches[k] >= FRAMES for k in fwd_kernels),
           "every forward kernel must launch on every frame")
-    check(fwd_launches["phong_shade_bwd"] == 0,
+    check(fwd_launches["phong_shade_bwd"] == 0
+          and kernels.LAUNCHES["winner_scatter"] == 0,
           "a forward frame must not run the backward")
     ovfs = [int(ovf) for _, ovf in frames]
     log(f"  cull_overflow_events per frame: {ovfs}")
@@ -3910,11 +4145,15 @@ def main() -> int:
     plain_fns = {"primary_hit": culled.primary_hit_plain,
                  "shadow_occlusion": culled.shadow_occlusion_plain,
                  "phong_fused": shading.phong_core,
-                 "phong_shade_bwd": shade.phong_shade_bwd_plain}
+                 "phong_shade_bwd": shade.phong_shade_bwd_plain,
+                 "winner_scatter": scatter_fresh(
+                     torch, geometry.winner_scatter_plain)}
     wrappers = {"primary_hit": culled.primary_hit,
                 "shadow_occlusion": culled.shadow_occlusion,
                 "phong_fused": shade.phong_fused,
-                "phong_shade_bwd": shade.phong_shade_bwd}
+                "phong_shade_bwd": shade.phong_shade_bwd,
+                "winner_scatter": scatter_fresh(torch,
+                                                geometry.winner_scatter)}
     kernel_ms, c3_earlier_ms = {}, {}
 
     def time_kernel(k):
@@ -3955,7 +4194,8 @@ def main() -> int:
     step_out = [step_fn(params, opt, scene, zero_target)
                 for _ in range(STEPS)]
     torch.cuda.synchronize()
-    train_launches = {k: kernels.LAUNCHES[k] for k in all_kernels}
+    train_launches = {k: kernels.LAUNCHES[k]
+                      for k in all_kernels + ("winner_scatter",)}
     log(f"  launches over {STEPS} steps: {train_launches}")
     check(all(n >= STEPS for n in train_launches.values()),
           "every kernel must launch on every training step")
@@ -4008,6 +4248,7 @@ def main() -> int:
     log(f"  training step device time (one step behind a spin kernel, "
         f"median of 5): {step_dev:.4f} ms")
     time_kernel("phong_shade_bwd")
+    time_kernel("winner_scatter")
 
     # ---- 8. a short fit
     log(f"[8/35] fit: sphere_grid_scene({FIT['side']}, seed=1) at "
@@ -4038,6 +4279,8 @@ def main() -> int:
     errs["shadow_occlusion"] = max(errs["shadow_occlusion"],
                                    errs_4096.pop("shadow_occlusion"))
     errs["shadow_occlusion_hot"] = errs["shadow_occlusion"]
+    errs["winner_scatter"] = max(errs["winner_scatter"],
+                                 errs_4096.pop("winner_scatter"))
     errs.update(errs_4096)
     launches_dense, dense_cells, errs["dense_hit"], dense_c3 = run_dense(
         torch, dev, kernels, culled, shade, shading, accel, smi, earlier)
@@ -4094,11 +4337,16 @@ def main() -> int:
                "compact_mask": (
                    "csrc/compact_mask.cu",
                    "openglraytracer_tpu/ops/pallas_compact.py:52"),
+               "winner_scatter": (
+                   "csrc/winner_scatter.cu",
+                   "none: the JAX package's one-hot contractions "
+                   "(ops/accel.py _culled_bwd, culled_material_rows)"),
                "dense_hit": (
                    "csrc/dense_hit.cu",
                    "openglraytracer_tpu/ops/pallas_render.py:115")}
     # the inputs each row's ms was timed on, for its bound
-    timed_calls = {k: (wrappers[k], c3_args[k], {}) for k in all_kernels}
+    timed_calls = {k: (wrappers[k], c3_args[k], {})
+                   for k in all_kernels + ("winner_scatter",)}
     timed_calls["primary_hit_ray"] = (culled.primary_hit_ray,
                                       *timed["primary_hit_ray"])
     timed_calls["primary_hit_hot"] = (culled.primary_hit_ray,
@@ -4117,16 +4365,17 @@ def main() -> int:
                      **launches_gif}
     kernels.LAUNCHES.clear()    # the bound's calls below count nowhere
     rows = []
-    for k in all_kernels + ("primary_hit_ray", "primary_hit_hot",
-                            "shadow_occlusion_hot", "compact_mask",
-                            "dense_hit"):
+    for k in all_kernels + ("winner_scatter", "primary_hit_ray",
+                            "primary_hit_hot", "shadow_occlusion_hot",
+                            "compact_mask", "dense_hit"):
         src, replaces = sources[k]
         # launches: the count from the path the kernel was ported for (the
         # c3 forward frames for the forward kernels, the c3 training steps
         # for the backward, the c4_mirror4096 frames for kernels 2 and 6,
         # the c5_grid4096 frames for kernel B's hot launch, the c3 pallas
         # frames for kernel 7); every path's count under "paths"
-        main = (train_launches if k == "phong_shade_bwd" else
+        main = (train_launches if k in ("phong_shade_bwd", "winner_scatter")
+                else
                 launches_4096["render_c4_mirror4096"] if k in (
                     "primary_hit_ray", "primary_hit_hot", "compact_mask")
                 else launches_4096["render_c5_grid4096"]

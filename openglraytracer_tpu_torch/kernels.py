@@ -35,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("primary_hit.cu", "shadow_occlusion.cu", "phong_shade.cu",
-           "phong_shade_bwd.cu", "compact_mask.cu", "dense_hit.cu")
+           "phong_shade_bwd.cu", "compact_mask.cu", "dense_hit.cu",
+           "winner_scatter.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -75,6 +76,8 @@ _SIGNATURES = {
                           _P],
     "oglrt_phong_shade_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                               _I, _P, _P, _P, _P, _P, _P],
+    "oglrt_winner_scatter": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+                             _I, _P, _P, _P, _I, _P, _P, _P, _P],
 }
 
 

@@ -42,8 +42,10 @@ from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
                                                     _with_leaves,
                                                     box_rotation,
-                                                    component_dot, sum_dot,
-                                                    winner_backward)
+                                                    component_dot,
+                                                    plane_grads, sum_dot,
+                                                    winner_backward,
+                                                    winner_scatter)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit, _dot3,
                                                      _fold_chunk, _init_best,
@@ -418,39 +420,100 @@ def _select_winner_rows(surv_rows, j_local, rows):
     return torch.where((j_local >= 0)[..., None], win, rows)
 
 
+def _route_material_rows(table, r_total: int, tile_p: int, sph_mid, j_local,
+                         box_mid, jb_local, pln_mid, is_pln, pid):
+    """culled_material_rows' routing of the material table (K, 20) to the
+    rays: each ray's winning survivor row by its slot (sph_mid / box_mid
+    (T, Kp / Kb): the survivors' material ids; None for an absent kind),
+    then its plane's row where is_pln (pln_mid (NP,): the planes' material
+    ids; pid (R,) each ray's plane). Rows of other rays are zero."""
+    t_tiles = r_total // tile_p
+    rows = torch.zeros((t_tiles, tile_p, table.shape[-1]), dtype=table.dtype,
+                       device=table.device)
+    if sph_mid is not None:
+        rows = _select_winner_rows(_gather_tile_rows(table, sph_mid),
+                                   j_local, rows)
+    if box_mid is not None:
+        rows = _select_winner_rows(_gather_tile_rows(table, box_mid),
+                                   jb_local, rows)
+    rows = rows.reshape(r_total, -1)
+    if pln_mid is not None:
+        pln_rows = torch.index_select(table, 0, pln_mid)       # (NP, 20)
+        rows = torch.where(is_pln[:, None],
+                           torch.index_select(pln_rows, 0, pid), rows)
+    return rows
+
+
+class _MaterialRowsOp(torch.autograd.Function):
+    """The routing of culled_material_rows as one op of the material table.
+    Forward: _route_material_rows, the same ops and values. Backward: its
+    transpose on geometry.winner_scatter, each ray's (R, 20) cotangent
+    added into the table row of its plane's material, else its box's, else
+    its sphere's, summed per block of a tile by the kernel first;
+    autograd's own transposes of the gathers add every ray's row with an
+    atomic a column (index_add_, scatter_add) into a few rows."""
+
+    @staticmethod
+    def forward(ctx, table, r_total, tile_p, *idx):
+        ctx.save_for_backward(*idx)
+        ctx.n_rows = table.shape[0]
+        return _route_material_rows(table, r_total, tile_p, *idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        sph_mid, j_local, box_mid, jb_local, pln_mid, is_pln, pid = \
+            ctx.saved_tensors
+        g = g.contiguous()
+        g_table = torch.zeros((ctx.n_rows, g.shape[-1]), dtype=g.dtype,
+                              device=g.device)
+        planes = (None,) * 4
+        if pln_mid is not None:
+            planes = (g, torch.where(is_pln, pid, -1).to(torch.int32),
+                      pln_mid, g_table)
+        with span("backward", "scatter_material_rows"):
+            if box_mid is not None:
+                winner_scatter(g, jb_local, box_mid, g_table, *planes)
+                planes = (None,) * 4
+                if sph_mid is not None:
+                    # a ray whose winner is a box or a plane is no sphere's
+                    other = jb_local >= 0
+                    if is_pln is not None:
+                        other = other | is_pln.reshape(other.shape)
+                    j_local = torch.where(other, -1, j_local)
+            if sph_mid is not None:
+                winner_scatter(g, j_local, sph_mid, g_table, *planes)
+                planes = (None,) * 4
+            if planes[1] is not None:
+                winner_scatter(None, None, None, None, *planes)
+        return (g_table, None, None) + (None,) * 7
+
+
 def culled_material_rows(scene: Scene, hit: Hit, aux: CullAux, tile_p: int):
     """Per-ray packed material rows (R, 20) routed through the tile survivor
     lists: gather materials for the (T, K) survivors, pick each ray's winner
     row by its survivor slot, and patch plane winners from the plane table.
-    Rays that hit nothing get zero rows."""
+    Rays that hit nothing get zero rows. The material table's gradient,
+    where it has one, goes back through _MaterialRowsOp."""
     r_total = hit.t.shape[0]
-    t_tiles = r_total // tile_p
     n_sph = scene.spheres.count
     n_box = scene.boxes.count
     table = material_table(scene)                           # (K, 20)
 
-    rows = torch.zeros((t_tiles, tile_p, table.shape[-1]), dtype=table.dtype,
-                       device=table.device)
+    sph_mid = box_mid = pln_mid = is_pln = pid = None
     if n_sph:
-        surv_mid = _gather_tile_rows(scene.spheres.material_id[:, None],
-                                     aux.p_idx)[..., 0]
-        rows = _select_winner_rows(_gather_tile_rows(table, surv_mid),
-                                   aux.j_local, rows)
+        sph_mid = _gather_tile_rows(scene.spheres.material_id[:, None],
+                                    aux.p_idx)[..., 0]
     if n_box:
-        surv_mid_b = _gather_tile_rows(scene.boxes.material_id[:, None],
-                                       aux.b_idx)[..., 0]
-        rows = _select_winner_rows(_gather_tile_rows(table, surv_mid_b),
-                                   aux.jb_local, rows)
-    rows = rows.reshape(r_total, -1)
-
+        box_mid = _gather_tile_rows(scene.boxes.material_id[:, None],
+                                    aux.b_idx)[..., 0]
     pln = scene.planes
     if pln.count:
-        pln_rows = torch.index_select(table, 0, pln.material_id)  # (P, 20)
+        pln_mid = pln.material_id
         is_pln = hit.hit & (hit.obj_id >= n_sph + n_box)
         pid = torch.clamp(hit.obj_id - n_sph - n_box, 0, pln.count - 1)
-        rows = torch.where(is_pln[:, None],
-                           torch.index_select(pln_rows, 0, pid), rows)
-    return rows
+    return _MaterialRowsOp.apply(table, r_total, tile_p, sph_mid,
+                                 aux.j_local, box_mid, aux.jb_local, pln_mid,
+                                 is_pln, pid)
 
 
 # ---------------------------------------------------------------------------
@@ -468,21 +531,6 @@ def _winner_rows(table, surv_idx, j_local):
         t_tiles * tile_p, -1)
 
 
-def _scatter_winner_rows(contrib, surv_idx, j_local, n_obj: int):
-    """Transpose of _winner_rows: per-ray cotangents (T*P, F), zero on rays
-    whose winner is not in this list, summed into (n_obj, F). Stage 1 adds
-    rays into their tile's survivor slots, stage 2 adds the T*K slots into
-    the objects; both are index_add_ (the reference's one-hot contractions)."""
-    t_tiles, k = surv_idx.shape
-    base = torch.arange(t_tiles, device=contrib.device)[:, None] * k
-    slot = (base + j_local.clamp(min=0)).reshape(-1)
-    g_rows = torch.zeros((t_tiles * k, contrib.shape[-1]), dtype=contrib.dtype,
-                         device=contrib.device).index_add_(0, slot, contrib)
-    return torch.zeros((n_obj, contrib.shape[-1]), dtype=contrib.dtype,
-                       device=contrib.device).index_add_(
-                           0, surv_idx.reshape(-1), g_rows)
-
-
 def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
                 tile_p: int, gt, gp, gn, need_rays: bool = False,
                 hot_pass: bool = False, dot=sum_dot):
@@ -493,7 +541,8 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
     Each ray's winner parameters are gathered through the (T, K) survivor
     lists, one candidate per ray is replayed and differentiated
     (geometry.winner_backward, shared with the dense engine's backward),
-    and the per-ray cotangents are added back through the same lists.
+    and the per-ray cotangents are added back through the same lists
+    (geometry.winner_scatter).
 
     Winner overflow (a divergence from the reference): a ray whose winner
     is a sphere (box) but whose j_local (jb_local) is -1 lost its winner
@@ -542,23 +591,34 @@ def _culled_bwd(scene: Scene, origins, dirs, hit: Hit, aux: CullAux,
         box_rows = _winner_rows(btab, aux.b_idx, aux.jb_local)
 
     with span("backward", "winner_backward"):
-        g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
+        g_sph_r, g_box_r, g_pln_r, pln_slot, go, gd = winner_backward(
             scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
             gt, gp, gn, need_rays, lost, dot)
 
+    # the planes' rows ride on the spheres' launch (else on their own)
+    n_pln = scene.planes.count
+    kw = dict(dtype=gt.dtype, device=gt.device)
+    g_pln = torch.zeros((n_pln, 4), **kw) if n_pln else None
+    planes = (g_pln_r, pln_slot, None, g_pln)
+    with span("backward", "scatter_winner_rows"):
+        if n_sph:
+            g_sph = torch.zeros((n_sph, 4), **kw)
+            winner_scatter(g_sph_r, aux.j_local, aux.p_idx, g_sph, *planes)
+            planes = (None,) * 4
+        if n_box:
+            g_box = torch.zeros((n_box, 18), **kw)
+            winner_scatter(g_box_r, aux.jb_local, aux.b_idx, g_box)
+        if planes[1] is not None:
+            winner_scatter(None, None, None, None, *planes)
+    g_normal, g_offset = plane_grads(scene.planes, g_pln)
+
     if n_sph:
-        with span("backward", "scatter_winner_rows"):
-            g_sph = _scatter_winner_rows(g_sph_r, aux.p_idx, aux.j_local,
-                                         n_sph)
         g_center, g_radius = g_sph[:, :3], g_sph[:, 3]
     else:
         g_center, g_radius = torch.zeros_like(sph.center), \
             torch.zeros_like(sph.radius)
 
     if n_box:
-        with span("backward", "scatter_winner_rows"):
-            g_box = _scatter_winner_rows(g_box_r, aux.b_idx, aux.jb_local,
-                                         n_box)
         (g_angles,) = torch.autograd.grad(rot_table, angles, g_box[:, 9:18])
         g_mins, g_maxs, g_pos = g_box[:, 0:3], g_box[:, 3:6], g_box[:, 6:9]
     else:

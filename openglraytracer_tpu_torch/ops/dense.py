@@ -47,8 +47,10 @@ from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.geometry import (_GEOMETRY_LEAVES, _N_HIT,
                                                     _with_leaves, box_rotation,
-                                                    component_dot, sum_dot,
-                                                    winner_backward)
+                                                    component_dot,
+                                                    plane_grads, sum_dot,
+                                                    winner_backward,
+                                                    winner_scatter)
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit,
                                                      _inv_safe, closest_hit,
@@ -325,10 +327,11 @@ def _dense_bwd(scene: Scene, origins, dirs, hit: Hit, gt, gp, gn,
     """Analytic winner-only backward of the dense engine, the port of
     ``geometry._geometry_bwd``: winner rows gathered from the global tables
     by obj_id (index_select), winner_backward, and the per-ray cotangents
-    added into the objects with index_add_. Returns the cotangents of the
-    leaves of geometry._GEOMETRY_LEAVES, then of the origins and directions
-    (None unless need_rays), as accel._culled_bwd. dot: the replay's
-    row-wise dot product (geometry.component_dot for engine 'xla')."""
+    added into the objects with index_add_ (the planes' with
+    winner_scatter). Returns the cotangents of the leaves of
+    geometry._GEOMETRY_LEAVES, then of the origins and directions (None
+    unless need_rays), as accel._culled_bwd. dot: the replay's row-wise dot
+    product (geometry.component_dot for engine 'xla')."""
     sph, box = scene.spheres, scene.boxes
     n_sph, n_box = sph.count, box.count
     idx = hit.obj_id
@@ -350,9 +353,15 @@ def _dense_bwd(scene: Scene, origins, dirs, hit: Hit, gt, gp, gn,
                           rot_table.detach()], dim=-1)     # (M, 18)
         box_rows = torch.index_select(btab, 0, bid)
 
-    g_sph_r, g_box_r, g_normal, g_offset, go, gd = winner_backward(
+    g_sph_r, g_box_r, g_pln_r, pln_slot, go, gd = winner_backward(
         scene, origins, dirs, hit, is_sph, is_box, sph_rows, box_rows,
         gt, gp, gn, need_rays, dot=dot)
+    g_pln = None
+    if scene.planes.count:
+        g_pln = torch.zeros((scene.planes.count, 4), dtype=gt.dtype,
+                            device=gt.device)
+        winner_scatter(None, None, None, None, g_pln_r, pln_slot, None, g_pln)
+    g_normal, g_offset = plane_grads(scene.planes, g_pln)
 
     if n_sph:
         g_sph = torch.zeros((n_sph, 4), dtype=gt.dtype, device=gt.device) \

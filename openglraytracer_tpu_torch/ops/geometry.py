@@ -14,9 +14,13 @@ O(R N).
 two engines; each brings its own gather and scatter of the winners' rows.
 The culled engine's (``ops/accel.py _culled_bwd``) runs through the (T, K)
 survivor lists; the dense engine's (``ops/dense.py _dense_bwd``) through
-the global object tables, with ``index_select`` and ``index_add_``. The
-scene leaves both engines' differentiable ops take (``_GEOMETRY_LEAVES``)
-are defined here too, so this module depends on neither engine.
+the global object tables, with ``index_select`` and ``index_add_``.
+``winner_scatter`` sums per-ray winner rows into object rows a group of
+rays at a time (csrc/winner_scatter.cu on the card): the culled engine's
+survivor slots, planes and material rows, and the dense engine's planes.
+The scene leaves both engines' differentiable ops take
+(``_GEOMETRY_LEAVES``) are defined here too, so this module depends on
+neither engine.
 
 The box replay is the slab test of the forward restricted to one box per
 ray; its face pick compares the replay's t with the replay's own slab
@@ -28,10 +32,12 @@ from __future__ import annotations
 
 import torch
 
+from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import Scene
 from openglraytracer_tpu_torch.ops.intersect import (Hit, _dot3, _rot_apply,
                                                      _rot_apply_t, _safe_div)
 from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
+from openglraytracer_tpu_torch.utils.profiling import count
 
 
 def sum_dot(a, b):
@@ -189,10 +195,12 @@ def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
     the replay's row-wise dot product (component_dot for engine 'xla').
 
     On a miss the forward's p is the ray origin, so p's cotangent goes to
-    the origin. Returns (g_sph (R, 4), g_box (R, 18), g_normal (P, 3),
-    g_offset (P,), g_origins, g_dirs): the per-ray winner cotangents, zero
-    on rays whose winner is of another kind (None for an absent kind), the
-    planes' cotangents summed with index_add_, and the rays' (None unless
+    the origin. Returns (g_sph (R, 4), g_box (R, 18), g_pln (R, 4),
+    pln_slot (R,) int32, g_origins, g_dirs): the per-ray winner cotangents
+    [c r], [mins maxs pos rot] and [normal offset], zero on rays whose
+    winner is of another kind (None for an absent kind); each ray's winning
+    plane, -1 where its winner is no plane (None without planes), for the
+    caller's winner_scatter; and the rays' cotangents (None unless
     need_rays)."""
     pln = scene.planes
     n_sph, n_box, n_pln = scene.spheres.count, scene.boxes.count, pln.count
@@ -256,21 +264,149 @@ def winner_backward(scene: Scene, origins, dirs, hit: Hit, is_sph, is_box,
         g_box = torch.where(is_box[:, None], torch.cat(
             [gbm, gbx, gbp, gbrot.reshape(-1, 9)], dim=-1), 0.0)
 
+    g_pln = pln_slot = None
     if n_pln:
         pln_mask = hm & ~is_sph & ~is_box
         g_pln = torch.where(pln_mask[:, None],
                             torch.cat([gpn, gpoff[:, None]], -1), 0.0)
-        g_pln = torch.zeros((n_pln, 4), dtype=dtype, device=device) \
-            .index_add_(0, pid, g_pln)
-        g_normal, g_offset = g_pln[:, :3], g_pln[:, 3]
-    else:
-        g_normal, g_offset = torch.zeros_like(pln.normal), \
-            torch.zeros_like(pln.offset)
+        pln_slot = torch.where(pln_mask, pid, -1).to(torch.int32)
 
     go = gd = None
     if need_rays:
         go, gd = grads[-2] + gp_direct_o, grads[-1]
-    return g_sph, g_box, g_normal, g_offset, go, gd
+    return g_sph, g_box, g_pln, pln_slot, go, gd
+
+
+def plane_grads(planes, g_pln):
+    """(g_normal (P, 3), g_offset (P,)) from the planes' summed rows
+    g_pln (P, 4) [normal offset], or zeros where the scene has no planes
+    (g_pln None)."""
+    if g_pln is None:
+        return torch.zeros_like(planes.normal), torch.zeros_like(planes.offset)
+    return g_pln[:, :3], g_pln[:, 3]
+
+
+# ---------------------------------------------------------------------------
+# The transpose of the winner gather: per-ray rows summed into object rows
+# ---------------------------------------------------------------------------
+
+# rays of one group that a block of csrc/winner_scatter.cu takes (a longer
+# group, a 64x64 tile, is split over blocks to fill the card)
+SCATTER_CHUNK = 1024
+# the group where no survivor list groups the rays (planes alone): a fixed
+# run of consecutive rays
+PLANE_GROUP = 1024
+SCATTER_WIDTHS = (4, 18, 20)
+
+
+def winner_scatter_plain(rows, slot, obj, out, plane_rows=None,
+                         plane_slot=None, plane_obj=None, plane_out=None):
+    """Plain version of winner_scatter: the index_add_ formulation, the
+    reference's one-hot contractions by index. Rows go to their group's
+    slot rows (T * K, F) and those into out by obj; plane rows to the plane
+    rows (NP, F) and those into plane_out by plane_obj (or straight into
+    plane_out when plane_obj is None)."""
+    take_pln = None
+    if plane_slot is not None:
+        take_pln = plane_slot >= 0
+        g_pln = torch.where(take_pln[:, None], plane_rows, 0.0)
+        idx = plane_slot.clamp(min=0)
+        if plane_obj is None:
+            plane_out.index_add_(0, idx, g_pln)
+        else:
+            plane_out.index_add_(0, plane_obj, torch.zeros(
+                (plane_obj.shape[0], g_pln.shape[-1]), dtype=g_pln.dtype,
+                device=g_pln.device).index_add_(0, idx, g_pln))
+    if slot is not None:
+        t_groups, k = obj.shape
+        take = slot.reshape(-1) >= 0
+        if take_pln is not None:
+            take = take & ~take_pln
+        base = torch.arange(t_groups, device=slot.device)[:, None] * k
+        idx = (base + slot.clamp(min=0)).reshape(-1)
+        g_rows = torch.zeros((t_groups * k, rows.shape[-1]), dtype=rows.dtype,
+                             device=rows.device).index_add_(
+                                 0, idx, torch.where(take[:, None], rows, 0.0))
+        out.index_add_(0, obj.reshape(-1), g_rows)
+    return out, plane_out
+
+
+@kernels.wrapper
+def winner_scatter(rows, slot, obj, out, plane_rows=None, plane_slot=None,
+                   plane_obj=None, plane_out=None):
+    """Add per-ray winner rows into object rows, in place; returns (out,
+    plane_out). The transpose of the winner gathers: rays (T * G of them)
+    in T groups of G (a tile's rays);
+
+      rows (R, F), slot (T, G) int32: ray i of group t adds rows[i] into
+        out[obj[t, slot[t, i]]] (obj (T, K) int32; out (N, F)); slot -1:
+        no slot;
+      plane_rows (R, F), plane_slot (R,) int32: a ray whose plane_slot p is
+        >= 0 adds plane_rows[i] into plane_out[plane_obj[p]] (plane_obj
+        (NP,) int32, or None: plane_out[p]) instead; plane_out may be out.
+
+    rows, slot, obj and out may be None together (planes alone, grouped by
+    PLANE_GROUP rays); F is 4, 18 or 20. winner_scatter_plain on CPU
+    tensors. On CUDA tensors csrc/winner_scatter.cu sums the rows of each
+    block of up to SCATTER_CHUNK rays of a group by slot and plane, in one
+    fixed order, and one index_add_ adds those block rows into the object
+    rows (a second one the plane rows, where plane_out is not out): no
+    atomic per ray. Its sums are taken in another order than the plain
+    version's, and are the same on every run wherever torch's
+    deterministic algorithms are on (index_add_ then sums in a fixed
+    order too).
+
+    Counters: ``scatter_rows``, the rays given; ``scatter_slot_rows``, the
+    block rows that received a ray, which the kernel counts."""
+    ref = rows if rows is not None else plane_rows
+    n_rays, f = ref.shape
+    count("scatter_rows", n_rays)
+    if kernels.on_cpu(ref):
+        return winner_scatter_plain(rows, slot, obj, out, plane_rows,
+                                    plane_slot, plane_obj, plane_out)
+    if f not in SCATTER_WIDTHS:
+        raise ValueError(f"winner_scatter: rows of {f} columns; the kernel "
+                         f"takes {SCATTER_WIDTHS}")
+    dev, f32, i32 = ref.device, torch.float32, torch.int32
+    slot, obj, plane_slot, plane_obj = (
+        None if x is None else x.to(i32).contiguous()
+        for x in (slot, obj, plane_slot, plane_obj))
+    k, group, n_planes = 0, PLANE_GROUP, 0
+    if slot is not None:
+        (t_groups, group), k = slot.shape, obj.shape[1]
+        kernels.check("rows", rows, dev, f32, (t_groups * group, f))
+        kernels.check("slot", slot, dev, i32, (t_groups, group))
+        kernels.check("obj", obj, dev, i32, (t_groups, k))
+    if plane_slot is not None:
+        n_planes = (plane_obj.shape[0] if plane_obj is not None
+                    else plane_out.shape[0])
+        kernels.check("plane_rows", plane_rows, dev, f32, (n_rays, f))
+        kernels.check("plane_slot", plane_slot, dev, i32, (n_rays,))
+        if plane_obj is not None:
+            kernels.check("plane_obj", plane_obj, dev, i32, (n_planes,))
+    align = 16 if f % 4 == 0 else 8
+    for name, x in (("rows", rows), ("plane_rows", plane_rows)):
+        if x is not None and x.data_ptr() % align:
+            raise ValueError(f"winner_scatter: {name} must be {align}-byte "
+                             "aligned (the kernel reads rows as vectors)")
+    blocks = -(-n_rays // group) * -(-group // SCATTER_CHUNK)
+    n_slot_rows = blocks * k
+    part = torch.empty((n_slot_rows + blocks * n_planes, f), dtype=f32,
+                       device=dev)
+    part_idx = torch.empty((part.shape[0],), dtype=i32, device=dev)
+    n_touched = torch.empty((blocks,), dtype=i32, device=dev)
+    kernels.launch("oglrt_winner_scatter", dev, rows, slot, obj, k,
+                   0 if out is None else out.shape[0], group, SCATTER_CHUNK,
+                   n_rays, f, plane_rows, plane_slot, plane_obj, n_planes,
+                   part, part_idx, n_touched)
+    kernels.LAUNCHES["winner_scatter"] += 1
+    count("scatter_slot_rows", n_touched)
+    if plane_out is out or not n_planes or not k:
+        (out if k else plane_out).index_add_(0, part_idx, part)
+    else:   # the slot rows, then the plane rows into their own table
+        out.index_add_(0, part_idx[:n_slot_rows], part[:n_slot_rows])
+        plane_out.index_add_(0, part_idx[n_slot_rows:], part[n_slot_rows:])
+    return out, plane_out
 
 
 # ---------------------------------------------------------------------------

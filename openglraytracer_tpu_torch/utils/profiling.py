@@ -23,13 +23,15 @@ boundary of a frame or a step (raygen, broad_phase, narrow_phase, shade,
 backward, optimizer, quantize, under the entry layer's ``render`` and
 ``step``); ``count(name, value)`` records the work a layer was given
 (``primary_trips``, ``shadow_trips`` and ``narrow_tiles`` from
-ops/culled.py). Tracing is on exactly while a torch.profiler session
-records (``trace``, ``cli render/fit --profile-dir``, or any other
-session): a span then opens a ``record_function`` range named
-``oglrt/<layer>/<name>``, which the trace shows beside the kernels it
-launched, and appends to an in-memory record that ``record()`` returns
-after the session. Off, ``span`` returns one shared null context and
-``count`` returns at once: neither opens a range nor records anything.
+ops/culled.py; the backward's ``scatter_rows`` and ``scatter_slot_rows``
+from ops/geometry.py ``winner_scatter``). Tracing is on exactly while a
+torch.profiler session records (``trace``, ``cli render/fit
+--profile-dir``, or any other session): a span then opens a
+``record_function`` range named ``oglrt/<layer>/<name>``, which the trace
+shows beside the kernels it launched, and appends to an in-memory record
+that ``record()`` returns after the session. Off, ``span`` returns one
+shared null context and ``count`` returns at once: neither opens a range
+nor records anything.
 
 A layer's host time in a Chrome trace: on the thread that holds the
 ``oglrt/entry/...`` ranges, the time its ``oglrt/<layer>/...`` ranges

@@ -192,9 +192,11 @@ def test_shade_backward_kernel_matches_plain(dev, monkeypatch, which):
 
 
 def test_train_step_launches_and_is_sync_free(dev):
-    """One training step launches each of the four kernels once, never
-    waits for the host (set_sync_debug_mode('error')), and reports no
-    overflow; its gradients are finite and non-zero."""
+    """One training step launches each of the four kernels once and the
+    backward's winner scatter twice (the winners' geometry rows with the
+    plane's, and the material rows), never waits for the host
+    (set_sync_debug_mode('error')), and reports no overflow; its gradients
+    are finite and non-zero."""
     scene, cam = sphere_grid_scene(8, device=dev)
     spec = suggest_cull_config(scene, cam, 128, 128, (32, 32))
     cfg = inverse.FitConfig(height=128, width=128, engine="culled_pallas",
@@ -213,7 +215,8 @@ def test_train_step_launches_and_is_sync_free(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert dict(kernels.LAUNCHES) == {"primary_hit": 1,
                                       "shadow_occlusion": 1,
-                                      "phong_fused": 1, "phong_shade_bwd": 1}
+                                      "phong_fused": 1, "phong_shade_bwd": 1,
+                                      "winner_scatter": 2}
     assert int(ovf) == 0 and bool(torch.isfinite(loss))
     for k, v in params.items():
         assert bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()), k
@@ -539,8 +542,10 @@ def test_dense_kernel_on_split_warps(dev, which):
 def test_dense_frame_and_step_launch_and_are_sync_free(dev):
     """Engine pallas: one dense_hit launch per depth-0 frame of c3, three
     per depth-1 frame of the OBB world (primary, reflection and refraction
-    children) and as many per training step; neither waits for the host;
-    the step's gradients are finite and non-zero, box leaves included."""
+    children) and as many per training step, whose backward adds the
+    planes' rows with one winner scatter a cast where the scene has planes
+    (c3's ground; the OBB world has none); neither waits for the host; the
+    step's gradients are finite and non-zero, box leaves included."""
     from openglraytracer_tpu_torch.models.animated import reference_frame
     for builder, h, w, depth, trainable, n in (
             (lambda: sphere_grid_scene(8, device=dev), 128, 128, 0,
@@ -576,7 +581,10 @@ def test_dense_frame_and_step_launch_and_are_sync_free(dev):
             _, _, loss, ovf = step_fn(params, opt, scene, target)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert dict(kernels.LAUNCHES) == {"dense_hit": n}
+        want = {"dense_hit": n}
+        if scene.planes.count:
+            want["winner_scatter"] = n
+        assert dict(kernels.LAUNCHES) == want
         assert int(ovf) == 0 and bool(torch.isfinite(loss))
         for k, v in params.items():
             assert bool(torch.isfinite(v.grad).all()) and bool(v.grad.any()), k
@@ -768,7 +776,8 @@ def test_culled_xla_agrees_with_culled_pallas(dev, which):
     the sphere quadratic and the normal as 'culled' does, within 1e-3 *
     max|g| (culled_pallas rounds them as its kernels do, with fused
     multiply-adds, and at grazing rays the centers' gradient is singular),
-    and it launches no kernel below 1024 objects."""
+    and below 1024 objects it launches no kernel but the backward's winner
+    scatter, which the culled engines share."""
     if which == "grid":
         scene, cam = sphere_grid_scene(8, device=dev)
         hw, depth = 256, 0
@@ -794,7 +803,8 @@ def test_culled_xla_agrees_with_culled_pallas(dev, which):
         assert int(ovf) == 0
         grads[engine] = {k: v.grad for k, v in params.items()}
         if engine == "culled":
-            assert not kernels.LAUNCHES       # fewer than 1024 objects
+            # fewer than 1024 objects: no compaction kernel
+            assert set(kernels.LAUNCHES) == {"winner_scatter"}
         with torch.no_grad():
             imgs[engine] = render(scene, cam, hw, hw, depth=depth,
                                   engine=engine, child_cull=child[engine],
