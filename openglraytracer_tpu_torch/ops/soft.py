@@ -23,8 +23,20 @@ tile cones of ops/accel.py with every radius inflated to cover the
 sigmoid's support (``expand_factor``), compacted to per-tile survivor lists
 (``compact_mask``: the compaction kernel for masks of 1024 spheres or more
 on the GPU) under the culled engines' never-silent overflow count. Tiles
-run in blocks of ``tile_block``, each under ``torch.utils.checkpoint``
-while autograd records, so a step holds one block's (B, P, K) working set.
+run in blocks of ``tile_block`` (by default as many as fit ``block_pairs``
+ray-sphere pairs), each under ``torch.utils.checkpoint`` while autograd
+records, so a step holds one block's (B, P, K) working set. Every block
+launches the same ~1,400 elementwise operations over its forward, its
+recompute and its backward, so fewer, larger blocks trade device memory
+(~340 bytes a pair while a block's backward runs) for launches.
+
+Traced (utils/profiling.py, while a profiler records): the broad phase's
+spans ``broad_phase/soft_tile_cones`` and ``broad_phase/soft_compact``, a
+block's forward ``soft_composite/block`` and its recompute in the backward
+``soft_composite/recompute``; counters ``soft_rays``, ``soft_kept_pairs``
+(valid survivor slots times their tile's rays; every pair on the dense
+pass) and ``soft_live_pairs`` (ray-sphere pairs whose coverage is non-zero
+after the cut and the front gate, counted in the forward only).
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from openglraytracer_tpu_torch.ops.intersect import (_safe_normalize,
                                                      _safe_sqrt,
                                                      maybe_checkpoint)
 from openglraytracer_tpu_torch.ops.shading import _safe_pow, material_table
+from openglraytracer_tpu_torch.utils.profiling import count, span, tracing
 
 # alpha = sigmoid(logit) is ~3e-4 at logit = -8: inflating every radius so
 # the cone cull keeps spheres down to that alpha bounds the compositing
@@ -49,6 +62,9 @@ _T_EPS = 1.0e-3          # front-facing gate
 # weight underflows (a halo, and a 1/den blowup, NaN in the backward at
 # float32), and it bounds the error of the expanded-radius cull.
 _ALPHA_CUT = 1.0e-3
+# ray-sphere pairs a culled block holds by default (~2.9 GB of a block's
+# backward at ~340 bytes a pair)
+BLOCK_PAIRS = 1 << 23
 
 
 def _max(x, c: float):
@@ -123,10 +139,13 @@ def _phong_terms(m_rows, lights, px, py, pz, nx, ny, nz, dx, dy, dz):
 
 
 def _composite_block(scene: Scene, mat_tab, o, d, sph_rows, sph_valid,
-                     bw: float, gamma: float, t_bg: float):
+                     bw: float, gamma: float, t_bg: float,
+                     count_live: bool = False):
     """Soft composite of one block. o, d: (B, P, 3); sph_rows (B, K, 6)
     [cx cy cz r mat gid] survivor rows (or (1, N, 6) dense); sph_valid
-    (B, K). Returns (B, P, 3)."""
+    (B, K). Returns (B, P, 3). count_live: add the block's live pairs to
+    the soft_live_pairs counter while tracing (its forward, not a
+    recompute)."""
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]          # (B, P)
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
 
@@ -147,6 +166,8 @@ def _composite_block(scene: Scene, mat_tab, o, d, sph_rows, sph_valid,
     t_hit = -b - _safe_sqrt(disc)                         # closest approach
     front = (t_hit > _T_EPS) & sph_valid[:, None, :]      # on miss (disc<0)
     alpha = torch.where(front & (alpha > _ALPHA_CUT), alpha, 0.0)
+    if count_live and tracing():
+        count("soft_live_pairs", torch.count_nonzero(alpha))
     t_sph = _min(_max(t_hit, _T_EPS), t_bg)
 
     # sphere shading at p = o + t d, n = (p - c) / |p - c|
@@ -217,14 +238,16 @@ def _composite_block(scene: Scene, mat_tab, o, d, sph_rows, sph_valid,
 
 def soft_render_rays(scene: Scene, origins, dirs, *, bw: float, gamma: float,
                      cull=None, t_bg: float = 200.0, tile_block: int = 0,
+                     block_pairs: int = BLOCK_PAIRS,
                      with_cull_stats: bool = False):
     """Soft forward over flat rays. origins/dirs (R, 3), dirs unit.
 
     cull: None for a dense (R x N) pass, or ((th, tw) | tile_p, k) with
     tile-major rays (accel.tile_image order) sharing one origin for the
     coned broad phase, whose (T, N) mask compacts through compact_mask
-    outside the checkpointed blocks. tile_block: tiles a block (0: about
-    2^23 ray-sphere pairs a block, dividing the tile count). Returns (R, 3),
+    outside the checkpointed blocks. tile_block: tiles a block (0: at most
+    block_pairs ray-sphere pairs a block, dividing the tile count). Returns
+    (R, 3),
     and with with_cull_stats also the overflow count, a device int32
     scalar (tiles whose survivors exceeded k; 0 on the dense pass). Never
     waits for the device."""
@@ -241,12 +264,16 @@ def soft_render_rays(scene: Scene, origins, dirs, *, bw: float, gamma: float,
     table = _sphere_table(scene)
     mat_tab = material_table(scene)
     ovf = torch.zeros((), dtype=torch.int32, device=origins.device)
+    count("soft_rays", r)
 
     if cull is None:
+        count("soft_kept_pairs", r * table.shape[0])
         valid = torch.ones((1, table.shape[0]), dtype=torch.bool,
                            device=origins.device)
-        out = _composite_block(scene, mat_tab, origins[None], dirs[None],
-                               table[None], valid, bw, gamma, t_bg)[0]
+        with span("soft_composite", "block"):
+            out = _composite_block(scene, mat_tab, origins[None], dirs[None],
+                                   table[None], valid, bw, gamma, t_bg,
+                                   count_live=True)[0]
         return (out, ovf) if with_cull_stats else out
 
     tile, k = cull
@@ -257,40 +284,58 @@ def soft_render_rays(scene: Scene, origins, dirs, *, bw: float, gamma: float,
     t_tiles = r // tile_p
     o_t = origins.reshape(t_tiles, tile_p, 3)
     d_t = dirs.reshape(t_tiles, tile_p, 3)
-    axis, cos_half = tile_cones(d_t)
-    mask = sphere_vs_cone(origins[0], axis, cos_half, scene.spheres.center,
-                          scene.spheres.radius * expand_factor(bw))
-    idx, valid, count = compact_mask(mask, k)
-    ovf = torch.sum(count > min(k, int(scene.spheres.count)),
-                    dtype=torch.int32)
-    rows = _gather_tile_rows(table, idx)                   # (T, K, 6)
+    with span("broad_phase", "soft_tile_cones"):
+        axis, cos_half = tile_cones(d_t)
+        mask = sphere_vs_cone(origins[0], axis, cos_half,
+                              scene.spheres.center,
+                              scene.spheres.radius * expand_factor(bw))
+    with span("broad_phase", "soft_compact"):
+        idx, valid, found = compact_mask(mask, k)
+        ovf = torch.sum(found > min(k, int(scene.spheres.count)),
+                        dtype=torch.int32)
+        rows = _gather_tile_rows(table, idx)               # (T, K, 6)
+    count("soft_kept_pairs", valid, lambda v: v.sum() * tile_p)
 
     if tile_block <= 0:
-        # bound the (B, P, K) working set near 2^23 ray-sphere pairs
-        tile_block = max(1, (8 << 20) // max(tile_p * idx.shape[1], 1))
+        # bound the (B, P, K) working set by block_pairs ray-sphere pairs
+        tile_block = max(1, int(block_pairs)
+                         // max(tile_p * idx.shape[1], 1))
         while t_tiles % tile_block:
             tile_block -= 1
 
-    def block(o_b, d_b, rows_b, valid_b):
-        return _composite_block(scene, mat_tab, o_b, d_b, rows_b, valid_b,
-                                bw, gamma, t_bg)
+    def block_fn():
+        """One block's composite; under checkpoint its second call is the
+        backward's recompute."""
+        ran = False
+
+        def block(o_b, d_b, rows_b, valid_b):
+            nonlocal ran
+            again, ran = ran, True
+            with span("soft_composite", "recompute" if again else "block"):
+                return _composite_block(scene, mat_tab, o_b, d_b, rows_b,
+                                        valid_b, bw, gamma, t_bg,
+                                        count_live=not again)
+        return block
 
     # under checkpoint a backward recomputes each block's forward instead
     # of holding every block's (B, P, K) intermediates
     out = torch.cat([
-        maybe_checkpoint(block, o_t[s:s + tile_block], d_t[s:s + tile_block],
-                         rows[s:s + tile_block], valid[s:s + tile_block])
+        maybe_checkpoint(block_fn(), o_t[s:s + tile_block],
+                         d_t[s:s + tile_block], rows[s:s + tile_block],
+                         valid[s:s + tile_block])
         for s in range(0, t_tiles, tile_block)]).reshape(r, 3)
     return (out, ovf) if with_cull_stats else out
 
 
 def soft_render(scene: Scene, camera, height: int, width: int, *,
                 bw: float = 0.05, gamma: float = 0.3, cull=None,
-                t_bg: float = 200.0, with_cull_stats: bool = False):
+                t_bg: float = 200.0, block_pairs: int = BLOCK_PAIRS,
+                with_cull_stats: bool = False):
     """Soft forward over the full image -> (H, W, 3) [, overflow count], on
     the camera's device. With cull = ((th, tw), k) (soft.suggest_soft_cull)
     the rays are tiled through accel.tile_image and the result untiled
-    back, as in the hard culled engines."""
+    back, as in the hard culled engines, in blocks of at most block_pairs
+    ray-sphere pairs (soft_render_rays)."""
     from openglraytracer_tpu_torch.ops.accel import tile_image, untile_image
     from openglraytracer_tpu_torch.ops.raygen import generate_rays
     origins, dirs = generate_rays(camera, height, width)
@@ -306,6 +351,7 @@ def soft_render(scene: Scene, camera, height: int, width: int, *,
     d = tile_image(dirs, th, tw).reshape(-1, 3)
     out = soft_render_rays(scene, o, d, bw=bw, gamma=gamma,
                            cull=((th, tw), k), t_bg=t_bg,
+                           block_pairs=block_pairs,
                            with_cull_stats=with_cull_stats)
     flat = out[0] if with_cull_stats else out
     img = untile_image(flat, height, width, th, tw)

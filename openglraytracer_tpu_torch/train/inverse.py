@@ -134,7 +134,7 @@ def _check_config(cfg: FitConfig, camera, mesh) -> None:
 
 def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
                     optimizer: Callable[[list], torch.optim.Optimizer]
-                    | None = None):
+                    | None = None, *, soft_block_pairs: int | None = None):
     """Returns (init_fn, step_fn).
 
     init_fn(scene) -> (params, opt): params maps each trainable path to a
@@ -153,7 +153,10 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     this step's culled broad phase (the soft one's, summed over the
     views); step_fn never waits for the device. With cfg.soft, camera may
     be a tuple of cameras, cfg.cull then the matching tuple of soft specs
-    and target (V, H, W, 3). With a mesh (parallel/mesh.make_mesh), target
+    and target (V, H, W, 3); soft_block_pairs (the port's own keyword) is
+    the ray-sphere pairs a checkpointed block of the culled soft forward
+    holds (None: ops/soft.py BLOCK_PAIRS), fewer launches a step for more
+    device memory. With a mesh (parallel/mesh.make_mesh), target
     is the whole (H, W, 3) image of which each rank reads its tile, and
     loss, gradients and cull_overflow are summed over the mesh's ranks
     (all_reduce; over NCCL the step still does not wait for the device)."""
@@ -181,17 +184,21 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
         return params, make_opt(list(params.values()))
 
     def soft_loss(scene: Scene, target):
-        from openglraytracer_tpu_torch.ops.soft import soft_render
+        from openglraytracer_tpu_torch.ops.soft import (BLOCK_PAIRS,
+                                                        soft_render)
         bw, gamma = cfg.soft
+        block_pairs = soft_block_pairs or BLOCK_PAIRS
         cams = tuple(camera) if multi_view else (camera,)
         culls = tuple(cfg.cull) if multi_view else (cfg.cull,)
         tgts = target if multi_view else target[None]
         loss, ovf = 0.0, None
         for v in range(len(cams)):
-            img, o = soft_render(scene, cams[v], cfg.height, cfg.width,
-                                 bw=bw, gamma=gamma, cull=culls[v],
-                                 with_cull_stats=True)
-            loss = loss + torch.mean(torch.square(img - tgts[v]))
+            with span("soft_composite", "view"):
+                img, o = soft_render(scene, cams[v], cfg.height, cfg.width,
+                                     bw=bw, gamma=gamma, cull=culls[v],
+                                     block_pairs=block_pairs,
+                                     with_cull_stats=True)
+                loss = loss + torch.mean(torch.square(img - tgts[v]))
             ovf = o if ovf is None else ovf + o
         return loss / len(cams), ovf
 

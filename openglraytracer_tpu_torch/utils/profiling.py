@@ -20,11 +20,17 @@ every aten op that the function runs:
 
 The program's own spans and counters. ``span(layer, name)`` marks a layer
 boundary of a frame or a step (raygen, broad_phase, narrow_phase, shade,
-backward, optimizer, quantize, under the entry layer's ``render`` and
-``step``); ``count(name, value)`` records the work a layer was given
-(``primary_trips``, ``shadow_trips`` and ``narrow_tiles`` from
+soft_composite, backward, optimizer, quantize, under the entry layer's
+``render`` and ``step``); ``count(name, value)`` records the work a layer
+was given (``primary_trips``, ``shadow_trips`` and ``narrow_tiles`` from
 ops/culled.py; the backward's ``scatter_rows`` and ``scatter_slot_rows``
-from ops/geometry.py ``winner_scatter``). Tracing is on exactly while a
+from ops/geometry.py ``winner_scatter``; ``soft_rays``,
+``soft_kept_pairs`` and ``soft_live_pairs`` from ops/soft.py). The soft
+forward's spans are ``broad_phase/soft_tile_cones`` and
+``broad_phase/soft_compact``, ``soft_composite/block`` (a block's forward)
+and ``soft_composite/recompute`` (its recompute in the backward, under
+checkpoint), inside ``soft_composite/view`` (train/inverse.py, one a
+view of a soft step). Tracing is on exactly while a
 torch.profiler session records (``trace``, ``cli render/fit
 --profile-dir``, or any other session): a span then opens a
 ``record_function`` range named ``oglrt/<layer>/<name>``, which the trace
@@ -265,6 +271,12 @@ def span(layer: str, name: str):
         _STATE.stale = True
         return OFF
     return _Span(layer, name)
+
+
+def tracing() -> bool:
+    """Whether a profiler session records (spans and counters are on). A
+    counter whose value takes launches of its own is computed only then."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(name: str, value, reduce: Callable | None = None):
