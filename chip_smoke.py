@@ -185,13 +185,18 @@ It exits non-zero on any failure. Phases:
      0 and +-45 degrees, train/inverse.make_train_step with FitConfig.soft
      and a tuple of soft specs from suggest_soft_cull, headroom 2) at
      512x512 (16x16 tiles, bw 0.5, gamma 0.6) and 2048x2048 (32x32 tiles,
-     bw 0.09, gamma 0.1): kernel 6 launched 3 times a step (one soft mask
-     a view) and equal to its plain version on every mask, no overflow,
+     bw 0.09, gamma 0.1): kernel 6, the soft composite and its backward
+     (csrc/soft_composite.cu) each launched 3 times a step (once a view),
+     kernel 6 equal to its plain version on every mask, no overflow,
      3 windows of chained steps under set_sync_debug_mode("error"), the
      step's device time and its peak memory above the resident, kernel 6
-     timed on a soft mask beside its plain version and its bound; on one
-     view at 512x512, over the 4x4 middle tiles, the culled soft image and
-     gradients against the dense soft pass and the plain compaction
+     timed on a soft mask beside its plain version and its bound; at
+     512x512 the soft composite's two kernels on the first view's inputs
+     against their plain versions (image, t_min, live pairs, gradient
+     rows, the backward bit-reproducible) and timed beside them and their
+     bounds; on one view at 512x512, over the 4x4 middle tiles, the culled
+     soft image and gradients against the dense soft pass and the plain
+     compaction
  31. a checkpointed hard stage: the reference's final stage (engine
      'culled', suggest_cull_config(hot=False, headroom 2), 2048x2048):
      an uninterrupted fit, a fit saving every 2 steps and a fresh fit from
@@ -398,6 +403,10 @@ SOFT_CELLS = ((512, 16, 0.50, 0.60, 1.2e-2, 3.0e-2, 2, 1),
               (2048, 32, 0.09, 0.10, 2.0e-3, 6.0e-3, 1, 1))
 SOFT_CHECK_RES, SOFT_CHECK_SIDE = 512, 4
 SOFT_DENSE_ATOL, SOFT_DENSE_GRAD_TOL = 1e-5, 1e-4
+# the soft composite kernel's image against its plain version: each weight
+# and colour is the same float32 arithmetic, the sums over slots take
+# another order
+SOFT_KERNEL_ATOL = 2e-6
 # the checkpointed hard stage: (steps uninterrupted, steps of the first run,
 # checkpoint_every); the fresh fit resumes to the first number (a step
 # takes 2.7 s at 2048x2048 under torch's deterministic algorithms)
@@ -3010,13 +3019,16 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
     """Phases 30-31: the reference's config 5 fit (BASELINE.json config 5,
     scripts/c5_fit_acceptance.py) at full width, 4096 spheres. 30: the soft
     multi-view step (three orbited views) at 512x512 and 2048x2048, kernel
-    6 launched as counted and equal to its plain version on every mask,
-    timed with its device time and memory; on one view at 512x512 the
-    culled soft forward and its gradients against the dense soft pass and
-    the plain compaction. 31: the hard stage's engine and spec at
+    6 and the soft composite's kernels launched as counted, kernel 6 equal
+    to its plain version on every mask, timed with its device time and
+    memory; at 512x512 the soft composite's kernels against their plain
+    versions and timed (soft_composite_kernels); on one view at 512x512
+    the culled soft forward and its gradients against the dense soft pass
+    and the plain compaction. 31: the hard stage's engine and spec at
     2048x2048, a checkpointed fit resumed by a fresh fit equal to an
     uninterrupted one bit for bit; and c3 'autodiff' with remat on and
-    off. Returns (the per-path launch counts, kernel 6's soft cells)."""
+    off. Returns (the per-path launch counts, kernel 6's soft cells, the
+    soft composite kernels' rows of the kernels line)."""
     import shutil
     from openglraytracer_tpu_torch.models.builders import (BENCH_CONFIGS,
                                                            sphere_grid_scene)
@@ -3028,7 +3040,7 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
                                                          get_path,
                                                          make_train_step)
     c5fit = _c5_fit_script()
-    launches, cells = {}, {}
+    launches, cells, soft_rows = {}, {}, {}
     scene_true, cam = sphere_grid_scene(64, seed=1, device=dev)
     scene_init = _perturbed(torch, scene_true, dev)
     cams = tuple(c5fit.orbit_camera(cam, v) for v in c5fit.SOFT_VIEWS)
@@ -3081,13 +3093,14 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
         init_fn, step_fn = make_train_step(
             cams, cfg, optimizer=c5fit.make_optimizer(100, geo_lr, photo_lr))
         params, opt = init_fn(scene_init)
-        want = {"compact_mask": len(cams)}
+        want = {"compact_mask": len(cams), "soft_composite": len(cams),
+                "soft_composite_bwd": len(cams)}
         log(f"[30/35] {cell}: sphere_grid_scene(64), {res}x{res}, "
             f"{tile}x{tile} tiles, bw {bw}, gamma {gamma}, views "
             f"{c5fit.SOFT_VIEWS}, soft specs {culls} "
-            f"(suggest_soft_cull, headroom 2); kernel 6 a step by the code: "
+            f"(suggest_soft_cull, headroom 2); kernels a step by the code: "
             f"{want}; setup {time.perf_counter() - t0:.1f} s ({smi})")
-        with Capture(culled, shade, accel) as cap:
+        with Capture(culled, shade, accel) as cap, SoftCapture() as soft_cap:
             kernels.LAUNCHES.clear()
             outs = [step_fn(params, opt, scene_init, target)
                     for _ in range(n_steps)]
@@ -3114,6 +3127,9 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
                   f"{tuple(mask.shape)} mask")
         log(f"  kernel 6 equal to its plain version on the first step's "
             f"{len(masks)} masks {[tuple(m.shape) for m, _ in masks]}")
+        if res == SOFT_CHECK_RES:
+            soft_rows[cell] = soft_composite_kernels(
+                torch, soft_cap.args[0], cell)
         del outs, cap
         timing = time_cell(torch, cell, "soft step (3 views)",
                            lambda: step_fn(params, opt, scene_init, target),
@@ -3251,7 +3267,154 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
     check(on["call_gib"] < off["call_gib"],
           "remat must lower the 'autodiff' step's peak memory")
     log(f"  phase 31: {time.perf_counter() - t0:.1f} s")
-    return launches, cells
+    return launches, cells, soft_rows
+
+
+class SoftCapture:
+    """Record the arguments of each call of the soft composite's forward
+    wrapper (ops/soft.py soft_composite), detached, in ``args``."""
+
+    def __enter__(self):
+        from openglraytracer_tpu_torch.ops import soft
+        self.mod, self.saved, self.args = soft, soft.soft_composite, []
+
+        def spy(*a, **kw):
+            self.args.append((tuple(x.detach() if hasattr(x, "detach")
+                                    else x for x in a), kw))
+            return self.saved(*a, **kw)
+        soft.soft_composite = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.soft_composite = self.saved
+
+
+def _soft_plain_blocks(torch, soft, args, g):
+    """The plain forward (and with g the backward) of the soft composite on
+    the card's tensors, in blocks of at most 2^23 ray-sphere pairs: (out,
+    t_min, den, live pairs, backward rows or None)."""
+    o, d, rows, valid, m_rows, lights, pl_n, pl_off, pl_m, bw, gamma, \
+        t_bg = args
+    tiles = max(1, (1 << 23) // (o.shape[1] * rows.shape[1]))
+    outs, grads, live = [], [], 0
+    for s in range(0, o.shape[0], tiles):
+        sl = slice(s, s + tiles)
+        out, t_min, den = soft.soft_composite_plain(
+            o[sl], d[sl], rows[sl], valid[sl], m_rows[sl], lights, pl_n,
+            pl_off, pl_m, bw, gamma, t_bg)
+        live += int(torch.count_nonzero(soft._pair_geometry(
+            o[sl], d[sl], rows[sl], valid[sl], bw, t_bg)["live"]))
+        outs.append((out, t_min, den))
+        if g is not None:
+            grads.append(soft.soft_composite_bwd_plain(
+                o[sl], d[sl], rows[sl], valid[sl], m_rows[sl], lights, pl_n,
+                pl_off, pl_m, out, t_min, den, g[sl], bw, gamma, t_bg))
+    out, t_min, den = (torch.cat(x) for x in zip(*outs))
+    if g is None:
+        return out, t_min, den, live, None
+    return out, t_min, den, live, (torch.cat([x[0] for x in grads]),
+                                   torch.cat([x[1] for x in grads]),
+                                   sum(x[2] for x in grads))
+
+
+def soft_composite_kernels(torch, captured, cell):
+    """The soft composite's forward and backward kernels on the first
+    view's inputs of a soft step: against their plain versions (the image
+    within SOFT_KERNEL_ATOL, t_min exactly, the live-pair count exactly,
+    each gradient row within GRAD_TOL of its leaf's largest row), then
+    timed beside the plain versions (over the view, in blocks of tiles)
+    and their bounds: max(bytes / 3.35 TB/s, float ops / 67 TFLOP/s) with
+    the live pairs' and rays' float ops of benchmark/soft_work.py (the
+    backward at the forward's count) and the bytes each reads and writes
+    once (rays, the kept slots' rows, the image, the saved t_min and den;
+    the backward's rows of every slot). Returns the two kernels' rows of
+    the kernels line."""
+    from benchmark import soft_work
+    from openglraytracer_tpu_torch.ops import soft
+    args, _ = captured
+    o, d, rows, valid, m_rows, lights, pl_n, pl_off, pl_m, bw, gamma, \
+        t_bg = args
+    def fwd():
+        return soft.soft_composite(o, d, rows, valid, m_rows, lights, pl_n,
+                                   pl_off, pl_m, bw, gamma, t_bg, save=True)
+    out, t_min, den = fwd()
+    g = torch.randn(out.shape, device=o.device,
+                    generator=torch.Generator(o.device).manual_seed(5))
+
+    def bwd():
+        return soft.soft_composite_bwd(o, d, rows, valid, m_rows, lights,
+                                       pl_n, pl_off, pl_m, out, t_min, den, g,
+                                       bw, gamma, t_bg)
+    got = bwd()
+    from torch.profiler import ProfilerActivity, profile
+    from openglraytracer_tpu_torch.utils import profiling
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("entry", "step"):
+            soft.soft_composite(o, d, rows, valid, m_rows, lights, pl_n,
+                                pl_off, pl_m, bw, gamma, t_bg,
+                                count_live=True)
+    live_k = profiling.record().counters["soft_live_pairs"].value
+    p_out, p_tmin, _, live, p_g = _soft_plain_blocks(torch, soft, args, g)
+    err = float((out - p_out).abs().max())
+    log(f"  {cell} soft composite, view 0 {tuple(o.shape[:2])} x K "
+        f"{rows.shape[1]}: image max |kernel - plain| {err:.3e} (atol "
+        f"{SOFT_KERNEL_ATOL}), t_min equal {torch.equal(t_min, p_tmin)}, "
+        f"live pairs {live_k} (kernel) / {live} (plain)")
+    check(err <= SOFT_KERNEL_ATOL and torch.equal(t_min, p_tmin),
+          f"{cell}: the soft composite kernel disagrees with its plain "
+          "version")
+    check(live_k == live, f"{cell}: the kernel's live pairs {live_k} != "
+          f"{live}")
+    g_err = 0.0
+    for name, a, b in zip(("rows", "material rows", "plane materials"),
+                          got[:3], p_g):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        scale = float(torch.linalg.vector_norm(b, dim=-1).max())
+        e = float(torch.linalg.vector_norm(a - b, dim=-1).max()) \
+            / max(scale, 1e-30)
+        g_err = max(g_err, e)
+        log(f"  {cell} soft composite backward, {name}: worst row "
+            f"|kernel - plain| {e:.2e} of the largest row")
+        check(e <= GRAD_TOL, f"{cell}: the soft composite backward "
+              f"disagrees on the {name}")
+    again = bwd()
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], again[:3])),
+          f"{cell}: the soft composite backward is not bit-reproducible")
+    del again
+    fwd_ms = in_turns(torch, fwd, None)[0]
+    bwd_ms = in_turns(torch, bwd, None)[0]
+    plain_ms = device_ms(torch, lambda: _soft_plain_blocks(
+        torch, soft, args, g), (), reps=1)
+    rays = o.shape[0] * o.shape[1]
+    kept = int(valid.sum())
+    n_l, n_pl = lights[0].shape[0], pl_off.shape[0]
+    flops = (live * soft_work.pair_flops(n_l)
+             + rays * soft_work.ray_flops(n_l, n_pl)) / 2
+    slot_b = 4 * (6 + 20) + 1
+    fwd_bytes = rays * 4 * (3 + 3 + 3 + 2) + kept * slot_b
+    bwd_bytes = rays * 4 * (3 + 3 + 3 + 2 + 3) + kept * slot_b \
+        + rows.shape[0] * rows.shape[1] * 4 * 26
+    out_rows = []
+    for name, ms, nbytes, e in (("soft_composite", fwd_ms, fwd_bytes, err),
+                                ("soft_composite_bwd", bwd_ms, bwd_bytes,
+                                 g_err)):
+        b_ms = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS)
+        by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FLOPS \
+            else "operations"
+        log(f"  {name}: {ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
+            f"({100 * b_ms / ms:.1f}% of it; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.4f} GFLOP); plain version (forward and "
+            f"backward, in blocks of 2^23 pairs) {plain_ms:.2f} ms")
+        out_rows.append({"name": name, "route": "cuda",
+                         "source": "openglraytracer_tpu_torch/csrc/"
+                                   "soft_composite.cu",
+                         "replaces": "none: the JAX package's soft composite "
+                                     "is plain jnp (ops/soft.py "
+                                     "_composite_block)",
+                         "cell": cell, "max_abs_err": e, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": by})
+    return out_rows
 
 
 def soft_culled_vs_dense(torch, scene, cam, cull, bw, gamma, trainable,
@@ -4290,7 +4453,7 @@ def main() -> int:
                                            shade, shading, accel, smi)
     launches_xla_culled = run_culled_xla(torch, dev, kernels, culled, shade,
                                          shading, accel, smi)
-    launches_extras, soft_cells = run_training_extras(
+    launches_extras, soft_cells, soft_rows = run_training_extras(
         torch, dev, kernels, culled, shade, shading, accel, smi,
         lib_path.parent)
     launches_host = run_host(torch, dev, kernels, shading, accel,
@@ -4410,6 +4573,13 @@ def main() -> int:
             f"({100 * b_ms / row['ms']:.0f}% of it; {nbytes / 1e6:.1f} MB "
             f"-> {nbytes / PEAK_BYTES * 1e3:.4f} ms, {ops / 1e9:.3f} GFLOP "
             f"-> {ops / PEAK_FLOPS * 1e3:.4f} ms)")
+    for cell_rows in soft_rows.values():
+        for row in cell_rows:
+            row["launches"] = launches_extras["train_step_c5_soft_512"].get(
+                row["name"], 0) // SOFT_CELLS[0][6]
+            row["paths"] = {pn: pl.get(row["name"], 0)
+                            for pn, pl in path_launches.items()}
+            rows.append(row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

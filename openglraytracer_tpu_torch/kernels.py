@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("primary_hit.cu", "shadow_occlusion.cu", "phong_shade.cu",
            "phong_shade_bwd.cu", "compact_mask.cu", "dense_hit.cu",
-           "winner_scatter.cu")
+           "winner_scatter.cu", "soft_composite.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -57,6 +57,7 @@ NAN_CHECK = contextvars.ContextVar("oglrt_nan_check", default=None)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a plain int would
 # be passed as 32 bits and cut the pointer)
 _SIGNATURES = {
@@ -78,6 +79,11 @@ _SIGNATURES = {
                               _I, _P, _P, _P, _P, _P, _P],
     "oglrt_winner_scatter": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
                              _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "oglrt_soft_composite": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _F, _F, _F, _P, _P, _P, _P, _P],
+    "oglrt_soft_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                 _I, _F, _F, _F, _P, _P, _P, _P, _I, _P, _P,
+                                 _P, _P, _P],
 }
 
 

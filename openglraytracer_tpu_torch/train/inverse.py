@@ -154,9 +154,10 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
     views); step_fn never waits for the device. With cfg.soft, camera may
     be a tuple of cameras, cfg.cull then the matching tuple of soft specs
     and target (V, H, W, 3); soft_block_pairs (the port's own keyword) is
-    the ray-sphere pairs a checkpointed block of the culled soft forward
-    holds (None: ops/soft.py BLOCK_PAIRS), fewer launches a step for more
-    device memory. With a mesh (parallel/mesh.make_mesh), target
+    the ray-sphere pairs a checkpointed block of the culled soft forward's
+    plain path holds on CPU tensors (None: ops/soft.py BLOCK_PAIRS); on
+    the card the soft kernels take every tile of a view at once. With a
+    mesh (parallel/mesh.make_mesh), target
     is the whole (H, W, 3) image of which each rank reads its tile, and
     loss, gradients and cull_overflow are summed over the mesh's ranks
     (all_reduce; over NCCL the step still does not wait for the device)."""

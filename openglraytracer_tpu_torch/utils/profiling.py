@@ -25,10 +25,11 @@ soft_composite, backward, optimizer, quantize, under the entry layer's
 was given (``primary_trips``, ``shadow_trips`` and ``narrow_tiles`` from
 ops/culled.py; the backward's ``scatter_rows`` and ``scatter_slot_rows``
 from ops/geometry.py ``winner_scatter``; ``soft_rays``,
-``soft_kept_pairs`` and ``soft_live_pairs`` from ops/soft.py). The soft
-forward's spans are ``broad_phase/soft_tile_cones`` and
-``broad_phase/soft_compact``, ``soft_composite/block`` (a block's forward)
-and ``soft_composite/recompute`` (its recompute in the backward, under
+``soft_kept_pairs``, ``soft_live_pairs`` and ``soft_kernel_rays`` from
+ops/soft.py). The soft forward's spans are ``broad_phase/soft_tile_cones``
+and ``broad_phase/soft_compact``, ``soft_composite/block`` (a block's
+forward; one a view on the card) and, on the CPU's plain path only,
+``soft_composite/recompute`` (a block's recompute in the backward, under
 checkpoint), inside ``soft_composite/view`` (train/inverse.py, one a
 view of a soft step). Tracing is on exactly while a
 torch.profiler session records (``trace``, ``cli render/fit

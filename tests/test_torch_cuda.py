@@ -847,8 +847,9 @@ def test_raygen_on_the_card_equals_the_cpu(dev, monkeypatch):
 
 def test_soft_step_launches_the_compaction_kernel(dev):
     """A soft render of a 1024-sphere grid at 128x128 with 16x16 tiles
-    launches kernel 6 once and equals its render through the plain
-    compaction; a two-view soft fit step launches it twice, sync-free,
+    launches kernel 6 and the soft composite once each and equals its
+    render through the plain compaction; a two-view soft fit step launches
+    kernel 6, the soft composite and its backward twice each, sync-free,
     with no overflow."""
     from openglraytracer_tpu_torch.ops.soft import (soft_render,
                                                     suggest_soft_cull)
@@ -858,7 +859,8 @@ def test_soft_step_launches_the_compaction_kernel(dev):
     with torch.no_grad():
         img = soft_render(scene, cam, 128, 128, bw=0.3, gamma=0.3,
                           cull=spec)
-    assert dict(kernels.LAUNCHES) == {"compact_mask": 1}
+    assert dict(kernels.LAUNCHES) == {"compact_mask": 1,
+                                      "soft_composite": 1}
     real = accel.compact_mask
     accel.compact_mask = accel.compact_mask_plain
     try:
@@ -881,5 +883,7 @@ def test_soft_step_launches_the_compaction_kernel(dev):
         _, _, loss, ovf = step_fn(params, opt, scene, target)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert dict(kernels.LAUNCHES) == {"compact_mask": 2}
+    assert dict(kernels.LAUNCHES) == {"compact_mask": 2,
+                                      "soft_composite": 2,
+                                      "soft_composite_bwd": 2}
     assert int(ovf) == 0 and bool(torch.isfinite(loss))
