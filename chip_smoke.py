@@ -489,15 +489,16 @@ class Capture:
     on the main paths' own inputs: ``args`` keeps the last call of each
     wrapper (kernel 2's hot launch under ``primary_hit_hot``), ``calls``
     every call of ``compact_mask``, ``log`` every call of every wrapper and
-    of ``culled._top_tiles`` (which picks the hot tiles) in order, as
-    (name, args, kwargs)."""
+    of ``_top_tiles`` (``accel``'s picks the hot shadow tiles, ``culled``'s
+    the hot primary tiles) in order, as (name, args, kwargs)."""
 
     def __init__(self, culled, shade, accel):
         self.targets = [(culled, "primary_hit"), (culled, "primary_hit_ray"),
                         (culled, "shadow_occlusion"),
                         (shade, "phong_fused"), (shade, "phong_shade_bwd"),
                         (accel, "compact_mask"), (culled, "compact_mask"),
-                        (culled, "_top_tiles"), (accel, "winner_scatter")]
+                        (culled, "_top_tiles"), (accel, "_top_tiles"),
+                        (accel, "winner_scatter")]
         self.args, self.kwargs = {}, {}
         self.calls, self.log = [], []
 

@@ -25,10 +25,10 @@
 // part_idx (B * K + B * NP,), the output row of each (obj, plane_obj; a
 // slot row that no ray reached holds zeros and names row (its position mod
 // n_out) instead: the lists' pad slots all name object 0, and index_add_'s
-// atomics would queue on that row); n_touched (B,), the rows of each block
-// that received a ray. The caller adds part into the object rows by
-// part_idx (index_add_), so the sums across blocks and tiles are torch's,
-// in a fixed order whenever torch's deterministic algorithms are on.
+// atomics would queue on that row). The caller adds part into the object
+// rows by part_idx (index_add_), so the sums across blocks and tiles are
+// torch's, in a fixed order whenever torch's deterministic algorithms are
+// on.
 //
 // Design. A block takes `chunk` consecutive rays of one group (a tile is
 // split over blocks where it is longer). Each thread reads its ray's row
@@ -114,10 +114,8 @@ __global__ void __launch_bounds__(kBlock) winner_scatter_kernel(
     const int* __restrict__ obj, int k, int n_out, int group, int chunk,
     long long n_rays, const float* __restrict__ plane_rows,
     const int* __restrict__ plane_slot, const int* __restrict__ plane_obj,
-    int n_planes, float* part, int* __restrict__ part_idx,
-    int* __restrict__ n_touched) {
+    int n_planes, float* part, int* __restrict__ part_idx) {
   extern __shared__ float acc[];
-  __shared__ int n_rows;
   const long long b = blockIdx.x;
   const long long n_blocks = gridDim.x;
   float* slot_acc = kSharedSlots ? acc : part + b * k * F;
@@ -128,7 +126,6 @@ __global__ void __launch_bounds__(kBlock) winner_scatter_kernel(
   for (int i = threadIdx.x; i < k * F; i += kBlock) slot_acc[i] = 0.0f;
   for (int i = threadIdx.x; i < n_planes * F; i += kBlock) plane_acc[i] = 0.0f;
   for (int i = threadIdx.x; i < keys; i += kBlock) touched[i] = 0;
-  if (threadIdx.x == 0) n_rows = 0;
   __syncthreads();
 
   const int chunks = (group + chunk - 1) / chunk;
@@ -190,12 +187,6 @@ __global__ void __launch_bounds__(kBlock) winner_scatter_kernel(
         touched[i] ? obj_g[i] : static_cast<int>((b * k + i) % n_out);
   for (int i = threadIdx.x; i < n_planes; i += kBlock)
     part_idx[n_blocks * k + b * n_planes + i] = plane_obj ? plane_obj[i] : i;
-  int n = 0;
-  for (int i = threadIdx.x; i < keys; i += kBlock) n += touched[i];
-  n = __reduce_add_sync(0xffffffffu, n);
-  if (lane == 0 && n) atomicAdd(&n_rows, n);
-  __syncthreads();
-  if (threadIdx.x == 0) n_touched[b] = n_rows;
 }
 
 template <int F>
@@ -203,8 +194,7 @@ int launch_f(const float* rows, const int* slot, const int* obj, int k,
              int n_out, int group, int chunk, long long n_rays,
              const float* plane_rows, const int* plane_slot,
              const int* plane_obj, int n_planes,
-             float* part, int* part_idx, int* n_touched,
-             cudaStream_t stream) {
+             float* part, int* part_idx, cudaStream_t stream) {
   const long long groups = (n_rays + group - 1) / group;
   const long long blocks = groups * ((group + chunk - 1) / chunk);
   const long long flags = k + n_planes;
@@ -214,7 +204,7 @@ int launch_f(const float* rows, const int* slot, const int* obj, int k,
         <<<static_cast<unsigned>(blocks), kBlock,
            static_cast<size_t>(all_rows), stream>>>(
             rows, slot, obj, k, n_out, group, chunk, n_rays, plane_rows,
-            plane_slot, plane_obj, n_planes, part, part_idx, n_touched);
+            plane_slot, plane_obj, n_planes, part, part_idx);
   } else {
     const long long plane_only = 4LL * n_planes * F + flags;
     if (plane_only > kSharedBytes) {
@@ -224,7 +214,7 @@ int launch_f(const float* rows, const int* slot, const int* obj, int k,
         <<<static_cast<unsigned>(blocks), kBlock,
            static_cast<size_t>(plane_only), stream>>>(
             rows, slot, obj, k, n_out, group, chunk, n_rays, plane_rows,
-            plane_slot, plane_obj, n_planes, part, part_idx, n_touched);
+            plane_slot, plane_obj, n_planes, part, part_idx);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -236,9 +226,9 @@ int launch_f(const float* rows, const int* slot, const int* obj, int k,
 // (f = 4, 18 or 20), 16-byte aligned for f % 4 == 0 and 8-byte otherwise;
 // slot, obj and rows may be null together (planes only, k = 0; n_out is
 // then unread), and plane_rows, plane_slot and plane_obj null with
-// n_planes = 0. part,
-// part_idx and n_touched hold B = ceil(n_rays / group) * ceil(group /
-// chunk) blocks' rows as the header says. Shared memory holds the flags of
+// n_planes = 0. part and
+// part_idx hold B = ceil(n_rays / group) * ceil(group / chunk) blocks'
+// rows as the header says. Shared memory holds the flags of
 // k slots and n_planes planes and the summed plane rows (else
 // cudaErrorInvalidValue).
 extern "C" int oglrt_winner_scatter(const float* rows, const int* slot,
@@ -249,22 +239,22 @@ extern "C" int oglrt_winner_scatter(const float* rows, const int* slot,
                                     const int* plane_slot,
                                     const int* plane_obj, int n_planes,
                                     float* part, int* part_idx,
-                                    int* n_touched, void* stream) {
+                                    void* stream) {
   if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (f) {
     case 4:
       return oglrt::launch_f<4>(rows, slot, obj, k, n_out, group, chunk,
                                 n_rays, plane_rows, plane_slot, plane_obj,
-                                n_planes, part, part_idx, n_touched, s);
+                                n_planes, part, part_idx, s);
     case 18:
       return oglrt::launch_f<18>(rows, slot, obj, k, n_out, group, chunk,
                                  n_rays, plane_rows, plane_slot, plane_obj,
-                                 n_planes, part, part_idx, n_touched, s);
+                                 n_planes, part, part_idx, s);
     case 20:
       return oglrt::launch_f<20>(rows, slot, obj, k, n_out, group, chunk,
                                  n_rays, plane_rows, plane_slot, plane_obj,
-                                 n_planes, part, part_idx, n_touched, s);
+                                 n_planes, part, part_idx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

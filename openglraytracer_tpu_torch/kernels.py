@@ -78,7 +78,7 @@ _SIGNATURES = {
     "oglrt_phong_shade_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                               _I, _P, _P, _P, _P, _P, _P],
     "oglrt_winner_scatter": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
-                             _I, _P, _P, _P, _I, _P, _P, _P, _P],
+                             _I, _P, _P, _P, _I, _P, _P, _P],
     "oglrt_soft_composite": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                              _F, _F, _F, _P, _P, _P, _P, _P],
     "oglrt_soft_composite_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,

@@ -4,14 +4,16 @@ bounce rays, and the XLA culled engine 'culled'.
 Port of ``openglraytracer_tpu/ops/accel.py``: the tile layout, the
 conservative cone tests (the bounce cones of secondary-ray bundles
 included), survivor compaction (the compaction kernel for wide masks), the
-survivor tables and records, survivor-routed material rows, the narrow
-phase of engine 'culled' in plain PyTorch (``culled_geometry``: the sphere
-quadratic and the box slab test over (tiles, survivors, pixels), its dense
-hot-tile shadow pass, ``culled_geometry_op`` and
-``bounce_culled_geometry_op``), the tile-structured analytic backward that
-both culled engines share (``_culled_bwd``, run by ``_CulledGeometryOp``)
-and the host-side sizing of the primary and bounce-child cull specs and
-the overflow recount.
+culled broad phase that both culled engines and both sizing passes share
+(``_primary_lists``, ``_shadow_lists``, their masks' counts and
+``_cull_aux``), the survivor tables and records, survivor-routed material
+rows, the narrow phase of engine 'culled' in plain PyTorch
+(``culled_geometry``: the sphere quadratic and the box slab test over
+(tiles, survivors, pixels), its dense hot-tile shadow pass,
+``culled_geometry_op`` and ``bounce_culled_geometry_op``), the
+tile-structured analytic backward that both culled engines share
+(``_culled_bwd``, run by ``_CulledGeometryOp``) and the host-side sizing
+of the primary and bounce-child cull specs and the overflow recount.
 
   1. Partition the image into pixel tiles. All primary rays of a tile share
      the camera origin and span a narrow cone: axis = mean direction,
@@ -207,15 +209,6 @@ def compact_mask(mask, k: int):
     return idx, valid, count
 
 
-def _dense_compact(apex, axis, cos_half, centers, radii, k,
-                   max_dist=None, tile_valid=None):
-    mask = sphere_vs_cone(apex, axis, cos_half, centers, radii,
-                          max_dist=max_dist)
-    if tile_valid is not None:
-        mask = mask & tile_valid[:, None]
-    return compact_mask(mask, k)
-
-
 def box_bounding_spheres(scene: Scene):
     """Conservative world-space bounding spheres of the scene's OBBs:
     center = position + R * (mins+maxs)/2, radius = |maxs - mins| / 2.
@@ -268,20 +261,6 @@ def shadow_tile_cones(shadow_org, hit_mask, tile_p: int, lpos):
     cos_s = torch.amin(torch.sum(axis_s[:, None, :] * cdir, -1), dim=1)
     max_d = torch.amax(clen, dim=1)
     return axis_s, torch.clamp(cos_s, -1.0, 1.0), max_d, empty
-
-
-def shadow_cull_mask(scene: Scene, shadow_org, hit_mask, tile_p: int, lpos,
-                     centers=None, radii=None):
-    """Conservative per-tile occluder mask (T, N) for one light; empty tiles
-    (no hits) keep nothing. centers/radii default to the scene's spheres;
-    pass box bounding spheres to cull OBB occluders."""
-    axis_s, cos_s, max_d, empty = shadow_tile_cones(shadow_org, hit_mask,
-                                                    tile_p, lpos)
-    if centers is None:
-        centers, radii = scene.spheres.center, scene.spheres.radius
-    smask = sphere_vs_cone(lpos, axis_s, cos_s, centers, radii,
-                           max_dist=max_d)
-    return smask & (~empty)[:, None]
 
 
 def _segment_occluded(so_t, p_t, lpos, scx, scy, scz, sr, valid):
@@ -408,6 +387,209 @@ def cull_overflow_count(aux: CullAux) -> torch.Tensor:
         ovf = ovf + torch.sum(aux.b_count > kb_eff, dtype=torch.int32)
         ovf = ovf + torch.sum(aux.sb_overflow, dtype=torch.int32)
     return ovf
+
+
+# ---------------------------------------------------------------------------
+# The culled broad phase: what a tile's cone keeps, built here for both
+# culled engines (their lists) and both sizing passes (their counts)
+# ---------------------------------------------------------------------------
+
+class _Cones(NamedTuple):
+    """A batch of tiles' cones, as sphere_vs_cone takes them; a tile whose
+    tile_valid is False keeps nothing."""
+    apex: torch.Tensor
+    axis: torch.Tensor
+    cos_half: torch.Tensor
+    max_dist: torch.Tensor | None = None
+    expand: torch.Tensor | None = None
+    tile_valid: torch.Tensor | None = None
+
+
+def _cull_mask(cones: _Cones, centers, radii):
+    """(T, N) bool: the bounding spheres each tile's cone keeps, the mask
+    that the sizing passes sum and _dense_compact compacts."""
+    mask = sphere_vs_cone(cones.apex, cones.axis, cones.cos_half, centers,
+                          radii, max_dist=cones.max_dist,
+                          expand=cones.expand)
+    if cones.tile_valid is not None:
+        mask = mask & cones.tile_valid[:, None]
+    return mask
+
+
+def _dense_compact(cones: _Cones, centers, radii, k: int):
+    return compact_mask(_cull_mask(cones, centers, radii), k)
+
+
+def _box_k(k: int, n_box: int) -> int:
+    """A box list's width: k clipped to the box count, 0 = every box."""
+    return min(k, n_box) if k > 0 else n_box
+
+
+def _cull_objects(scene: Scene):
+    """(spheres, boxes): the (centers, radii) the broad phase tests of each
+    kind, the boxes' bounding spheres; None for a kind the scene lacks."""
+    return ((scene.spheres.center, scene.spheres.radius)
+            if scene.spheres.count else None,
+            box_bounding_spheres(scene) if scene.boxes.count else None)
+
+
+def _primary_cones(origins, dirs, tile_p: int, active=None) -> _Cones:
+    """The tile cones of rays (R, 3) in tile-major order: shared mode
+    (active None, one origin) tile_cones; secondary mode bounce_cones over
+    the active rays with a nonzero direction (the refract() of total
+    internal reflection cannot open a cone)."""
+    t_tiles = origins.shape[0] // tile_p
+    dirs_t = dirs.reshape(t_tiles, tile_p, 3)
+    if active is None:
+        with span("broad_phase", "tile_cones"):
+            axis, cos_half = tile_cones(dirs_t)
+        return _Cones(origins[0], axis, cos_half)
+    act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
+    apex, axis, cos_half, rho, empty = bounce_cones(
+        origins.reshape(t_tiles, tile_p, 3), dirs_t,
+        act.reshape(t_tiles, tile_p))
+    return _Cones(apex, axis, cos_half, expand=rho, tile_valid=~empty)
+
+
+def _shadow_cones(shadow_org, hit_mask, tile_p: int, lpos) -> _Cones:
+    with span("broad_phase", "shadow_tile_cones"):
+        axis, cos_half, max_d, empty = shadow_tile_cones(
+            shadow_org, hit_mask, tile_p, lpos)
+    return _Cones(lpos, axis, cos_half, max_dist=max_d, tile_valid=~empty)
+
+
+def _survivor_counts(objects, cones: _Cones, zero):
+    """(spheres (T,), boxes (T,)) int32 sums of the masks the engines
+    compact; zero for a kind the scene lacks."""
+    return tuple(zero if obj is None else torch.sum(
+        _cull_mask(cones, *obj), dim=-1, dtype=torch.int32)
+        for obj in objects)
+
+
+def _primary_lists(objects, cones: _Cones, kp: int, kb: int, zero_c):
+    """(p_idx, p_valid, p_count, b_idx, b_valid, b_count): the tiles'
+    sphere lists at cap kp and box lists at cap kb (0 = every box); empty
+    lists and the zero counts zero_c (T,) for a kind the scene lacks."""
+    n_box = 0 if objects[1] is None else objects[1][1].shape[0]
+    out = ()
+    for obj, k in zip(objects, (kp, _box_k(kb, n_box))):
+        if obj is None:
+            out += tuple(torch.zeros((zero_c.shape[0], 0), dtype=dt,
+                                     device=zero_c.device)
+                         for dt in (torch.int32, torch.bool)) + (zero_c,)
+            continue
+        with span("broad_phase", "_dense_compact"):
+            out += _dense_compact(cones, *obj, k)
+    return out
+
+
+class _ShadowLists(NamedTuple):
+    """One light's shadow lists and what the engine's narrow phase made of
+    each (s_narrow, sb_narrow); None where the light does not cast or the
+    scene lacks the kind. hot_ids, is_hot: the hot tiles, else None."""
+    s_idx: torch.Tensor | None
+    s_valid: torch.Tensor | None
+    s_count: torch.Tensor
+    s_overflow: torch.Tensor
+    hot_ids: torch.Tensor | None
+    is_hot: torch.Tensor | None
+    sb_idx: torch.Tensor | None
+    sb_valid: torch.Tensor | None
+    sb_count: torch.Tensor
+    sb_overflow: torch.Tensor
+    s_narrow: object = None
+    sb_narrow: object = None
+
+
+def _shadow_lists(objects, shadow_org, hit_mask, tile_p: int, lpos, ks: int,
+                  ksb: int, hot_m: int, zero_c, zero_o,
+                  narrow=(None, None)) -> _ShadowLists:
+    """One light's shadow lists at the hit points. lpos None (the light
+    does not cast): the zero counts zero_c (T,) and overflows zero_o ().
+    Spheres at cap ks: with hot_m > 0 the hot_m tiles with the most sphere
+    survivors scan every sphere in the narrow phase, so the overflow counts
+    the other tiles only. Boxes at cap ksb (0 = every box). narrow: per
+    kind, None or f(idx, valid, count), run on the list as soon as it is
+    built."""
+    if lpos is None:
+        return _ShadowLists(None, None, zero_c, zero_o, None, None, None,
+                            None, zero_c, zero_o)
+    sph, box = objects
+    cones = _shadow_cones(shadow_org, hit_mask, tile_p, lpos)
+    s_idx = s_valid = hot_ids = is_hot = sb_idx = sb_valid = None
+    s_made = sb_made = None
+    s_cnt, s_ovf, sb_cnt, sb_ovf = zero_c, zero_o, zero_c, zero_o
+    if sph is not None:
+        with span("broad_phase", "_dense_compact"):
+            s_idx, s_valid, s_cnt = _dense_compact(cones, *sph, ks)
+        if narrow[0] is not None:
+            s_made = narrow[0](s_idx, s_valid, s_cnt)
+        if hot_m > 0:
+            hot_ids = _top_tiles(s_cnt, hot_m)
+            is_hot = torch.zeros(zero_c.shape, dtype=torch.bool,
+                                 device=zero_c.device).index_fill(
+                                     0, hot_ids, True)
+            # cold tiles above ks dropped occluders: never silent
+            s_ovf = torch.sum((s_cnt > ks) & ~is_hot, dtype=torch.int32)
+        else:
+            s_ovf = torch.sum(s_cnt > ks, dtype=torch.int32)
+    if box is not None:
+        ksb = _box_k(ksb, box[1].shape[0])
+        with span("broad_phase", "_dense_compact"):
+            sb_idx, sb_valid, sb_cnt = _dense_compact(cones, *box, ksb)
+        if narrow[1] is not None:
+            sb_made = narrow[1](sb_idx, sb_valid, sb_cnt)
+        sb_ovf = torch.sum(sb_cnt > ksb, dtype=torch.int32)
+    return _ShadowLists(s_idx, s_valid, s_cnt, s_ovf, hot_ids, is_hot,
+                        sb_idx, sb_valid, sb_cnt, sb_ovf, s_made, sb_made)
+
+
+def _shadow_counts(scene: Scene, objects, hit: Hit, tile_p: int,
+                   shadow_lights: tuple | None, zero):
+    """(spheres (L, T), boxes (L, T)) int32: each light's shadow survivor
+    counts at hit's points, the masks _shadow_lists compacts; zero (T,) for
+    a light that does not cast."""
+    shadow_org = hit.p + hit.n * SHADOW_EPS
+    cols = []
+    for li in range(scene.lights.count):
+        if shadow_lights is not None and not shadow_lights[li]:
+            cols.append((zero, zero))
+            continue
+        cones = _shadow_cones(shadow_org, hit.hit, tile_p,
+                              scene.lights.position[li])
+        cols.append(_survivor_counts(objects, cones, zero))
+    if not cols:
+        return (torch.zeros((0, zero.shape[0]), dtype=torch.int32,
+                            device=zero.device),) * 2
+    return tuple(torch.stack(c) for c in zip(*cols))
+
+
+def _winner_mask(gid_t, hit_t, lo: int, n_obj: int):
+    """Which of the objects [lo, lo + n_obj) win a ray of each tile, from
+    the winners' ids and the hit mask (T, P): (wm (T, n_obj) bool, win
+    (T, P) a ray's winner is one of them, loc (T, P) int64 its id - lo)."""
+    win = hit_t & (gid_t >= lo) & (gid_t < lo + n_obj)
+    loc = torch.clamp(gid_t - lo, 0, n_obj - 1).long()
+    wm = torch.zeros((gid_t.shape[0], n_obj), dtype=torch.int32,
+                     device=gid_t.device).scatter_reduce(
+                         1, loc, win.to(torch.int32), "amax") > 0
+    return wm, win, loc
+
+
+def _cull_aux(lists, shadows, j_local, jb_local) -> CullAux:
+    """CullAux from _primary_lists' six lists, one _ShadowLists a light and
+    the winner slots."""
+    t_tiles, device = lists[2].shape[0], lists[2].device
+
+    def per_light(field, shape):
+        if not shadows:
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+        return torch.stack([getattr(sl, field) for sl in shadows])
+
+    return CullAux(*lists[:3], per_light("s_count", (0, t_tiles)),
+                   per_light("s_overflow", (0,)), j_local, *lists[3:],
+                   per_light("sb_count", (0, t_tiles)),
+                   per_light("sb_overflow", (0,)), jb_local)
 
 
 def _select_winner_rows(surv_rows, j_local, rows):
@@ -870,44 +1052,20 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     centers, radii = scene.spheres.center, scene.spheres.radius
     shared = active is None
     o0 = origins[0]
-    kb = min(kb, n_box) if kb > 0 else n_box
-    ksb = min(ksb, n_box) if ksb > 0 else n_box
     zero_c = torch.zeros((t_tiles,), dtype=torch.int32, device=device)
-
-    def no_list():
-        return (torch.zeros((t_tiles, 0), dtype=torch.int32, device=device),
-                torch.zeros((t_tiles, 0), dtype=torch.bool, device=device),
-                zero_c)
 
     # ---- broad phase: dense per-tile compaction
     dirs_t = dirs.reshape(t_tiles, tile_p, 3)
     origins_t = None if shared else origins.reshape(t_tiles, tile_p, 3)
-    if shared:
-        axis, cos_half = tile_cones(dirs_t)
-
-        def compact(c, r, k):
-            return _dense_compact(o0, axis, cos_half, c, r, k)
-    else:
-        act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
-        apex, axis, cos_half, expand, empty_t = bounce_cones(
-            origins_t, dirs_t, act.reshape(t_tiles, tile_p))
-
-        def compact(c, r, k):
-            mask = sphere_vs_cone(apex, axis, cos_half, c, r, expand=expand)
-            return compact_mask(mask & (~empty_t)[:, None], k)
-
+    objects = _cull_objects(scene)
+    lists = _primary_lists(objects, _primary_cones(origins, dirs, tile_p,
+                                                   active), kp, kb, zero_c)
+    p_idx, p_valid, p_count, b_idx, b_valid, b_count = lists
     if n_sph:
-        p_idx, p_valid, p_count = compact(centers, radii, kp)
         rows = _gather_tile_rows(_sphere_table(scene), p_idx)  # (T, Kp, 6)
-    else:
-        p_idx, p_valid, p_count = no_list()
     if n_box:
         btab = _box_table(scene)
-        bc_bs, br_bs = box_bounding_spheres(scene)
-        b_idx, b_valid, b_count = compact(bc_bs, br_bs, kb)
         brows = _gather_tile_rows(btab, b_idx)              # (T, Kb, 20)
-    else:
-        b_idx, b_valid, b_count = no_list()
     kp_eff, kb_eff = p_idx.shape[-1], b_idx.shape[-1]
 
     # ---- narrow phase, a block of tiles at a time: the sphere winner, then
@@ -1021,72 +1179,46 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     shadow_org = hit.p + hit.n * SHADOW_EPS
     so_t = shadow_org.reshape(t_tiles, tile_p, 3)
     p_t = hit.p.reshape(t_tiles, tile_p, 3)
-    occ_cols, s_counts, s_overflow, sb_counts, sb_overflow = \
-        [], [], [], [], []
+    occ_cols, shadows = [], []
     zero_o = torch.zeros((), dtype=torch.int32, device=device)
     for li in range(n_lights):
-        if shadow_lights is not None and not shadow_lights[li]:
+        lit = shadow_lights is None or shadow_lights[li]
+        lpos = scene.lights.position[li]
+        sl = _shadow_lists(objects, shadow_org, hit_mask, tile_p,
+                           lpos if lit else None, ks, ksb, hot_m, zero_c,
+                           zero_o)
+        shadows.append(sl)
+        if not lit:
             occ_cols.append(torch.zeros((r_total,), dtype=torch.bool,
                                         device=device))
-            s_counts.append(zero_c)
-            s_overflow.append(zero_o)
-            sb_counts.append(zero_c)
-            sb_overflow.append(zero_o)
             continue
-        lpos = scene.lights.position[li]
         occ_t = torch.zeros((t_tiles, tile_p), dtype=torch.bool,
                             device=device)
-        axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
-            shadow_org, hit_mask, tile_p, lpos)
         if n_sph:
-            s_idx, s_valid, s_count = _dense_compact(
-                lpos, axis_s, cos_s, centers, radii, ks, max_dist=max_d,
-                tile_valid=~empty_s)
-            s_counts.append(s_count)
             srows = _gather_tile_rows(torch.cat([centers, radii[:, None]],
-                                                -1), s_idx)
-            for a, e in _tile_blocks(t_tiles, s_idx.shape[-1] * tile_p):
+                                                -1), sl.s_idx)
+            for a, e in _tile_blocks(t_tiles, sl.s_idx.shape[-1] * tile_p):
                 sr = srows[a:e]
                 occ_t[a:e] = _segment_occluded(
                     so_t[a:e], p_t[a:e], lpos, sr[..., 0], sr[..., 1],
-                    sr[..., 2], sr[..., 3], s_valid[a:e])
-            if hot_m > 0:
+                    sr[..., 2], sr[..., 3], sl.s_valid[a:e])
+            if sl.hot_ids is not None:
                 # the hot tiles test every sphere, so ks need only cover
                 # the other tiles
-                hot_ids = _top_tiles(s_count, hot_m)
                 every = torch.ones((1, n_sph), dtype=torch.bool,
                                    device=device)
                 occ_h = torch.cat([_segment_occluded(
                     so_t[ids], p_t[ids], lpos, centers[None, :, 0],
                     centers[None, :, 1], centers[None, :, 2],
                     radii[None, :], every)
-                    for ids in (hot_ids[a:e] for a, e in _tile_blocks(
-                        hot_ids.shape[0], n_sph * tile_p))])
-                occ_t = occ_t.index_copy(0, hot_ids, occ_h)
-                is_hot = torch.zeros((t_tiles,), dtype=torch.bool,
-                                     device=device).index_fill(0, hot_ids,
-                                                               True)
-                # cold tiles above ks dropped occluders: never silent
-                s_overflow.append(torch.sum((s_count > ks) & ~is_hot,
-                                            dtype=torch.int32))
-            else:
-                s_overflow.append(torch.sum(s_count > ks, dtype=torch.int32))
-        else:
-            s_counts.append(zero_c)
-            s_overflow.append(zero_o)
+                    for ids in (sl.hot_ids[a:e] for a, e in _tile_blocks(
+                        sl.hot_ids.shape[0], n_sph * tile_p))])
+                occ_t = occ_t.index_copy(0, sl.hot_ids, occ_h)
         if n_box:
-            sb_idx, sb_valid, sb_cnt = _dense_compact(
-                lpos, axis_s, cos_s, bc_bs, br_bs, ksb, max_dist=max_d,
-                tile_valid=~empty_s)
-            sbrows = _gather_tile_rows(btab, sb_idx)
-            for a, e in _tile_blocks(t_tiles, sb_idx.shape[-1] * tile_p):
+            sbrows = _gather_tile_rows(btab, sl.sb_idx)
+            for a, e in _tile_blocks(t_tiles, sl.sb_idx.shape[-1] * tile_p):
                 occ_t[a:e] |= _box_segment_occluded(
-                    sbrows[a:e], sb_valid[a:e], so_t[a:e], p_t[a:e], lpos)
-            sb_counts.append(sb_cnt)
-            sb_overflow.append(torch.sum(sb_cnt > ksb, dtype=torch.int32))
-        else:
-            sb_counts.append(zero_c)
-            sb_overflow.append(zero_o)
+                    sbrows[a:e], sl.sb_valid[a:e], so_t[a:e], p_t[a:e], lpos)
         occ = occ_t.reshape(-1)
         if pln.count:
             tpl, _, _ = plane_candidates(
@@ -1099,19 +1231,7 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     occluded = (torch.stack(occ_cols, dim=-1) if n_lights
                 else torch.zeros((r_total, 0), dtype=torch.bool,
                                  device=device))
-
-    def stack_or(xs, shape):
-        return (torch.stack(xs) if n_lights
-                else torch.zeros(shape, dtype=torch.int32, device=device))
-
-    aux = CullAux(p_idx=p_idx, p_valid=p_valid, p_count=p_count,
-                  s_count=stack_or(s_counts, (0, t_tiles)),
-                  s_overflow=stack_or(s_overflow, (0,)),
-                  j_local=j_local,
-                  b_idx=b_idx, b_valid=b_valid, b_count=b_count,
-                  sb_count=stack_or(sb_counts, (0, t_tiles)),
-                  sb_overflow=stack_or(sb_overflow, (0,)),
-                  jb_local=jb_local)
+    aux = _cull_aux(lists, shadows, j_local, jb_local)
     return hit, occluded, aux
 
 
@@ -1232,52 +1352,19 @@ def cull_counts(scene: Scene, camera, height: int, width: int,
     o = tile_image(origins, th, tw).reshape(-1, 3)
     d = tile_image(dirs, th, tw).reshape(-1, 3)
     tile_p = th * tw
-    n_sph = int(scene.spheres.count)
-    n_box = int(scene.boxes.count)
-    n = max(n_sph, 1)
+    n = max(int(scene.spheres.count), 1)
     n_lights = scene.lights.count
-    t_tiles = o.shape[0] // tile_p
-
-    axis, cos_half = tile_cones(d.reshape(-1, tile_p, 3))
-    zero = torch.zeros((t_tiles,), dtype=torch.int32, device=o.device)
-    p_count = zero
-    if n_sph:
-        p_count = torch.sum(sphere_vs_cone(o[0], axis, cos_half,
-                                           scene.spheres.center,
-                                           scene.spheres.radius),
-                            dim=-1, dtype=torch.int32)
-    pb_count = zero
-    if n_box:
-        bc, br = box_bounding_spheres(scene)
-        pb_count = torch.sum(sphere_vs_cone(o[0], axis, cos_half, bc, br),
-                             dim=-1, dtype=torch.int32)
+    zero = torch.zeros((o.shape[0] // tile_p,), dtype=torch.int32,
+                       device=o.device)
+    objects = _cull_objects(scene)
+    p_count, pb_count = _survivor_counts(
+        objects, _primary_cones(o, d, tile_p), zero)
     kp0 = min(n, max(8, int(torch.max(p_count))))
 
     no_shadows = tuple([False] * n_lights)
     hit, _, _ = culled_geometry(scene, o, d, tile_p, kp0, 8, no_shadows)
-    shadow_org = hit.p + hit.n * SHADOW_EPS
-    cols = []
-    bcols = []
-    for li in range(n_lights):
-        if shadow_lights is not None and not shadow_lights[li]:
-            cols.append(zero)
-            bcols.append(zero)
-            continue
-        lpos = scene.lights.position[li]
-        if n_sph:
-            smask = shadow_cull_mask(scene, shadow_org, hit.hit, tile_p, lpos)
-            cols.append(torch.sum(smask, dim=-1, dtype=torch.int32))
-        else:
-            cols.append(zero)
-        if n_box:
-            bmask = shadow_cull_mask(scene, shadow_org, hit.hit, tile_p,
-                                     lpos, centers=bc, radii=br)
-            bcols.append(torch.sum(bmask, dim=-1, dtype=torch.int32))
-        else:
-            bcols.append(zero)
-    empty = torch.zeros((0, t_tiles), dtype=torch.int32, device=o.device)
-    s_count = torch.stack(cols) if cols else empty
-    sb_count = torch.stack(bcols) if bcols else empty
+    s_count, sb_count = _shadow_counts(scene, objects, hit, tile_p,
+                                       shadow_lights, zero)
     return p_count, s_count, pb_count, sb_count
 
 
@@ -1317,8 +1404,7 @@ def check_cull_overflow(scene: Scene, camera, height: int, width: int,
         x.cpu().numpy() for x in cull_counts(scene, camera, height, width,
                                              (th, tw), shadow_lights))
     n_box = int(scene.boxes.count)
-    kb = min(kb, n_box) if kb > 0 else n_box
-    ksb = min(ksb, n_box) if ksb > 0 else n_box
+    kb, ksb = _box_k(kb, n_box), _box_k(ksb, n_box)
     max_p = int(np.max(p_count))
     if s_count.size:
         counts = np.sort(s_count, axis=-1)[:, ::-1]         # (L, T) desc
@@ -1472,29 +1558,15 @@ def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
     d = tile_image(dirs, th, tw).reshape(-1, 3)
     n_sph = int(scene.spheres.count)
     n_box = int(scene.boxes.count)
-    n_lights = scene.lights.count
     t_tiles = o.shape[0] // tile_p
-    no_shadows = tuple([False] * n_lights)
+    no_shadows = tuple([False] * scene.lights.count)
     has_refl, has_refr = static_bounce_mask(scene)
     zero = torch.zeros((t_tiles,), dtype=torch.int32, device=o.device)
-    if n_box:
-        bc, br = box_bounding_spheres(scene)
+    objects = _cull_objects(scene)
 
     def bundle_counts(co, cd, active):
-        act_t = (active & (torch.sum(cd * cd, -1) > _DIV_EPS)) \
-            .reshape(t_tiles, tile_p)
-        apex, axis, cos_half, rho, empty = bounce_cones(
-            co.reshape(t_tiles, tile_p, 3), cd.reshape(t_tiles, tile_p, 3),
-            act_t)
-        pc = pb = zero
-        if n_sph:
-            m = sphere_vs_cone(apex, axis, cos_half, scene.spheres.center,
-                               scene.spheres.radius, expand=rho)
-            pc = torch.sum(m & (~empty)[:, None], dim=-1, dtype=torch.int32)
-        if n_box:
-            m = sphere_vs_cone(apex, axis, cos_half, bc, br, expand=rho)
-            pb = torch.sum(m & (~empty)[:, None], dim=-1, dtype=torch.int32)
-        return pc, pb
+        return _survivor_counts(
+            objects, _primary_cones(co, cd, tile_p, active), zero)
 
     hit, _, _ = culled_geometry(scene, o, d, tile_p, kp, 8, no_shadows, 0,
                                 kb, ksb)
@@ -1525,37 +1597,17 @@ def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
         """(T,) number of distinct winners among objects [lo, lo + n_obj)."""
         if not n_obj:
             return zero
-        is_w = hm_t & (gid_t >= lo) & (gid_t < lo + n_obj)
-        wm = torch.zeros((t_tiles, n_obj), dtype=torch.int32,
-                         device=o.device).scatter_reduce(
-            1, torch.clamp(gid_t - lo, 0, n_obj - 1).long(),
-            is_w.to(torch.int32), "amax")
-        return torch.sum(wm, dim=-1, dtype=torch.int32)
+        return torch.sum(_winner_mask(gid_t, hm_t, lo, n_obj)[0], dim=-1,
+                         dtype=torch.int32)
 
     def child_shadow_counts(co, cd, active):
         hit, _, _ = culled_geometry(scene, co, cd, tile_p, kp_c, 8,
                                     no_shadows, 0, kb_c, 1, active=active)
         gid_t = hit.obj_id.reshape(t_tiles, tile_p)
         hm_t = hit.hit.reshape(t_tiles, tile_p)
-        w_cnt = distinct(gid_t, hm_t, 0, n_sph)
-        wb_cnt = distinct(gid_t, hm_t, n_sph, n_box)
-        shadow_org = hit.p + hit.n * SHADOW_EPS
-        cols, bcols = [], []
-        for li in range(n_lights):
-            if shadow_lights is not None and not shadow_lights[li]:
-                cols.append(zero)
-                bcols.append(zero)
-                continue
-            lpos = scene.lights.position[li]
-            cols.append(torch.sum(shadow_cull_mask(
-                scene, shadow_org, hit.hit, tile_p, lpos), dim=-1,
-                dtype=torch.int32) if n_sph else zero)
-            bcols.append(torch.sum(shadow_cull_mask(
-                scene, shadow_org, hit.hit, tile_p, lpos, centers=bc,
-                radii=br), dim=-1, dtype=torch.int32) if n_box else zero)
-        empty = torch.zeros((0, t_tiles), dtype=torch.int32, device=o.device)
-        return (torch.stack(cols) if cols else empty,
-                torch.stack(bcols) if bcols else empty, w_cnt, wb_cnt)
+        return _shadow_counts(scene, objects, hit, tile_p, shadow_lights,
+                              zero) + (distinct(gid_t, hm_t, 0, n_sph),
+                                       distinct(gid_t, hm_t, n_sph, n_box))
 
     # shadow counts from each live branch's own child hit points
     s_count = sb_count = w_count = wb_count = None

@@ -1,8 +1,9 @@
 """Culled narrow phase: tile survivor lists scanned by CUDA kernels.
 
 Port of ``openglraytracer_tpu/ops/pallas_culled.py`` (named for what it is:
-nothing here is Pallas). The broad phase of ``ops/accel.py`` feeds
-hand-written Hopper kernels that scan only each tile's survivors:
+nothing here is Pallas). The broad phase of ``ops/accel.py``, which engine
+'culled' and the sizing passes share, feeds hand-written Hopper kernels
+that scan only each tile's survivors:
 
   torch   broad phase: tile cones -> conservative sphere-vs-cone masks ->
           survivor compaction (kernel 6, ``compact_mask``, for masks of at
@@ -48,20 +49,20 @@ import torch
 from openglraytracer_tpu_torch import kernels
 from openglraytracer_tpu_torch.models.scene import MISS_T, Scene
 from openglraytracer_tpu_torch.ops.accel import (
-    CullAux,
     _apply_op,
+    _box_k,
     _box_table,
-    _dense_compact,
+    _cull_aux,
+    _cull_objects,
     _gather_tile_rows,
+    _primary_cones,
+    _primary_lists,
     _segment_occluded,
+    _shadow_lists,
     _sphere_table,
     _top_tiles,
-    bounce_cones,
-    box_bounding_spheres,
+    _winner_mask,
     compact_mask,
-    shadow_tile_cones,
-    sphere_vs_cone,
-    tile_cones,
 )
 from openglraytracer_tpu_torch.ops.intersect import (_DIV_EPS, _SQRT_EPS,
                                                      INF_T, Hit,
@@ -632,57 +633,32 @@ def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     n_box = scene.boxes.count
     n_lights = scene.lights.count
     o0 = origins[0]
-    kb = min(kb, n_box) if kb > 0 else n_box
-    ksb = min(ksb, n_box) if ksb > 0 else n_box
     zero_c = torch.zeros((t_tiles,), dtype=torch.int32, device=device)
 
-    def no_list(cols):
-        return (torch.zeros((t_tiles, 0), dtype=torch.int32, device=device),
-                torch.zeros((t_tiles, 0), dtype=torch.bool, device=device),
-                zero_c,
-                torch.zeros((t_tiles, 0, cols), dtype=dtype, device=device))
+    # ---- broad phase (ops/accel.py): the tiles' survivor lists
+    objects = _cull_objects(scene)
+    p_idx, p_valid, p_count, b_idx, b_valid, b_count = _primary_lists(
+        objects, _primary_cones(origins, dirs, tile_p, active), kp, kb,
+        zero_c)
+    kp_eff, kb_eff = p_idx.shape[-1], b_idx.shape[-1]
 
-    # ---- broad phase: dense per-tile compaction
-    dirs_t = dirs.reshape(t_tiles, tile_p, 3)
-    if shared:
-        with span("broad_phase", "tile_cones"):
-            axis, cos_half = tile_cones(dirs_t)
-
-        def compact(centers, radii, k):
-            with span("broad_phase", "_dense_compact"):
-                return _dense_compact(o0, axis, cos_half, centers, radii, k)
-    else:
-        act = active & (torch.sum(dirs * dirs, -1) > _DIV_EPS)
-        apex, axis, cos_half, expand, empty_t = bounce_cones(
-            origins.reshape(t_tiles, tile_p, 3), dirs_t,
-            act.reshape(t_tiles, tile_p))
-
-        def compact(centers, radii, k):
-            mask = sphere_vs_cone(apex, axis, cos_half, centers, radii,
-                                  expand=expand)
-            return compact_mask(mask & (~empty_t)[:, None], k)
+    def no_rows(cols):
+        return torch.zeros((t_tiles, 0, cols), dtype=dtype, device=device)
 
     if n_sph:
-        p_idx, p_valid, p_count = compact(scene.spheres.center,
-                                          scene.spheres.radius, kp)
         with span("narrow_phase", "pack_rows"):
             sph_rows = (_primary_sphere_rows(scene, o0, p_idx, p_valid)
                         if shared
                         else _secondary_sphere_rows(scene, p_idx, p_valid))
     else:
-        p_idx, p_valid, p_count, sph_rows = no_list(SPH_COLS)
-    kp_eff = p_idx.shape[-1]
-
+        sph_rows = no_rows(SPH_COLS)
     if n_box:
-        bc_bs, br_bs = box_bounding_spheres(scene)
-        b_idx, b_valid, b_count = compact(bc_bs, br_bs, kb)
         with span("narrow_phase", "pack_rows"):
             box_rows = (_primary_box_rows(scene, o0, b_idx, b_valid)
                         if shared
                         else _secondary_box_rows(scene, b_idx, b_valid))
     else:
-        b_idx, b_valid, b_count, box_rows = no_list(BOX_COLS)
-    kb_eff = b_idx.shape[-1]
+        box_rows = no_rows(BOX_COLS)
 
     with span("narrow_phase", "pack_rows"):
         pln_tab = _plane_table(scene, o0 if shared else torch.zeros_like(o0),
@@ -789,11 +765,7 @@ def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
                                                full[hotp_ids]))
 
         def winner_lists(lo, n_obj, k_eff):
-            win = hitm_h & (gid_h >= lo) & (gid_h < lo + n_obj)
-            loc = torch.clamp(gid_h - lo, 0, n_obj - 1).long()
-            wm = torch.zeros((hp_m, n_obj), dtype=torch.int32,
-                             device=device).scatter_reduce(
-                                 1, loc, win.to(torch.int32), "amax") > 0
+            wm, win, loc = _winner_mask(gid_h, hitm_h, lo, n_obj)
             w_idx, w_valid, w_cnt = compact_mask(wm, k_eff)
             rank = torch.gather(torch.cumsum(wm, 1, dtype=torch.int32), 1,
                                 loc) - 1
@@ -828,13 +800,21 @@ def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
     light_on = tuple((shadow_lights is None or bool(shadow_lights[li]))
                      for li in range(n_lights))
     ks_eff = min(ks, n_sph) if n_sph else 0
-    ksb_eff = ksb if n_box else 0
+    ksb_eff = _box_k(ksb, n_box)
     hot_on = hot_m > 0 and n_sph > 0
     zero_o = torch.zeros((), dtype=torch.int32, device=device)
-    s_counts, s_overflow, sb_counts, sb_overflow = [], [], [], []
-    ssph_rows, sbox_rows, cnt_cols, hot_rows = [], [], [], []
+    shadows, ssph_rows, sbox_rows, cnt_cols, hot_rows = [], [], [], [], []
+
+    def pack_spheres(idx, valid, cnt):
+        with span("narrow_phase", "pack_rows"):
+            rows = _shadow_sphere_rows(scene, idx, valid)
+        return rows, torch.clamp(cnt, max=ks_eff)
+
+    def pack_boxes(idx, valid, cnt):
+        with span("narrow_phase", "pack_rows"):
+            return _shadow_box_rows(scene, idx, valid)
+
     for li in range(n_lights):
-        s_cnt, s_ovf, sb_cnt, sb_ovf = zero_c, zero_o, zero_c, zero_o
         s_rows = torch.zeros((t_tiles, ks_eff, 4), dtype=dtype,
                              device=device)
         b_rows = torch.zeros((t_tiles, ksb_eff, BOX_COLS), dtype=dtype,
@@ -842,47 +822,23 @@ def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
         sc = zero_c
         hot_ids = torch.zeros((hot_m if hot_on else 0,), dtype=torch.int32,
                               device=device)
-        if light_on[li]:
-            lpos = scene.lights.position[li]
-            with span("broad_phase", "shadow_tile_cones"):
-                axis_s, cos_s, max_d, empty_s = shadow_tile_cones(
-                    shadow_org, hit_mask, tile_p, lpos)
-            if n_sph:
-                with span("broad_phase", "_dense_compact"):
-                    s_idx, s_valid, s_cnt = _dense_compact(
-                        lpos, axis_s, cos_s, scene.spheres.center,
-                        scene.spheres.radius, ks, max_dist=max_d,
-                        tile_valid=~empty_s)
-                with span("narrow_phase", "pack_rows"):
-                    s_rows = _shadow_sphere_rows(scene, s_idx, s_valid)
-                sc = torch.clamp(s_cnt, max=ks_eff)
-                if hot_on:
-                    hot_ids = _top_tiles(s_cnt, hot_m)
-                    is_hot = torch.zeros((t_tiles,), dtype=torch.bool,
-                                         device=device).index_fill(
-                                             0, hot_ids, True)
-                    s_ovf = torch.sum((s_cnt > ks) & ~is_hot,
-                                      dtype=torch.int32)
-                    sc = torch.where(is_hot, -1, sc)
-                else:
-                    s_ovf = torch.sum(s_cnt > ks, dtype=torch.int32)
-            if n_box:
-                with span("broad_phase", "_dense_compact"):
-                    sb_idx, sb_valid, sb_cnt = _dense_compact(
-                        lpos, axis_s, cos_s, bc_bs, br_bs, ksb,
-                        max_dist=max_d, tile_valid=~empty_s)
-                with span("narrow_phase", "pack_rows"):
-                    b_rows = _shadow_box_rows(scene, sb_idx, sb_valid)
-                sb_ovf = torch.sum(sb_cnt > ksb, dtype=torch.int32)
-        s_counts.append(s_cnt)
-        s_overflow.append(s_ovf)
-        sb_counts.append(sb_cnt)
-        sb_overflow.append(sb_ovf)
+        sl = _shadow_lists(objects, shadow_org, hit_mask, tile_p,
+                           scene.lights.position[li] if light_on[li]
+                           else None, ks, ksb, hot_m, zero_c, zero_o,
+                           narrow=(pack_spheres, pack_boxes))
+        if sl.s_narrow is not None:
+            s_rows, sc = sl.s_narrow
+            if hot_on:
+                hot_ids = sl.hot_ids
+                sc = torch.where(sl.is_hot, -1, sc)
+        if sl.sb_narrow is not None:
+            b_rows = sl.sb_narrow
+        shadows.append(sl)
         ssph_rows.append(s_rows)
         sbox_rows.append(b_rows)
         hot_rows.append(hot_ids.to(torch.int32))
-        cnt_cols.append(torch.stack([sc, torch.clamp(sb_cnt, max=ksb_eff)],
-                                    dim=-1))
+        cnt_cols.append(torch.stack(
+            [sc, torch.clamp(sl.sb_count, max=ksb_eff)], dim=-1))
 
     if n_lights and any(light_on):
         with span("narrow_phase", "pack_rows"):
@@ -907,18 +863,8 @@ def _culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
         occluded = torch.zeros((r_total, n_lights), dtype=torch.bool,
                                device=device)
 
-    def stack_or(xs, shape):
-        return (torch.stack(xs) if n_lights
-                else torch.zeros(shape, dtype=torch.int32, device=device))
-
-    aux = CullAux(p_idx=p_idx, p_valid=p_valid, p_count=p_count,
-                  s_count=stack_or(s_counts, (0, t_tiles)),
-                  s_overflow=stack_or(s_overflow, (0,)),
-                  j_local=j_local,
-                  b_idx=b_idx, b_valid=b_valid, b_count=b_count,
-                  sb_count=stack_or(sb_counts, (0, t_tiles)),
-                  sb_overflow=stack_or(sb_overflow, (0,)),
-                  jb_local=jb_local)
+    aux = _cull_aux((p_idx, p_valid, p_count, b_idx, b_valid, b_count),
+                    shadows, j_local, jb_local)
     return hit, occluded, aux
 
 

@@ -37,7 +37,6 @@ from openglraytracer_tpu_torch.models.scene import Scene
 from openglraytracer_tpu_torch.ops.intersect import (Hit, _dot3, _rot_apply,
                                                      _rot_apply_t, _safe_div)
 from openglraytracer_tpu_torch.ops.transforms import euler_rotation_3x3b
-from openglraytracer_tpu_torch.utils.profiling import count
 
 
 def sum_dot(a, b):
@@ -354,13 +353,9 @@ def winner_scatter(rows, slot, obj, out, plane_rows=None, plane_slot=None,
     atomic per ray. Its sums are taken in another order than the plain
     version's, and are the same on every run wherever torch's
     deterministic algorithms are on (index_add_ then sums in a fixed
-    order too).
-
-    Counters: ``scatter_rows``, the rays given; ``scatter_slot_rows``, the
-    block rows that received a ray, which the kernel counts."""
+    order too)."""
     ref = rows if rows is not None else plane_rows
     n_rays, f = ref.shape
-    count("scatter_rows", n_rays)
     if kernels.on_cpu(ref):
         return winner_scatter_plain(rows, slot, obj, out, plane_rows,
                                     plane_slot, plane_obj, plane_out)
@@ -394,13 +389,11 @@ def winner_scatter(rows, slot, obj, out, plane_rows=None, plane_slot=None,
     part = torch.empty((n_slot_rows + blocks * n_planes, f), dtype=f32,
                        device=dev)
     part_idx = torch.empty((part.shape[0],), dtype=i32, device=dev)
-    n_touched = torch.empty((blocks,), dtype=i32, device=dev)
     kernels.launch("oglrt_winner_scatter", dev, rows, slot, obj, k,
                    0 if out is None else out.shape[0], group, SCATTER_CHUNK,
                    n_rays, f, plane_rows, plane_slot, plane_obj, n_planes,
-                   part, part_idx, n_touched)
+                   part, part_idx)
     kernels.LAUNCHES["winner_scatter"] += 1
-    count("scatter_slot_rows", n_touched)
     if plane_out is out or not n_planes or not k:
         (out if k else plane_out).index_add_(0, part_idx, part)
     else:   # the slot rows, then the plane rows into their own table

@@ -35,7 +35,7 @@ The engines, named for the reference's contracts:
     densely on ``xla`` without it.
   * ``culled_pallas``: the same broad phase, then the survivor-list
     narrow-phase kernels, then the fused shade kernel (ops/culled.py,
-    ops/shade.py; ``fused_shade=False`` shades with ``phong_shade_lit``).
+    ops/shade.py).
     Its bounce children take the secondary-ray culled path with
     ``child_cull`` (bounce cones, kernel 2 with its hot launch, kernel B)
     and are shaded by ``phong_shade_lit``; without ``child_cull`` they are
@@ -232,8 +232,7 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     shadow_lights: tuple | None = None,
                     with_cull_stats: bool = False,
                     bounce_mask: tuple | None = None,
-                    child_cull: tuple | None = None,
-                    fused_shade: bool = True):
+                    child_cull: tuple | None = None):
     """Trace rays (R, 3) and shade them, with depth > 0 the bounce children,
     with the analytic winner backward.
 
@@ -243,8 +242,8 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
     through the same engine; cull and child_cull are not used.
     engines 'culled' and 'culled_pallas': tile-major rays sharing one
     origin; the culled narrow phase (plain PyTorch, or the kernels),
-    survivor-routed materials, then on culled_pallas with fused_shade (the
-    default) the fused shade kernel, else phong_shade_lit. cull = (tile_p,
+    survivor-routed materials, then on culled_pallas the fused shade
+    kernel, on 'culled' phong_shade_lit. cull = (tile_p,
     kp, ks[, hot_m[, kb, ksb]]); child_cull = (tile_p, kp, ks, hot_m, kb,
     ksb[, hot_p]) traces the bounce children on the same engine's culled
     path ('culled' has no hot-primary pass and ignores hot_p), None traces
@@ -273,7 +272,7 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                                  shadow_lights, hot_m, kb, ksb)
     with span("shade", "culled_material_rows"):
         mat_rows = culled_material_rows(scene, hit, aux, tile_p)
-    if pallas and fused_shade:
+    if pallas:
         with span("shade", "phong_fused"):
             color = shade_fused(scene, dirs, hit, occ, mat_rows)
     else:
@@ -585,8 +584,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
            engine: str = "auto", cull: tuple | None = None,
            shadow_lights: tuple | None = None, bounce: str = "tree",
            with_cull_stats: bool = False, bounce_mask: tuple | None = None,
-           child_cull: tuple | None = None, fused_shade: bool = True,
-           device=None):
+           child_cull: tuple | None = None, device=None):
     """Render an (H, W, 3) image on ``device`` (default: the camera's).
     The parameters are the reference's, in its order, with ``device``
     last. remat: on 'autodiff' and mirror_only, each object chunk (and
@@ -607,9 +605,8 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     kb, ksb[, hot_p]) with the parent's tile, sized by
     ops/accel.suggest_child_cull_config (with hot_primary=False for
     'culled', whose children have no hot-primary pass), and densely on
-    'xla' without it. fused_shade: culled_pallas shades its primary rays
-    with the fused shade kernel (the default), or with phong_shade_lit;
-    'culled' always with phong_shade_lit.
+    'xla' without it. culled_pallas shades its primary rays with the
+    fused shade kernel, 'culled' with phong_shade_lit.
     shadow_lights and bounce_mask: static masks; None reads the light
     (material) table on the host, which waits for the device — pass them
     to keep the frame sync-free ('pallas' and 'autodiff' cast every light
@@ -639,8 +636,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
                            engine=engine, cull=cull,
                            shadow_lights=shadow_lights, bounce=bounce,
                            with_cull_stats=with_cull_stats,
-                           bounce_mask=bounce_mask, child_cull=child_cull,
-                           fused_shade=fused_shade)
+                           bounce_mask=bounce_mask, child_cull=child_cull)
 
 
 def render_rays(scene: Scene, origins, dirs, depth: int = 0,
@@ -650,7 +646,7 @@ def render_rays(scene: Scene, origins, dirs, depth: int = 0,
                 shadow_lights: tuple | None = None, bounce: str = "tree",
                 with_cull_stats: bool = False,
                 bounce_mask: tuple | None = None,
-                child_cull: tuple | None = None, fused_shade: bool = True):
+                child_cull: tuple | None = None):
     """render after ray generation: the (h, w, 3) image of the (h, w, 3)
     primary rays origins and dirs, on their device, with render's
     arguments (a tile of an image is rendered so, from its own rays, by
@@ -733,8 +729,7 @@ def render_rays(scene: Scene, origins, dirs, depth: int = 0,
                               cull=(th * tw, kp, ks, hot_m, kb, ksb),
                               shadow_lights=shadow_lights,
                               with_cull_stats=with_cull_stats,
-                              bounce_mask=bounce_mask, child_cull=cc,
-                              fused_shade=fused_shade)
+                              bounce_mask=bounce_mask, child_cull=cc)
     colors, ovf = out if with_cull_stats else (out, None)
     with span("raygen", "untile"):
         img = untile_image(colors, height, width, th, tw)

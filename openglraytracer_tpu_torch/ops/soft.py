@@ -41,11 +41,9 @@ spans ``broad_phase/soft_tile_cones`` and ``broad_phase/soft_compact``, a
 block's forward ``soft_composite/block`` and, on the plain path, its
 recompute in the backward ``soft_composite/recompute``; counters
 ``soft_rays``, ``soft_kept_pairs`` (valid survivor slots times their
-tile's rays; every pair on the dense pass), ``soft_live_pairs`` (ray-sphere
-pairs whose coverage is non-zero after the cut and the front gate, counted
-in the forward only: the kernel's own count on the card) and
-``soft_kernel_rays`` (the rays the forward kernel composited; 0 on the
-plain path).
+tile's rays; every pair on the dense pass) and ``soft_live_pairs``
+(ray-sphere pairs whose coverage is non-zero after the cut and the front
+gate, counted in the forward only: the kernel's own count on the card).
 """
 
 from __future__ import annotations
@@ -538,12 +536,8 @@ def soft_composite(o, d, rows, valid, m_rows, lights, pl_n, pl_off, pl_m,
     """Forward wrapper: arguments and results as soft_composite_plain.
     Kernel csrc/soft_composite.cu on CUDA tensors (t_min and den are
     written only with save, else None; the live pairs are the kernel's own
-    count, made only while tracing), soft_composite_plain on CPU tensors.
-    Counts soft_kernel_rays: the rays the kernel composited (0 on the
-    plain path)."""
+    count, made only while tracing), soft_composite_plain on CPU tensors."""
     if kernels.on_cpu(o):
-        if count_live:
-            count("soft_kernel_rays", 0)
         return soft_composite_plain(o, d, rows, valid, m_rows, lights, pl_n,
                                     pl_off, pl_m, bw, gamma, t_bg,
                                     count_live=count_live)
@@ -567,7 +561,6 @@ def soft_composite(o, d, rows, valid, m_rows, lights, pl_n, pl_off, pl_m,
                    ctypes.c_float(gamma), ctypes.c_float(t_bg), out,
                    t_min, den, live)
     kernels.LAUNCHES["soft_composite"] += 1
-    count("soft_kernel_rays", b * p)
     if live is not None:
         count("soft_live_pairs", live)
     return out, t_min, den

@@ -30,7 +30,7 @@ def render_tile(scene: Scene, camera: Camera, height: int, width: int, *,
                 cull: tuple | None = None,
                 shadow_lights: tuple | None = None,
                 bounce_mask: tuple = (True, True),
-                child_cull: tuple | None = None, fused_shade: bool = True):
+                child_cull: tuple | None = None):
     """The tile of coordinate coord on a mesh of mesh_shape (dx, dy):
     returns (tile (H/dx, W/dy, 3), overflow), overflow a device int32
     scalar counting this tile's culled-K overflow events (0 for the dense
@@ -59,8 +59,7 @@ def render_tile(scene: Scene, camera: Camera, height: int, width: int, *,
                        chunk_size=chunk_size, remat=remat,
                        mirror_only=mirror_only, engine=engine, cull=cull,
                        shadow_lights=shadow_lights, with_cull_stats=True,
-                       bounce_mask=bounce_mask, child_cull=child_cull,
-                       fused_shade=fused_shade)
+                       bounce_mask=bounce_mask, child_cull=child_cull)
 
 
 def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
@@ -70,8 +69,7 @@ def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
                    shadow_lights: tuple | None = None,
                    with_cull_stats: bool = False,
                    bounce_mask: tuple = (True, True),
-                   child_cull: tuple | None = None,
-                   fused_shade: bool = True):
+                   child_cull: tuple | None = None):
     """This rank's (H/dx, W/dy, 3) tile of the image, the scene
     replicated: render_tile at mesh.coord. The whole image is assembled
     only by parallel/distributed.gather_image (or utils/image.save_png),
@@ -90,8 +88,7 @@ def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
                            depth=depth, chunk_size=chunk_size, remat=remat,
                            mirror_only=mirror_only, engine=engine, cull=cull,
                            shadow_lights=shadow_lights,
-                           bounce_mask=bounce_mask, child_cull=child_cull,
-                           fused_shade=fused_shade)
+                           bounce_mask=bounce_mask, child_cull=child_cull)
     if not with_cull_stats:
         return img
     if mesh.group is not None:

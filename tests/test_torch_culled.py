@@ -17,6 +17,9 @@ from openglraytracer_tpu.ops.pallas_shade import _shade_pallas
 from openglraytracer_tpu.ops.raygen import generate_rays
 from openglraytracer_tpu.ops.render import render as j_render
 from openglraytracer_tpu.ops.render import trace_rays_fast as j_trace
+from openglraytracer_tpu_torch.models.builders import \
+    sphere_grid_scene as t_grid
+from openglraytracer_tpu_torch.models.scene import Boxes
 from openglraytracer_tpu_torch.ops import accel as ta
 from openglraytracer_tpu_torch.ops.culled import culled_geometry
 from openglraytracer_tpu_torch.ops.raygen import generate_rays as t_rays
@@ -107,6 +110,56 @@ def test_culled_geometry_rejects_bounce_mode():
     hit, _, _ = culled_geometry(ts, o, d, 256, 4, 4,
                                 active=torch.zeros(256, dtype=torch.bool))
     assert not bool(hit.hit.any())     # inactive rays are misses
+
+
+def _grid_with_boxes():
+    """The port's sphere_grid_scene(4) (16 spheres, a ground plane, two
+    lights) with three rotated boxes among its spheres."""
+    scene, cam = t_grid(4, device="cpu")
+    boxes = Boxes(mins=torch.full((3, 3), -0.4),
+                  maxs=torch.full((3, 3), 0.4),
+                  position=torch.tensor([[-1.25, -1.25, 0.5],
+                                         [1.25, 0.0, 0.6],
+                                         [0.0, 2.5, 0.4]]),
+                  angles=torch.tensor([[0.0, 30.0, 0.0], [15.0, 0.0, 45.0],
+                                       [0.0, 0.0, 20.0]]),
+                  material_id=torch.tensor([0, 1, 2], dtype=torch.int32))
+    return scene._replace(boxes=boxes), cam
+
+
+@pytest.mark.parametrize("mode", ["shared", "secondary"])
+def test_both_engines_and_the_sizing_keep_the_same_survivors(mode):
+    """Engine 'culled' (ops/accel.py) and culled_pallas (ops/culled.py)
+    on one scene of spheres, boxes and a plane, the second light not
+    casting, hot shadow tiles on: equal survivor lists and counts, primary
+    and shadow, and equal shadow overflows. Secondary mode: the
+    reflections of the primary hits with every third ray inactive, no
+    hot-primary pass. Shared mode: cull_counts' primary sphere and box
+    counts are the engines' counts."""
+    from openglraytracer_tpu_torch.ops.transforms import reflect
+    scene, cam = _grid_with_boxes()
+    _, kp, ks, _, kb, ksb = ta.parse_cull_spec(
+        ta.suggest_cull_config(scene, cam, H, W, TILE))
+    o, d = (ta.tile_image(x, *TILE).reshape(-1, 3) for x in t_rays(cam, H, W))
+    lights, hot_m, active = (True, False), 2, None
+    if mode == "secondary":
+        hit, _, _ = ta.culled_geometry(scene, o, d, TILE_P, kp, ks, lights)
+        o, d = hit.p + hit.n * 1e-3, reflect(d, hit.n)
+        active = hit.hit & (torch.arange(o.shape[0]) % 3 != 0)
+    args = (scene, o, d, TILE_P, kp, max(1, ks // 2), lights, hot_m, kb,
+            ksb)
+    _, _, aux_x = ta.culled_geometry(*args, active=active)
+    _, _, aux_c = culled_geometry(*args, active=active)
+    for f in ("p_idx", "p_valid", "p_count", "b_idx", "b_valid", "b_count",
+              "s_count", "s_overflow", "sb_count", "sb_overflow"):
+        assert torch.equal(getattr(aux_x, f), getattr(aux_c, f)), f
+    assert int(aux_c.b_count.sum()) > 0 and int(aux_c.s_count[0].sum()) > 0
+    assert not bool(aux_c.s_count[1].any())
+    if mode == "shared":
+        p_count, _, pb_count, _ = ta.cull_counts(scene, cam, H, W, TILE,
+                                                 lights)
+        assert torch.equal(p_count, aux_c.p_count)
+        assert torch.equal(pb_count, aux_c.b_count)
 
 
 def test_shade_matches_jax_kernel():

@@ -137,32 +137,6 @@ def test_obb_render_matches_jax():
                                rtol=0, atol=2e-5)
 
 
-def test_fused_shade_off_matches_jax(monkeypatch):
-    """render(engine='culled_pallas', fused_shade=False) shades with
-    phong_shade_lit instead of the fused shade (it is never called), as
-    the reference's switch does: against the JAX package's trace_rays_fast
-    with fused_shade=False on the port's rays (its Pallas kernels in
-    interpret mode), 1e-5."""
-    scene, cam, cull, _ = _fixture()
-    ts, tc = to_torch_scene(scene), to_torch_camera(cam)
-    calls = []
-    fused = tr.shade_fused
-    monkeypatch.setattr(tr, "shade_fused",
-                        lambda *a: (calls.append(1), fused(*a))[1])
-    with torch.no_grad():
-        img_t = tr.render(ts, tc, H, W, engine="culled_pallas", cull=cull,
-                          fused_shade=False)
-        assert not calls
-        tr.render(ts, tc, H, W, engine="culled_pallas", cull=cull)
-        assert calls == [1]
-    o, d = _port_rays(tc)
-    colors = jr.trace_rays_fast(scene, o, d, engine="culled_pallas",
-                                cull=_flat(cull), fused_shade=False)
-    np.testing.assert_allclose(np_(img_t),
-                               np_(ja.untile_image(colors, H, W, *TILE)),
-                               rtol=0, atol=1e-5)
-
-
 @pytest.mark.parametrize("case", list(_DEPTHS))
 def test_train_step_matches_jax(case):
     """One SGD step of make_train_step on 'culled' (depth 0; depth 1 with

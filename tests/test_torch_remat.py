@@ -42,17 +42,20 @@ LEAVES = ("spheres.center", "spheres.radius", "boxes.position",
                                   "any_hit", "shadow_masks", "phong_shade"])
 def test_signature_follows_the_reference(name):
     """Every parameter of the reference's function, in its order, with its
-    default; render's own device keyword last."""
+    default; render's own device keyword last, and no fused_shade switch
+    (the port's culled_pallas always shades with the fused kernel)."""
     mods = {"render": (jr, tr), "trace_rays": (jr, tr),
             "pick_tracer": (jr, tr), "trace_rays_mirror": (jr, tr),
             "closest_hit": (ji, ti), "any_hit": (ji, ti),
             "shadow_masks": (jsh, tsh), "phong_shade": (jsh, tsh)}
     jm, tm = mods[name]
-    jp = inspect.signature(getattr(jm, name)).parameters
+    jp = dict(inspect.signature(getattr(jm, name)).parameters)
     tp = dict(inspect.signature(getattr(tm, name)).parameters)
     if name == "render":
         assert list(tp)[-1] == "device"
         del tp["device"]
+        assert "fused_shade" in jp and "fused_shade" not in tp
+        del jp["fused_shade"]
     assert list(tp) == list(jp)
     for k, p in jp.items():
         assert tp[k].default == p.default, k

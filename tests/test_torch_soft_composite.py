@@ -193,7 +193,7 @@ def test_plain_backward_equals_autograd(culled, planes, lights, dtype):
 
 def test_the_op_gives_the_plain_forward_and_counts_no_kernel_ray():
     """_composite_block on CPU tensors: the image of soft_composite_plain
-    bit for bit, no launch, and soft_kernel_rays 0 while tracing."""
+    bit for bit, and no launch of the kernel while tracing."""
     from torch.profiler import ProfilerActivity, profile
 
     from openglraytracer_tpu_torch import kernels
@@ -207,7 +207,8 @@ def test_the_op_gives_the_plain_forward_and_counts_no_kernel_ray():
                                       dirs.reshape(-1, 3), bw=BW,
                                       gamma=GAMMA)
     rec = profiling.record()
-    assert rec.counters["soft_kernel_rays"].value == 0
+    assert kernels.LAUNCHES["soft_composite"] == \
+        before.get("soft_composite", 0)
     assert rec.counters["soft_rays"].value == H * W
     assert dict(kernels.LAUNCHES) == before
     table = _sphere_table(scene)
@@ -353,7 +354,6 @@ def _check_view(view, bw, gamma, t_bg, geometry, tiles):
     (p_out, p_tmin, p_den), p_b, live = _plain_blocks(
         view, bw, gamma, t_bg, g, geometry, tiles)
     assert counters["soft_live_pairs"].value == live
-    assert counters["soft_kernel_rays"].value == o.shape[0] * o.shape[1]
     assert float((out - p_out).abs().max()) <= CARD_ATOL
     assert torch.equal(t_min, p_tmin)
     torch.testing.assert_close(den, p_den, rtol=1e-6, atol=0)
@@ -414,9 +414,8 @@ def test_kernels_on_empty_full_and_overflowing_tiles():
 @pytest.mark.cuda
 def test_a_soft_step_launches_each_kernel_once_a_view():
     """A three-view soft fit step at the cell's shapes: one forward and one
-    backward launch a view, no recompute span, soft_kernel_rays equal to
-    soft_rays, and two identical steps give the same gradients bit for
-    bit."""
+    backward launch a view, no recompute span, soft_rays three views of
+    rays, and two identical steps give the same gradients bit for bit."""
     from torch.profiler import ProfilerActivity, profile
 
     from openglraytracer_tpu_torch import kernels
@@ -448,8 +447,7 @@ def test_a_soft_step_launches_each_kernel_once_a_view():
             rec = profiling.record()
             names = {(s.layer, s.name) for s in rec.spans}
             assert ("soft_composite", "recompute") not in names
-            assert rec.counters["soft_kernel_rays"].value == \
-                rec.counters["soft_rays"].value == 3 * 512 * 512
+            assert rec.counters["soft_rays"].value == 3 * 512 * 512
         else:
             step_fn(params, opt, start, target)
         torch.cuda.synchronize()

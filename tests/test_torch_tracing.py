@@ -5,8 +5,7 @@ the culled_pallas path (the kernels' plain versions) record every layer
 span, nested under their entry span and sharing its unit; each span is
 one of the profiler's events, opened within 50 us of it; a new session
 starts a new record; the narrow phase's trip counters equal a hand count
-from the frame's CullAux, and the backward's scatter counters one from a
-step's (the rows the kernel sends out on the card only). With no session,
+from the frame's CullAux. With no session,
 span is one shared null context that never opens a range. Imports no jax:
 the tests marked ``cuda`` run on the card with
 
@@ -22,7 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from openglraytracer_tpu_torch.models import animated as t_animated
 from openglraytracer_tpu_torch.models import builders as tb
-from openglraytracer_tpu_torch.ops import culled, geometry
+from openglraytracer_tpu_torch.ops import culled
 from openglraytracer_tpu_torch.ops.accel import (_top_tiles, parse_cull_spec,
                                                  suggest_cull_config,
                                                  tile_image)
@@ -207,7 +206,7 @@ def test_off_span_is_one_null_context_and_opens_no_range(monkeypatch):
     assert profiling.span("raygen", "generate_rays") is profiling.OFF
     assert profiling.span("entry", "render") is profiling.OFF
     assert profiling.count("primary_trips", torch.ones(3)) is None
-    assert profiling.count("scatter_slot_rows", torch.ones(3)) is None
+    assert profiling.count("shadow_trips", torch.ones(3)) is None
     _frame(scene, cam, spec)
     step_fn, params, opt, target = _train_step(scene, cam, spec)
     step_fn(params, opt, scene, target)
@@ -284,44 +283,6 @@ def test_trip_counters_equal_a_hand_count(world):
     assert rec.counters["shadow_trips"] == profiling.Counter(0, shadow)
     assert rec.counters["narrow_tiles"] == profiling.Counter(
         0, (H // th) * (W // tw))
-
-
-@pytest.mark.parametrize("device", [
-    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
-def test_scatter_counters_equal_a_hand_count(device):
-    """A traced step's winner scatters: two calls (the winners' geometry
-    rows with the plane rows, and the material rows), each given every
-    ray. On the card the kernel counts the rows it sends out: the (tile,
-    slot or plane) pairs that receive a ray, a tile of 256 rays being one
-    block's. The plain version on the CPU counts only the rays."""
-    if device == "cuda" and not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    scene, cam, spec = _grid(device, side=3)
-    step_fn, params, opt, target = _train_step(scene, cam, spec)
-    with _session(device):
-        params, opt, _, _ = step_fn(params, opt, scene, target)
-    rec = profiling.record()
-    assert rec.counters["scatter_rows"] == profiling.Counter(0, 2 * H * W)
-    if device == "cpu":
-        assert "scatter_slot_rows" not in rec.counters
-        return
-    (th, tw), kp, ks, hot_m, kb, ksb = parse_cull_spec(spec)
-    assert th * tw <= geometry.SCATTER_CHUNK
-    origins, dirs = generate_rays(cam, H, W)
-    o = tile_image(origins, th, tw).reshape(-1, 3)
-    d = tile_image(dirs, th, tw).reshape(-1, 3)
-    hit, _, aux = culled.culled_geometry(scene, o, d, th * tw, kp, ks,
-                                         static_shadow_mask(scene), hot_m,
-                                         kb, ksb)
-    n_sph = scene.spheres.count
-    is_pln = (hit.hit & (hit.obj_id >= n_sph)).reshape(aux.j_local.shape)
-    pid = (hit.obj_id - n_sph).reshape(aux.j_local.shape)
-    per_call = sum(
-        torch.unique(j[j >= 0]).numel() + torch.unique(p[m]).numel()
-        for j, p, m in zip(aux.j_local, pid, is_pln))
-    assert per_call > aux.j_local.shape[0]
-    assert rec.counters["scatter_slot_rows"] == profiling.Counter(
-        0, 2 * per_call)
 
 
 def test_device_counters_keep_the_last_unit_and_hosts_add():
