@@ -3067,15 +3067,19 @@ def run_training_extras(torch, dev, kernels, culled, shade, shading, accel,
         real = raygen.camera_matrices
         raygen.camera_matrices = lambda cam_: tuple(m.to(dev) for m in mats)
         try:
-            same = raygen.generate_rays(c, 512, 512)[1].cpu()
+            same = raygen._rays_eager(c, 512, 512)[1].cpu()
         finally:
             raygen.camera_matrices = real
         check(torch.equal(same, want), "the card's ray arithmetic differs "
               "from the CPU's on the same camera matrices")
-        got = raygen.generate_rays(c, 512, 512)[1].cpu()
+        with torch.no_grad():
+            got = raygen.generate_rays(c, 512, 512)[1].cpu()
+        check(torch.equal(got, raygen._rays_eager(c, 512, 512)[1].cpu()),
+              "the CUDA graph's rays differ from the eager ops' on the card")
         ray_err = max(ray_err, float((got - want).abs().max()))
     log(f"  on the CPU's camera matrices the card's camera inverse and rays "
         f"of the {len(cams)} views at 512x512 equal the CPU's bit for bit; "
+        f"the CUDA graph's rays equal the card's eager ones; "
         f"end to end, with the card's trig, {ray_err:.3e} off (reported)")
 
     # ---- 30. the soft multi-view step

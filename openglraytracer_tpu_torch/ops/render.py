@@ -9,8 +9,9 @@ single-branch chains, ``trace_rays_mirror`` and the engine and bounce
 branches of ``_render_jit``). There
 is no jit: these are plain functions that enqueue device work and never
 wait for the device, so a frame (raygen -> image) runs without a host sync
-once the cull specs and the static light and bounce masks are known; they
-are computed on the host, once, outside the frame.
+once the cull specs and the static light and bounce masks are known and the
+ray grid's CUDA graph is captured (ops/raygen.py); they are computed on
+the host, once, outside the frame.
 
 The engines, named for the reference's contracts:
 

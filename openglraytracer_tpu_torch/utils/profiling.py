@@ -24,7 +24,8 @@ soft_composite, backward, optimizer, quantize, under the entry layer's
 ``render`` and ``step``); ``count(name, value)`` records the work a layer
 was given (``primary_trips``, ``shadow_trips`` and ``narrow_tiles`` from
 ops/culled.py; ``soft_rays``, ``soft_kept_pairs`` and ``soft_live_pairs``
-from ops/soft.py). The soft forward's spans are ``broad_phase/soft_tile_cones``
+from ops/soft.py; ``raygen_calls`` and ``raygen_graph_replays`` from
+ops/raygen.py). The soft forward's spans are ``broad_phase/soft_tile_cones``
 and ``broad_phase/soft_compact``, ``soft_composite/block`` (a block's
 forward; one a view on the card) and, on the CPU's plain path only,
 ``soft_composite/recompute`` (a block's recompute in the backward, under

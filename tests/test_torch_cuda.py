@@ -822,7 +822,10 @@ def test_raygen_on_the_card_equals_the_cpu(dev, monkeypatch):
     """On the CPU's camera matrices of c5's camera, the card's camera
     inverse (its pivots on the device, sync-free) and its rays equal the
     CPU's bit for bit. (End to end the card's float32 trig may round the
-    view an ulp apart, which the far camera magnifies: 4e-5 on the H100.)"""
+    view an ulp apart, which the far camera magnifies: 4e-5 on the H100.)
+    The rays are the eager ops' (the arithmetic held here; the graph
+    replays them, tests/test_torch_raygen_graph.py), and every host copy
+    is made before the sync-debug window, which holds the program's alone."""
     from openglraytracer_tpu_torch.ops import raygen
     from openglraytracer_tpu_torch.ops.transforms import inv4
     _, cam = sphere_grid_scene(64, device="cpu")
@@ -832,13 +835,15 @@ def test_raygen_on_the_card_equals_the_cpu(dev, monkeypatch):
     for k in range(1, 4):
         pv = pv + proj[:, k:k + 1] * view[k:k + 1, :]
     cam_d = cam._replace(**{k: v.to(dev) for k, v in cam._asdict().items()})
-    want = raygen.generate_rays(cam, 256, 256)[1]
-    monkeypatch.setattr(raygen, "camera_matrices",
-                        lambda c: tuple(m.to(dev) for m in mats))
+    want = raygen._rays_eager(cam, 256, 256)[1]
+    pv_dev = pv.to(dev)
+    mats_dev = tuple(m.to(dev) for m in mats)
+    monkeypatch.setattr(raygen, "camera_matrices", lambda c: mats_dev)
+    torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        inv_dev = inv4(pv.to(dev))
-        d_dev = raygen.generate_rays(cam_d, 256, 256)[1]
+        inv_dev = inv4(pv_dev)
+        d_dev = raygen._rays_eager(cam_d, 256, 256)[1]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(inv_dev.cpu(), mats[2])
